@@ -1,0 +1,175 @@
+"""Core model ops: generalized dense, RMSNorm, RoPE, SwiGLU MLP, attention.
+
+PyTorch counterparts of ``dia_tts_prune_tpu/ops/modules.py`` (float weights),
+as plain functions over a params dict of tensors in the JAX layout:
+
+* ``dense_general`` contracts the trailing axes of ``x`` against the leading
+  axes of a kernel stored ``in_shapes + out_features`` (reference:
+  dia/layers.py:35-66), one ``tensordot``;
+* GQA attention reshapes queries to [B, T, Nkv, G, H] and contracts them
+  against un-repeated K/V;
+* norms, the SiLU gate, RoPE trig and softmax run in float32 whatever the
+  compute dtype (reference: dia/layers.py:101,161-173,393).
+
+A float32 contraction on the card must stay true fp32: PyTorch's default
+``torch.backends.cuda.matmul.allow_tf32 = False`` gives that; callers that
+measure parity set it explicitly.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from .kernels.flash_attention import flash_attention
+
+Params = dict[str, Any]
+
+NEG = torch.finfo(torch.float32).min
+
+
+def dense_general(x: torch.Tensor, kernel: torch.Tensor,
+                  axis: tuple[int, ...] = (-1,)) -> torch.Tensor:
+    """Contract ``axis`` of ``x`` against the leading axes of ``kernel``
+    (reference: dia/layers.py:55-66).  No bias."""
+    norm_axis = [ax if ax >= 0 else x.dim() + ax for ax in axis]
+    return torch.tensordot(x.to(kernel.dtype), kernel,
+                           dims=(norm_axis, list(range(len(norm_axis)))))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in float32 (reference: torch.nn.RMSNorm at dia/layers.py:360-393)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope(
+    x: torch.Tensor,  # [B, T, N, H]
+    position: torch.Tensor,  # [B, T]
+    min_timescale: float,
+    max_timescale: float,
+) -> torch.Tensor:
+    """Split-half rotary embedding with fp32 trig, broadcast over heads:
+    ``[x1*cos - x2*sin, x1*sin + x2*cos]`` with
+    ``freq[i] = position / (min * (max/min)^(2i/H))``."""
+    inv_freq = _inv_freq(x.shape[-1], float(min_timescale), float(max_timescale), x.device)
+    freqs = position.float()[:, :, None, None] * inv_freq  # [B, T, 1, H/2]
+    sin, cos = torch.sin(freqs), torch.cos(freqs)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def _inv_freq(H: int, min_timescale: float, max_timescale: float,
+              device: torch.device) -> torch.Tensor:
+    """RoPE inverse frequencies [H/2], computed once per (H, device) on the
+    CPU in fp32 — the same numbers on every device, and no host→device copy
+    (which would wait for the queued work) inside the decode loop."""
+    fraction = 2.0 * torch.arange(H // 2, dtype=torch.float32) / H
+    base = torch.tensor(max_timescale / min_timescale, dtype=torch.float32)
+    return (1.0 / (min_timescale * base ** fraction)).to(device)
+
+
+def mlp_block(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP with the fused gate/up kernel [D, 2, F] (reference:
+    dia/layers.py:69-105); SiLU on the gate runs in float32."""
+    fused = dense_general(x, params["wi_fused"]["kernel"])  # [..., 2, F]
+    gate, up = fused[..., 0, :], fused[..., 1, :]
+    hidden = F.silu(gate.float()).to(x.dtype) * up
+    return dense_general(hidden, params["wo"]["kernel"])
+
+
+def sdpa(
+    q: torch.Tensor,  # [B, Tq, Nq, H]
+    k: torch.Tensor,  # [B, Tk, Nkv, H]
+    v: torch.Tensor,  # [B, Tk, Nkv, H]
+    mask: torch.Tensor | None,  # bool, broadcastable to [B, 1, Tq, Tk]; True = attend
+    is_causal: bool = False,
+) -> torch.Tensor:
+    """Plain scaled dot-product attention with GQA and an fp32 softmax
+    (``F.scaled_dot_product_attention`` semantics as the reference uses it,
+    dia/layers.py:329-337).  Fully masked rows give exact zeros (the CFG
+    unconditional row's cross-attention).  Returns [B, Tq, Nq, H] in q.dtype.
+
+    The port's attention paths go through the kernels; this is the plain
+    arithmetic their CPU versions share."""
+    B, Tq, Nq, H = q.shape
+    Tk, Nkv = k.shape[1], k.shape[2]
+    G = Nq // Nkv
+    qg = q.reshape(B, Tq, Nkv, G, H).float()
+    scores = torch.einsum("btngh,bsnh->bngts", qg, k.float()) * (1.0 / math.sqrt(H))
+    if mask is not None:
+        m = mask[:, :, None, :, :] if mask.dim() == 4 else mask  # [B, 1, 1, Tq, Tk]
+        scores = scores.masked_fill(~m, NEG)
+    if is_causal:
+        causal = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~causal, NEG)
+    row_max = scores.amax(dim=-1, keepdim=True)
+    row_max = torch.where(row_max <= NEG * 0.5, torch.zeros_like(row_max), row_max)
+    unnorm = torch.exp(scores - row_max)  # masked entries underflow to exactly 0
+    denom = unnorm.sum(dim=-1, keepdim=True)
+    weights = (unnorm / denom.clamp_min(1e-30)).to(q.dtype)
+    out = torch.einsum("bngts,bsnh->btngh", weights.float(), v.float())
+    return out.reshape(B, Tq, Nq, H).to(q.dtype)
+
+
+def attention_qkv(
+    params: Params,
+    x_q: torch.Tensor,  # [B, Tq, Dq]
+    x_kv: torch.Tensor,  # [B, Tkv, Dkv]
+    q_positions: torch.Tensor,  # [B, Tq]
+    kv_positions: torch.Tensor,  # [B, Tkv]
+    rope_min: float,
+    rope_max: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project q/k/v and apply RoPE to q and k (reference: dia/layers.py:271-279)."""
+    q = dense_general(x_q, params["q_proj"]["kernel"])
+    k = dense_general(x_kv, params["k_proj"]["kernel"])
+    v = dense_general(x_kv, params["v_proj"]["kernel"])
+    return rope(q, q_positions, rope_min, rope_max), rope(k, kv_positions, rope_min, rope_max), v
+
+
+def attention_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
+    """Output projection contracting (head, head_dim) (reference: dia/layers.py:222-227)."""
+    return dense_general(attn, params["o_proj"]["kernel"], axis=(-2, -1))
+
+
+def full_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    is_causal: bool,
+    q_segment_ids: torch.Tensor,
+    kv_segment_ids: torch.Tensor,
+) -> torch.Tensor:
+    """Full-sequence attention: always the flash kernel (segment ids carry the
+    reference's pad mask, ops/masks.py).  Unlike the JAX dispatcher, head_dim
+    is not padded to 128 — the kernel takes 32, 64 and 128 as they are."""
+    return flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        q_segment_ids.to(torch.int32).contiguous(), kv_segment_ids.to(torch.int32).contiguous(),
+        is_causal,
+    )
+
+
+def attention(
+    params: Params,
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    rope_min: float,
+    rope_max: float,
+    is_causal: bool,
+    q_segment_ids: torch.Tensor,
+    kv_segment_ids: torch.Tensor,
+) -> torch.Tensor:
+    """Full-sequence attention with projections (encoder self-attention)."""
+    q, k, v = attention_qkv(params, x_q, x_kv, q_positions, kv_positions, rope_min, rope_max)
+    out = full_attention(q, k, v, is_causal, q_segment_ids, kv_segment_ids)
+    return attention_out(params, out)
