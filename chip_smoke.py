@@ -8,17 +8,29 @@ script exits non-zero:
 1. build     — compile every CUDA kernel from ``dia_tts_prune_tpu_torch/csrc``
                (one nvcc per source, all at once);
 2. kernels   — each kernel against its plain PyTorch version at the main
-               path's shapes, fp32 and bf16: max abs error beside the stated
-               tolerance, kernel / plain / library times (CUDA events), the
-               least time the card could take, launches;
+               paths' shapes, fp32 and bf16: max abs error beside the stated
+               tolerance, kernel and library times (device time: calls
+               replayed from a CUDA graph), the plain version's time and the
+               kernel's eager time (events around Python calls), the least
+               time the card could take, launches.  The attention
+               kernels (float and int8 caches), and the int8-matmul and
+               int4-GEMV kernels at the five weight shapes of a decode step
+               and a few odd ones;
 3. fixtures  — the trained fixtures through ``Dia.from_pretrained(...,
                device="cuda")`` in fp32: greedy tokens equal ``golden.npz``,
-               waveform length and head as recorded;
+               waveform length and head as recorded; then packed int8 and
+               int4: teacher-forced logits on the card (kernels) against the
+               CPU (plain versions) on the same packed bytes;
 4. full_width — Dia-1.6B shapes in bf16 and the 44.1 kHz DAC with weights
-               from a numpy seed: a greedy and a seeded-sampled ``generate``
-               and a voice-prompted ``generate_codes`` (the causal-flash
-               prefill).  Launch counts are zeroed just before and read just
-               after; every kernel must have launched.
+               from a numpy seed, three paths, each with the launch counts
+               zeroed just before and read just after: (a) float weights — a
+               greedy and a seeded-sampled ``generate`` and a voice-prompted
+               ``generate_codes`` (the causal-flash prefill); (b)
+               ``quantize_int8()`` then a greedy ``generate`` (int8 weights,
+               int8 KV caches); (c) a fresh model, ``quantize_int4()``, a
+               greedy ``generate``.  Every kernel of a path must have
+               launched, the GEMV kernels once per packed contraction of
+               every step.
 
 Then a ``kernels`` line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -42,6 +54,20 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 den
 # bf16: at most half an ulp, i.e. <= 2^-8 of the value.  A dropped or
 # mis-weighted 128-slot chunk moves outputs of size ~0.05 by far more.
 TOL = {"float32": {"rtol": 0.0, "atol": 1e-5}, "bfloat16": {"rtol": 2.0 ** -8, "atol": 1e-5}}
+# The GEMV kernels sum K <= 8192 fp32 products per output in another order than
+# the plain version's matmul, so their rounding error scales with the sum of the
+# products' magnitudes, not with the output: |out - ref| <= GEMV_SUM_TOL *
+# (|x| @ |w|) + rtol * |ref|, rtol as in TOL (the one rounding to bf16).  1e-6 is
+# ~17 fp32 ulps of that sum (measured on the card: at most 0.2e-6 of it); one
+# dropped row or a wrong group scale is off by ~1e-2 of it.
+GEMV_SUM_TOL = 1e-6
+# Packed fixtures, card (kernels) against CPU (plain versions) on the same bytes,
+# as a share of the largest |logit|: with float KV caches only fp32 summation
+# order differs; with int8 caches a K/V value on a rounding boundary may take the
+# neighbouring code on one side (one step of 1/127 of its head row's range).
+PACKED_LOGIT_TOL = {"kv_float": 1e-4, "kv_int8": 1e-2}
+COLD_BYTES = 128 << 20  # a timing loop cycles through copies of the weight larger than the L2
+DECODER_GEMVS = 145  # packed contractions of one Dia-1.6B decode step: 8 * 18 + the logits head
 WAV_TOL = 1e-4  # cuDNN fp32 convs sum in another order than XLA's (the CPU test's cause)
 
 
@@ -60,6 +86,29 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 48, replays: int = 5) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured into a CUDA graph
+    and replayed, so the calls run back to back on the card with no host
+    between them.  Events around eager calls (``cuda_ms``) measure the rate at
+    which Python can enqueue instead, wherever a call's device time is below
+    the ~10-30 us its launch costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -108,22 +157,23 @@ def flash_case(torch, name, dtype, B, T, Nq, Nkv, H, causal, real_len):
     launches = flash_attention.launches - before
     errs = check(torch, f"flash_attention {name}", dtype, out,
                  lambda *a: flash_attention_plain(*a, causal), (q, k, v, seg, seg))
-    kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v, seg, seg, causal))
+    kernel_ms = graph_ms(torch, lambda: flash_attention(q, k, v, seg, seg, causal), iters=8)
+    eager_ms = cuda_ms(torch, lambda: flash_attention(q, k, v, seg, seg, causal))
     plain_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, seg, seg, causal), iters=5)
     mask = seg[:, :, None] == seg[:, None, :]
     if causal:
         mask &= torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
     pairs = mask.sum().item()
     qh, kh, vh = (x.transpose(1, 2).repeat_interleave(Nq // x.shape[2], dim=1) for x in (q, k, v))
-    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask[:, None]))
+    library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask[:, None]), iters=8)
     e = q.element_size()
     nbytes = e * (2 * B * T * Nq * H + 2 * B * T * Nkv * H) + 4 * 2 * B * T
     bound_ms, bound_by = bound(nbytes, 4.0 * H * Nq * pairs, dtype)
     rec = {"phase": "kernels", "kernel": "flash_attention", "case": name, "dtype": dtype,
            "shape": {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "H": H, "causal": causal,
                      "real_len": real_len},
-           **errs, "ms": kernel_ms, "plain_ms": plain_ms,
+           **errs, "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "launches": launches}
     emit(rec)
@@ -150,29 +200,146 @@ def decode_case(torch, name, dtype, B, T, Nq, Nkv, H, ends):
     for b, e_b in enumerate(ends):
         if e_b == 0 and not bool((out[b] == 0).all()):
             raise RuntimeError(f"decode_attention {name} {dtype}: end=0 row {b} is not exactly 0")
-    kernel_ms = cuda_ms(torch, lambda: decode_attention(q, k, v, start, end), iters=100)
+    kernel_ms = graph_ms(torch, lambda: decode_attention(q, k, v, start, end))
+    eager_ms = cuda_ms(torch, lambda: decode_attention(q, k, v, start, end), iters=100)
     plain_ms = cuda_ms(torch, lambda: decode_attention_plain(q, k, v, start, end))
     slots = torch.arange(T, device="cuda")
     mask = (slots[None] >= start[:, None]) & (slots[None] < end[:, None])
     qh = q[:, :, None]
     kh, vh = (x.transpose(1, 2).repeat_interleave(Nq // Nkv, dim=1) for x in (k, v))
-    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask[:, None, None]), iters=100)
+    library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask[:, None, None]))
     valid = sum(ends)
     e = q.element_size()
     nbytes = e * (2 * B * Nq * H + 2 * valid * Nkv * H) + 4 * 2 * B
     bound_ms, bound_by = bound(nbytes, 4.0 * H * Nq * valid, dtype)
     rec = {"phase": "kernels", "kernel": "decode_attention", "case": name, "dtype": dtype,
            "shape": {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "H": H, "ends": list(ends)},
-           **errs, "ms": kernel_ms, "plain_ms": plain_ms,
+           **errs, "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "launches": launches}
     emit(rec)
     return rec
 
 
+def decode_int8_case(torch, name, dtype, B, T, Nq, Nkv, H, ends, with_new):
+    """The decode kernel over an int8 cache with slot scales; ``with_new``
+    adds the step's own unquantized K/V (the self-attention form)."""
+    import torch.nn.functional as F
+
+    from dia_tts_prune_tpu_torch.models.dia import quantize_kv
+    from dia_tts_prune_tpu_torch.ops.kernels import decode_attention, decode_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Nq, H, generator=g, device="cuda").to(dt)
+    k8, ks = quantize_kv(torch.randn(B, T, Nkv, H, generator=g, device="cuda"))
+    v8, vs = quantize_kv(torch.randn(B, T, Nkv, H, generator=g, device="cuda"))
+    start = torch.zeros(B, dtype=torch.int32, device="cuda")
+    end = torch.tensor(ends, dtype=torch.int32, device="cuda")
+    args = [q, k8, v8, start, end, ks, vs]
+    if with_new:
+        args += [torch.randn(B, Nkv, H, generator=g, device="cuda").to(dt) for _ in range(2)]
+    before = decode_attention.launches
+    out = decode_attention(*args)
+    launches = decode_attention.launches - before
+    errs = check(torch, f"decode_attention {name}", dtype, out, decode_attention_plain, args)
+    for b, e_b in enumerate(ends):
+        if e_b == 0 and not with_new and not bool((out[b] == 0).all()):
+            raise RuntimeError(f"decode_attention {name} {dtype}: end=0 row {b} is not exactly 0")
+    kernel_ms = graph_ms(torch, lambda: decode_attention(*args))
+    eager_ms = cuda_ms(torch, lambda: decode_attention(*args), iters=100)
+    plain_ms = cuda_ms(torch, lambda: decode_attention_plain(*args))
+    # the library call: SDPA over the dequantized cache, the new token in slot end[b]
+    kd, vd = (k8.float() * ks[..., None]).to(dt), (v8.float() * vs[..., None]).to(dt)
+    lib_end = end.clone()
+    if with_new:
+        rows = torch.arange(B, device="cuda")
+        kd[rows, end.long()], vd[rows, end.long()] = args[7], args[8]
+        lib_end += 1
+    slots = torch.arange(T, device="cuda")
+    mask = slots[None] < lib_end[:, None]
+    kh, vh = (x.transpose(1, 2).repeat_interleave(Nq // Nkv, dim=1) for x in (kd, vd))
+    library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kh, vh, attn_mask=mask[:, None, None]))
+    valid = sum(ends)
+    e = q.element_size()
+    nbytes = (e * 2 * B * Nq * H + 2 * valid * Nkv * (H + 4) + 4 * 2 * B
+              + (e * 2 * B * Nkv * H if with_new else 0))
+    bound_ms, bound_by = bound(nbytes, 4.0 * H * Nq * (valid + (B if with_new else 0)), dtype)
+    rec = {"phase": "kernels", "kernel": "decode_attention", "case": name, "dtype": dtype,
+           "cache": "int8", "current_token": with_new,
+           "shape": {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "H": H, "ends": list(ends)},
+           **errs, "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "launches": launches}
+    emit(rec)
+    return rec
+
+
+def gemv_case(torch, kernel, dtype, B, K, N, group=None, layout=None, time_it=True):
+    """``int8_matmul`` (layout None) or ``int4_gemv`` on a weight packed from
+    seed-made floats, against its plain version; times over copies of the
+    weight that together exceed the L2, as a decode step finds them cold."""
+    from dia_tts_prune_tpu_torch.ops import quant
+    from dia_tts_prune_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    from dia_tts_prune_tpu_torch.ops.kernels import int4_gemv_plain, int8_matmul_plain
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dt = getattr(torch, dtype)
+    w = torch.randn(K, N, generator=g, device="cuda") / K ** 0.5
+    x = torch.randn(B, K, generator=g, device="cuda").to(dt)
+    if kernel == "int8_matmul":
+        qk = quant.quantize_int8(w)
+        scale, extra, plain, deq = qk.scale.reshape(N), (), int8_matmul_plain, quant.dequantize(qk)
+    else:
+        qk = quant.quantize_int4(w, group=group, halfsplit=layout == "halfsplit")
+        if qk.layout != layout or qk.group != group:
+            raise RuntimeError(f"packer gave {qk.layout}/{qk.group} for {layout}/{group} at K={K}")
+        scale, extra, plain, deq = qk.scale, (layout,), int4_gemv_plain, quant.dequantize4(qk)
+    fn = KERNEL_WRAPPERS[kernel]
+    before = fn.launches
+    out = fn(x, qk.values, scale, *extra)
+    launches = fn.launches - before
+    torch.cuda.synchronize()
+    ref = plain(x.float(), qk.values, scale, *extra)
+    diff = (out.float() - ref).abs()
+    sum_abs = x.float().abs() @ deq.abs()
+    tol = GEMV_SUM_TOL * sum_abs + TOL[dtype]["rtol"] * ref.abs()
+    rec = {"phase": "kernels", "kernel": kernel, "dtype": dtype,
+           "shape": {"B": B, "K": K, "N": N, "group": group, "layout": layout},
+           "max_abs_err": diff.max().item(), "max_err_over_tol": (diff / tol).max().item(),
+           "tol": {"sum_abs": GEMV_SUM_TOL, "rtol": TOL[dtype]["rtol"]}, "launches": launches}
+    if not rec["max_err_over_tol"] <= 1.0:
+        raise RuntimeError(f"{kernel}: kernel disagrees with its plain version: {rec}")
+    nbytes = (qk.values.numel() + 4 * scale.numel() + x.element_size() * (B * K + B * N))
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * B * K * N, dtype)
+    if time_it:
+        n = max(2, min(64, -(-COLD_BYTES // qk.values.numel())))
+        vals = [qk.values.clone() for _ in range(n)]
+        wlib = [deq.to(dt) for _ in range(max(2, n // 2 if dt == torch.bfloat16 else n // 4))]
+        turn = iter(range(1 << 30))
+        rec["ms"] = graph_ms(torch, lambda: fn(x, vals[next(turn) % n], scale, *extra), iters=2 * n)
+        rec["eager_ms"] = cuda_ms(torch, lambda: fn(x, vals[next(turn) % n], scale, *extra),
+                                  iters=max(32, 2 * n))
+        rec["plain_ms"] = cuda_ms(
+            torch, lambda: plain(x, vals[next(turn) % n], scale, *extra), iters=4, warmup=1)
+        rec["library_ms"] = graph_ms(
+            torch, lambda: torch.matmul(x, wlib[next(turn) % len(wlib)]), iters=4 * len(wlib))
+        rec["weight_copies"] = n
+    emit(rec)
+    return rec
+
+
+# the packed weights one Dia-1.6B decode step contracts against (K, N)
+GEMV_SHAPES = {"attn_2048x2048": (2048, 2048), "self_kv_2048x512": (2048, 512),
+               "mlp_wi_2048x16384": (2048, 16384), "mlp_wo_8192x2048": (8192, 2048),
+               "logits_2048x9252": (2048, 9252)}
+INT4_FORMS = [(128, "halfsplit"), (None, "halfsplit"), (128, "parity"), (None, "parity")]
+
+
 def phase_kernels(torch) -> dict:
-    """Every kernel at the main path's shapes; returns the bf16 record of
+    """Every kernel at the main paths' shapes; returns the bf16 record of
     each kernel's heaviest use for the final ``kernels`` line."""
     picked = {}
     for dtype in ("float32", "bfloat16"):
@@ -182,7 +349,26 @@ def phase_kernels(torch) -> dict:
             rec = decode_case(torch, "self", dtype, 2, 3072, 16, 4, 128, ends)
         decode_case(torch, "cross_S1024", dtype, 2, 1024, 16, 16, 128, [0, 700])
         decode_case(torch, "cross_S128", dtype, 2, 128, 16, 16, 128, [0, 61])
-        picked = {"flash_attention": enc, "decode_attention": rec}
+        for ends in ([0, 3071], [1537, 1537]):
+            rec8 = decode_int8_case(torch, "self_int8", dtype, 2, 3072, 16, 4, 128, ends, True)
+        decode_int8_case(torch, "cross_S1024_int8", dtype, 2, 1024, 16, 16, 128, [0, 700], False)
+        decode_int8_case(torch, "cross_S128_int8", dtype, 2, 128, 16, 16, 128, [0, 61], False)
+        for name, (K, N) in GEMV_SHAPES.items():
+            for B in (2, 64):
+                r8 = gemv_case(torch, "int8_matmul", dtype, B, K, N)
+                r4 = [gemv_case(torch, "int4_gemv", dtype, B, K, N, g, lay)
+                      for g, lay in INT4_FORMS]
+                if name == "mlp_wi_2048x16384" and B == 2:
+                    mlp8, mlp4 = r8, r4[0]
+        # odd shapes: K not a multiple of 256, N a multiple of 8 only / of nothing, an odd K
+        for K, N in ((1000, 520), (1000, 1027)):
+            gemv_case(torch, "int8_matmul", dtype, 3, K, N, time_it=False)
+            gemv_case(torch, "int4_gemv", dtype, 3, K, N, 100, "halfsplit", time_it=False)
+            gemv_case(torch, "int4_gemv", dtype, 3, K, N, 50, "parity", time_it=False)
+        gemv_case(torch, "int4_gemv", dtype, 3, 1023, 520, 33, "unpacked", time_it=False)
+        gemv_case(torch, "int4_gemv", dtype, 3, 1023, 520, None, "unpacked", time_it=False)
+        picked = {"flash_attention": enc, "decode_attention": rec, "decode_attention_int8": rec8,
+                  "int8_matmul": mlp8, "int4_gemv": mlp4}
     return picked
 
 
@@ -208,6 +394,80 @@ def phase_fixtures(torch, repo: Path) -> None:
         length_ok = wav.shape[0] == int(golden["wav_sha_len"])
         if not (tokens_equal and length_ok and head_err <= WAV_TOL):
             raise RuntimeError(f"fixture {name} disagrees with golden.npz: {rec}")
+        for mode in ("int8", "int4"):
+            packed_fixture(torch, d, name, mode, golden["tokens"], meta)
+
+
+def params_to(tree, device):
+    """A params tree (tensors and packed kernels) on another device."""
+    if isinstance(tree, dict):
+        return {k: params_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def packed_fixture(torch, d, name, mode, tokens, meta, steps=96) -> None:
+    """A fixture packed once on the CPU; the same bytes then run teacher-forced
+    on the card (kernels) and on the CPU (plain versions): a prompt prefill
+    over the first ``steps`` golden frames (more than 64 rows: the matmul
+    route) and then one decode step per frame (the kernels), with float and
+    with int8 KV caches."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia
+    from dia_tts_prune_tpu_torch.generate import CFG_BATCH, conditioning
+    from dia_tts_prune_tpu_torch.models import dia as model
+    from dia_tts_prune_tpu_torch.tokenizer import encode_cfg_batch
+
+    cpu = Dia.from_pretrained(d, compute_dtype="float32", device="cpu")
+    if mode == "int8":
+        cpu.quantize_int8()
+    else:
+        cpu.quantize_int4()
+    gpu = Dia(cpu.config, params_to(cpu.params, "cuda"), "float32", device="cuda")
+    cfg, dd = cpu.config, cpu.config.data
+    enc = encode_cfg_batch(meta["prompt"], dd.text_length, dd.text_pad_value)
+    frames = np.ascontiguousarray(tokens[:steps]).astype(np.int64)
+    rec = {"phase": "fixtures", "fixture": name, "packed": mode, "teacher_forced_steps": steps,
+           "tol_share_of_max_logit": PACKED_LOGIT_TOL}
+
+    def run(dia, kv_int8):
+        dev = dia.device
+        with torch.no_grad():
+            cross, padding, ends = conditioning(dia.params, cfg, torch.from_numpy(enc).to(dev),
+                                                torch.float32, None)
+            tgt = torch.from_numpy(frames).to(dev)[None].expand(CFG_BATCH, -1, -1)
+            rows = torch.arange(steps, device=dev)[None].expand(CFG_BATCH, -1)
+            cache = model.new_self_cache(cfg, CFG_BATCH, 128, torch.float32, dev, quant=kv_int8)
+            pre = model.decoder_prefill(dia.params, cfg, tgt, rows, cross, cache,
+                                        torch.ones_like(rows, dtype=torch.int32),
+                                        padding.to(torch.int32))
+            cache = model.new_self_cache(cfg, CFG_BATCH, 128, torch.float32, dev, quant=kv_int8)
+            if kv_int8:
+                cross = model.quantize_cache(cross)
+            out = [model.decode_step(dia.params, cfg, tgt[:, t - 1:t], rows[:, t:t + 1], t - 1,
+                                     cache, cross, ends) for t in range(1, steps)]
+        return pre.cpu(), torch.cat(out, dim=1).cpu()
+
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts
+
+    for kv_int8 in (False, True):
+        n0 = launch_counts()
+        pre_g, dec_g = run(gpu, kv_int8)
+        launched = {k: v - n0[k] for k, v in launch_counts().items()}
+        pre_c, dec_c = run(cpu, kv_int8)
+        key = "kv_int8" if kv_int8 else "kv_float"
+        top = float(dec_c.abs().max())
+        rec[key] = {"decode_max_abs_diff": float((dec_g - dec_c).abs().max()),
+                    "prefill_max_abs_diff": float((pre_g - pre_c).abs().max()),
+                    "max_abs_logit": top, "launches_on_card": launched}
+        worst = max(rec[key]["decode_max_abs_diff"], rec[key]["prefill_max_abs_diff"])
+        gemv = "int8_matmul" if mode == "int8" else "int4_gemv"
+        if not worst <= PACKED_LOGIT_TOL[key] * top or launched[gemv] <= 0:
+            raise RuntimeError(f"packed fixture {name} {mode}: card and CPU disagree: {rec}")
+    kw = dict(temperature=0.0, seed=meta["seed"])
+    rec["greedy_tokens_equal_card_cpu"] = bool(np.array_equal(
+        gpu.generate_codes(meta["prompt"], **kw), cpu.generate_codes(meta["prompt"], **kw)))
+    emit(rec)
 
 
 def phase_full_width(torch) -> dict:
@@ -221,14 +481,36 @@ def phase_full_width(torch) -> dict:
     t0 = time.perf_counter()
     cfg = dia_1_6b_config()
     dac_cfg = DACConfig()
-    dia = Dia(cfg, init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"), "bfloat16",
-              dac_params=init_dac_decoder_params(dac_cfg, seed=1, device="cuda"),
-              dac_config=dac_cfg, device="cuda")
+    dac_params = init_dac_decoder_params(dac_cfg, seed=1, device="cuda")
+
+    def new_model():
+        return Dia(cfg, init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"), "bfloat16",
+                   dac_params=dac_params, dac_config=dac_cfg, device="cuda")
+
+    dia = new_model()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     text = ("[S1] Dia is an open weights text to dialogue model. [S2] You get full control "
             "over scripts and voices. [S1] Wow. Amazing.")
     runs = []
+
+    def describe(runs):
+        return [describe_run(*r) for r in runs]
+
+    def describe_run(name, frames, steps, gen_s, dec_s, w):
+        total_s = gen_s + (dec_s or 0.0)
+        rec = {"run": name, "frames": int(frames), "decode_steps": int(steps),
+               "wall_s": total_s, "ms_per_step": 1e3 * gen_s / max(steps, 1),
+               "tokens_per_s": steps / gen_s if gen_s else None}
+        if w is not None:
+            finite = bool(np.isfinite(w).all())
+            rec.update({"audio_s": w.shape[0] / dac_cfg.sample_rate, "waveform_finite": finite,
+                        "rtf": (w.shape[0] / dac_cfg.sample_rate) / total_s})
+            if not finite or w.shape[0] != frames * dac_cfg.hop_length:
+                raise RuntimeError(f"full-width {name}: bad waveform {rec}")
+        if dec_s is not None:
+            rec["codec_decode_s"] = dec_s
+        return rec
 
     def timed(fn):
         """(result, seconds, decode steps run): every step launches the decode
@@ -255,33 +537,46 @@ def phase_full_width(torch) -> dict:
         temperature=0.0, audio_prompt_codes=codes, audio_prompt_text=text))
     runs.append(("prompted_codes", pcodes.shape[0], n3, s3, None, None))
     torch.cuda.synchronize()
-    counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-
-    results = []
-    for name, frames, steps, gen_s, dec_s, w in runs:
-        total_s = gen_s + (dec_s or 0.0)
-        rec = {"run": name, "frames": int(frames), "decode_steps": int(steps),
-               "wall_s": total_s, "ms_per_step": 1e3 * gen_s / max(steps, 1),
-               "tokens_per_s": steps / gen_s if gen_s else None}
-        if w is not None:
-            finite = bool(np.isfinite(w).all())
-            rec.update({"audio_s": w.shape[0] / dac_cfg.sample_rate, "waveform_finite": finite,
-                        "rtf": (w.shape[0] / dac_cfg.sample_rate) / total_s})
-            if not finite or w.shape[0] != frames * dac_cfg.hop_length:
-                raise RuntimeError(f"full-width {name}: bad waveform {rec}")
-        if dec_s is not None:
-            rec["codec_decode_s"] = dec_s
-        results.append(rec)
     if codes.shape[0] == 0 or pcodes.shape[0] == 0:
         raise RuntimeError("full-width run generated no frames")
+    paths = {"bf16": {"runs": describe(runs), "launches": launch_counts(),
+                      "peak_memory_bytes": int(torch.cuda.max_memory_allocated())}}
+
+    # the quantized paths: int8 on the model that just ran (its float decoder
+    # kernels are freed), int4 on a fresh one
+    def quantized_path(name, dia, quantize, gemv):
+        t = time.perf_counter()
+        quantize(dia)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        codes, gen_s, steps = timed(
+            lambda: dia.generate_codes(text, max_tokens=512, temperature=0.0, seed=0))
+        wav, dec_s, _ = timed(lambda: dia._decode_waveform(codes))
+        counts = launch_counts()
+        paths[name] = {"runs": describe([("greedy", codes.shape[0], steps, gen_s, dec_s, wav)]),
+                       "launches": counts, "quantize_s": quantize_s,
+                       "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+                       "memory_allocated_bytes": int(torch.cuda.memory_allocated())}
+        other = "int4_gemv" if gemv == "int8_matmul" else "int8_matmul"
+        if steps <= 0 or counts[gemv] != DECODER_GEMVS * steps or counts[other] != 0:
+            raise RuntimeError(f"full-width {name}: expected {DECODER_GEMVS} {gemv} launches in "
+                               f"each of {steps} steps and none of {other}: {counts}")
+
+    quantized_path("int8", dia, lambda d: d.quantize_int8(), "int8_matmul")
+    del dia
+    quantized_path("int4", new_model(), lambda d: d.quantize_int4(), "int4_gemv")
+
     rec = {"phase": "full_width", "config": "dia_1_6b_config() bf16, DACConfig(), seed weights",
-           "init_s": init_s, "runs": results, "launches": counts,
-           "peak_memory_bytes": int(peak)}
+           "init_s": init_s, "paths": paths}
     emit(rec)
-    missing = [k for k, n in counts.items() if n <= 0]
-    if missing:
-        raise RuntimeError(f"main path never launched {missing}: {counts}")
+    for name, path in paths.items():
+        ran = ("flash_attention", "decode_attention",
+               *(k for k in ("int8_matmul", "int4_gemv") if k.startswith(name)))
+        missing = [k for k in ran if path["launches"][k] <= 0]
+        if missing:
+            raise RuntimeError(f"the {name} path never launched {missing}: {path['launches']}")
     return rec
 
 
@@ -310,18 +605,22 @@ def main() -> int:
     phase_fixtures(torch, repo)
     full = phase_full_width(torch)
 
-    sources = {"flash_attention": ("dia_tts_prune_tpu_torch/csrc/flash_attention.cu",
-                                   "dia_tts_prune_tpu/ops/kernels/flash_attention.py:359"),
-               "decode_attention": ("dia_tts_prune_tpu_torch/csrc/decode_attention.cu",
-                                    "dia_tts_prune_tpu/ops/kernels/decode_attention.py:133")}
+    csrc, jax_kernels = "dia_tts_prune_tpu_torch/csrc/", "dia_tts_prune_tpu/ops/kernels/"
+    # (kernel, its record of the kernels phase, the path whose launches it reports, replaces)
+    lines = [("flash_attention", "flash_attention", "bf16", "flash_attention.py:359"),
+             ("decode_attention", "decode_attention", "bf16", "decode_attention.py:133"),
+             ("decode_attention", "decode_attention_int8", "int8", "decode_attention.py:133"),
+             ("int8_matmul", "int8_matmul", "int8", "int8_matmul.py:53"),
+             ("int4_gemv", "int4_gemv", "int4", "int4_gemv.py:129")]
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": full["launches"][name], "max_abs_err": picked[name]["max_abs_err"],
-         "ms": picked[name]["ms"], "plain_ms": picked[name]["plain_ms"],
-         "bound_ms": picked[name]["bound_ms"], "bound_by": picked[name]["bound_by"],
-         "library_ms": picked[name]["library_ms"],
-         "case": f"{picked[name]['case']} {picked[name]['dtype']}"}
-        for name, (src, replaces) in sources.items()]})
+        {"name": name, "route": "cuda", "source": f"{csrc}{name}.cu",
+         "replaces": jax_kernels + replaces,
+         "launches": full["paths"][path]["launches"][name], "max_abs_err": rec["max_abs_err"],
+         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+         "case": f"{rec.get('case', '')} {json.dumps(rec['shape'])} {rec['dtype']}".strip(),
+         "path": path}
+        for name, pick, path, replaces in lines for rec in (picked[pick],)]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0] if smi else "nvidia-smi: no card listed", flush=True)

@@ -3,7 +3,8 @@ reference: dia/model.py:101-846).
 
 ``Dia.from_pretrained(local_dir)`` / ``Dia.from_local(config, checkpoint)``,
 ``generate_codes(text)`` → codec tokens, ``generate(text)`` → waveform and
-``save_audio`` (16-bit PCM WAV).  Everything runs on ``device``, ``"cuda"``
+``save_audio`` (16-bit PCM WAV); ``quantize_int8()`` / ``quantize_int4()``
+switch the decoder to packed weights before generating.  Everything runs on ``device``, ``"cuda"``
 unless the caller passes another; asking for CUDA on a machine without it
 raises — nothing moves to the CPU on its own.
 """
@@ -21,6 +22,7 @@ from .checkpoint import load_safetensors_checkpoint
 from .config import DiaConfig
 from .generate import DTYPES, DiaGenerator
 from .models.dac import DEFAULT_SAMPLE_RATE, DACConfig, decode_codes, load_dac_safetensors
+from .ops.quant import quantize_params_int4_packed, quantize_params_int8_packed
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -152,6 +154,33 @@ class Dia:
         if codes.shape[0] == 0:
             return None
         return self._decode_waveform(codes)
+
+    def _set_params(self, params) -> None:
+        """Swap the weights and rebuild the generator, so that nothing keeps
+        the replaced tensors alive: their device memory is freed here."""
+        self.params = params
+        self.generator = DiaGenerator(params, self.config, self.compute_dtype, self.device)
+
+    def quantize_int8(self) -> None:
+        """Swap the decoder's dense kernels to packed int8 (values +
+        per-column scales) and free the float ones.  Decode steps then stream
+        int8 weights through the int8-matmul kernel, and generation keeps its
+        KV caches int8 (``generate_tokens(kv_int8=...)``)."""
+        self._set_params(quantize_params_int8_packed(self.params))
+
+    def quantize_int4(self, group: int | None = 128, mlp_only: bool = False,
+                      halfsplit: bool = True) -> None:
+        """Swap the decoder's dense kernels to packed int4 nibble bytes and
+        free the float ones.  ``group`` rows of each contraction share one
+        scale per output column (None = per column).  ``mlp_only`` packs just
+        the MLP kernels at int4 and the decoder's other kernels at int8 (the
+        hybrid).  ``halfsplit`` pairs contraction halves per byte, falling
+        back per kernel to row parity where the halves do not align with the
+        groups.  (The JAX signature's ``nibble`` has no counterpart: nibble
+        bytes are the port's only stored form.)"""
+        params = quantize_params_int4_packed(self.params, group=group, mlp_only=mlp_only,
+                                             halfsplit=halfsplit)
+        self._set_params(quantize_params_int8_packed(params) if mlp_only else params)
 
     def save_audio(self, path: str | Path, audio: np.ndarray | None,
                    sample_rate: int = DEFAULT_SAMPLE_RATE) -> None:

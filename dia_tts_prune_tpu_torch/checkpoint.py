@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .config import DiaConfig
+from .ops.quant import Quantized4Kernel, QuantizedKernel
 
 Params = dict[str, Any]
 
@@ -101,7 +102,27 @@ def params_from_jax(numpy_tree: Any, dtype=torch.float32,
                     device: str | torch.device = "cuda") -> Any:
     """The JAX package's params, given as a tree of numpy arrays (nested
     dicts and lists), as the port's params: the same tree of tensors.  The
-    layouts are identical, so this is a leaf-by-leaf copy."""
+    layouts are identical, so this is a leaf-by-leaf copy.  A packed kernel
+    of the JAX package (recognised by its class name and fields: nothing of
+    that package is imported) becomes the port's container with the very
+    same bytes: int8 values and fp32 scales keep their types."""
+    packed = type(numpy_tree).__name__
+    if packed in ("QuantizedKernel", "Quantized4Kernel"):
+        src = numpy_tree
+        scale = torch.from_numpy(np.array(src.scale, dtype=np.float32)).to(device)
+        values = np.asarray(src.values)
+        if packed == "QuantizedKernel":
+            return QuantizedKernel(torch.from_numpy(np.array(values, dtype=np.int8)).to(device),
+                                   scale, src.in_shape, src.out_shape)
+        if getattr(src, "layout", "kgn") != "kgn":
+            raise ValueError("params_from_jax: the 'kng' int4 layout serves XLA's 4-bit dtype "
+                             "and has no counterpart in the port")
+        if not src.nibble:  # XLA 4-bit values, [K, N] or grouped [K/G, G, N]: one per byte, flat
+            n_lead = values.ndim - (2 if src.group is None else 3)
+            values = values.astype(np.int8).reshape(*values.shape[:n_lead], -1, values.shape[-1])
+        return Quantized4Kernel(torch.from_numpy(np.array(values, dtype=np.int8)).to(device),
+                                scale, src.in_shape, src.out_shape, src.group, src.nibble,
+                                src.halfsplit)
     if isinstance(numpy_tree, dict):
         return {k: params_from_jax(v, dtype, device) for k, v in numpy_tree.items()}
     if isinstance(numpy_tree, (list, tuple)):

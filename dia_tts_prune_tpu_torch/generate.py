@@ -16,6 +16,12 @@ host with the reference's exact semantics (dia/model.py:748-815):
 * the first ``max_delay`` steps keep the delayed BOS/PAD template rows;
 * generation stops when the countdown reaches zero or ``max_tokens`` nears.
 
+With a packed decoder (``Dia.quantize_int8`` / ``quantize_int4``) the loop
+also keeps both caches int8 (``models.dia.QuantKVCache``), as the JAX package
+does on its accelerator: the self cache from the start, the cross cache once
+the prefill has used its float form.  ``generate_tokens(kv_int8=...)`` takes
+the place of the JAX package's ``DIA_KV_INT8`` environment variable.
+
 Sampling draws Gumbel noise from a ``torch.Generator`` seeded per call, so a
 seeded run repeats itself; it cannot repeat the JAX package's ``jax.random``
 draws (greedy decoding is identical).
@@ -36,9 +42,11 @@ from .models.dia import (
     encoder_forward,
     new_self_cache,
     precompute_cross_cache,
+    quantize_cache,
 )
 from .ops.delay import revert_audio_delay_np
 from .ops.kernels.decode_attention import ends_from_padding_mask
+from .ops.quant import PACKED_TYPES
 from .ops.sampling import apply_constraints, cfg_combine, sample_next_token
 from .state import cross_attention_mask, new_encoder_state, prepare_audio_prompt
 from .tokenizer import build_effective_text, encode_cfg_batch
@@ -51,6 +59,16 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the kernels' 
 def _resolve_seed(seed: int | None) -> int:
     """None → a fresh random seed (unseeded runs differ); an int as-is."""
     return random.randint(0, 2**31 - 1) if seed is None else int(seed)
+
+
+def decoder_is_packed(params) -> bool:
+    """True if the decoder's dense kernels are stored packed (int8 or int4
+    with scales) — the trees that serve with int8 KV caches by default."""
+    try:
+        kernel = params["decoder"]["layers"]["mlp"]["wo"]["kernel"]
+    except (KeyError, TypeError):
+        return False
+    return isinstance(kernel, PACKED_TYPES)
 
 
 def _bucket(n: int, mult: int, cap: int) -> int:
@@ -190,9 +208,11 @@ class DiaGenerator:
         seed: int | None = None,
         verbose: bool = False,
         cache_len: int | None = None,
+        kv_int8: bool | None = None,
     ) -> np.ndarray:
         """Text → undelayed codec tokens [T, C] (delay reverted, tail trimmed,
-        out-of-codebook values clamped to 0)."""
+        out-of-codebook values clamped to 0).  ``kv_int8``: int8 self and
+        cross caches; None = on iff the decoder's kernels are packed."""
         cfg = self.config
         d = cfg.data
         dtype = DTYPES[self.compute_dtype]
@@ -218,10 +238,14 @@ class DiaGenerator:
         cross_cache, padding_mask, cross_ends = conditioning(
             self.params, cfg, torch.from_numpy(enc_input).to(self.device), dtype,
             _cross_window_for(enc_input, cfg))
-        self_cache = new_self_cache(cfg, CFG_BATCH, cache_len, dtype, self.device)
+        if kv_int8 is None:
+            kv_int8 = decoder_is_packed(self.params)
+        self_cache = new_self_cache(cfg, CFG_BATCH, cache_len, dtype, self.device, quant=kv_int8)
         if window is not None:
             run_prefill(self.params, cfg, tokens_buf, window, prefill_step, cross_cache,
                         padding_mask, self_cache, dtype)
+        if kv_int8:  # prefill's flash attention reads the float cross cache
+            cross_cache = quantize_cache(cross_cache)
         final_step = decode_loop(
             self.params, cfg, tokens_buf, self_cache, cross_cache, cross_ends, prefill_step,
             max_tokens, cfg_scale, temperature, top_p, cfg_filter_top_k, generator, dtype)

@@ -19,6 +19,15 @@ token would dominate the step's memory traffic.  Every decode-step attention
 (self and cross) runs the decode-attention kernel over each row's valid slot
 range; full-sequence attention (encoder, prompt prefill) runs the flash
 kernel.
+
+Decoder kernels may be packed int8/int4 containers (``ops/quant.py``): every
+function here works unchanged on such a tree, ``dense_general`` dispatching on
+the leaf's type.  The caches may be int8 (``QuantKVCache``): prefill quantizes
+K/V on the way into the cache, and a decode step attends the quantized prefix
+plus its own unquantized K/V before committing them quantized — the order of
+the JAX package's ``decode_step_scan`` (:661-745), which the port needs no
+separate function for (it has no ``lax.scan``; ``decode_step`` is the one
+step for float and packed trees alike).
 """
 
 from __future__ import annotations
@@ -51,7 +60,35 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+class QuantKVCache(NamedTuple):
+    """int8 K/V with per-(slot, head) symmetric scales: k/v int8
+    [L, B, T, N, H], ks/vs fp32 [L, B, T, N].  The decode loop re-reads the
+    whole cache every token, so this halves its bytes against bf16; the
+    scales stay outside the attention's dots (decode-attention kernel)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the trailing (head-dim) axis: [..., H] →
+    (int8 [..., H], fp32 scales [...])."""
+    scale = x.abs().amax(dim=-1).clamp_min(1e-12).float() / 127.0
+    return torch.round(x.float() / scale[..., None]).to(torch.int8), scale
+
+
+def quantize_cache(cache: KVCache) -> QuantKVCache:
+    """A float cache as an int8 one (the cross cache, once prefill has used it)."""
+    kq, ks = quantize_kv(cache.k)
+    vq, vs = quantize_kv(cache.v)
+    return QuantKVCache(k=kq, v=vq, ks=ks, vs=vs)
+
+
 def _layer(layers: Params, i: int) -> Params:
+    """Layer ``i`` of the stacked tree; a packed kernel indexes its values
+    and scales and keeps its metadata."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
 
 
@@ -188,12 +225,19 @@ def precompute_cross_cache(
 
 
 def new_self_cache(config: DiaConfig, batch: int, max_len: int | None = None,
-                   dtype=torch.float32, device: str | torch.device = "cuda") -> KVCache:
+                   dtype=torch.float32, device: str | torch.device = "cuda",
+                   quant: bool = False) -> KVCache | QuantKVCache:
     """Preallocated decoder self-attention cache [L, B, T, Nkv, H]
-    (reference: dia/state.py:72-109, time-major)."""
+    (reference: dia/state.py:72-109, time-major).  ``quant`` allocates the
+    int8 + per-slot-scale layout (``QuantKVCache``)."""
     dec = config.model.decoder
     T = max_len if max_len is not None else config.data.audio_length
     shape = (dec.n_layer, batch, T, dec.kv_heads, dec.gqa_head_dim)
+    if quant:
+        return QuantKVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                            v=torch.zeros(shape, dtype=torch.int8, device=device),
+                            ks=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                            vs=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -204,14 +248,15 @@ def decoder_prefill(
     tgt_BxTxC: torch.Tensor,  # [B, P, C]
     dec_positions: torch.Tensor,  # [B, P]
     cross_cache: KVCache,
-    self_cache: KVCache,
+    self_cache: KVCache | QuantKVCache,
     dec_segment_ids: torch.Tensor,  # int [B, P]: 1 = valid prompt row
     enc_segment_ids: torch.Tensor,  # int [B, S]: text padding mask
     compute_dtype=torch.float32,
 ) -> torch.Tensor:
     """Prefill the self-attention cache from prompt tokens: causal flash
     self-attention (segment = valid row) and flash cross-attention (segment =
-    text non-pad), K/V written into cache slots [0, P) in place.  Returns
+    text non-pad), K/V written into cache slots [0, P) in place, quantized on
+    the way into a ``QuantKVCache``.  The cross cache is float here.  Returns
     logits [B, P, C, V] fp32 (reference: dia/model.py:403-419, without its
     prefill off-by-one, quirk Q5)."""
     m = config.model
@@ -236,8 +281,12 @@ def decoder_prefill(
 
         h = rms_norm(x, lp["pre_mlp_norm"]["scale"], eps)
         x = x + mlp_block(lp["mlp"], h).to(x.dtype)
-        self_cache.k[i, :, :P] = k.to(self_cache.k.dtype)
-        self_cache.v[i, :, :P] = v.to(self_cache.v.dtype)
+        if isinstance(self_cache, QuantKVCache):
+            self_cache.k[i, :, :P], self_cache.ks[i, :, :P] = quantize_kv(k)
+            self_cache.v[i, :, :P], self_cache.vs[i, :, :P] = quantize_kv(v)
+        else:
+            self_cache.k[i, :, :P] = k.to(self_cache.k.dtype)
+            self_cache.v[i, :, :P] = v.to(self_cache.v.dtype)
     x = rms_norm(x, params["decoder"]["norm"]["scale"], eps)
     return dense_general(x, params["decoder"]["logits_dense"]["kernel"]).float()
 
@@ -248,8 +297,8 @@ def decode_step(
     tgt_Bx1xC: torch.Tensor,  # [B, 1, C]
     position: torch.Tensor,  # [B, 1] RoPE position of this token
     write_slot: int,  # cache slot to write (== #valid slots - 1)
-    self_cache: KVCache,
-    cross_cache: KVCache,
+    self_cache: KVCache | QuantKVCache,
+    cross_cache: KVCache | QuantKVCache,
     cross_ends: torch.Tensor,  # int32 [B]: text keys per row (0 = fully masked)
     compute_dtype=torch.float32,
 ) -> torch.Tensor:
@@ -259,16 +308,20 @@ def decode_step(
 
     Self-attention reads slots [0, write_slot]; cross-attention reads each
     row's first ``cross_ends[b]`` text keys — both through the
-    decode-attention kernel.  The JAX step's ``skip_uncond_cross`` has no
-    counterpart: the CFG unconditional row has ``cross_ends == 0``, and for
+    decode-attention kernel.  With an int8 self cache the step attends the
+    quantized slots [0, write_slot) and this token's own unquantized K/V, and
+    then writes them quantized (``decode_step_scan``'s order: quantizing
+    first would change the last token's share).  The JAX step's
+    ``skip_uncond_cross`` has no counterpart: the CFG unconditional row has ``cross_ends == 0``, and for
     such a row every block of the kernel skips the cache and the combine pass
     writes exact zeros, so that row already reads no keys or values."""
     m = config.model
     eps = m.normalization_layer_epsilon
     B = tgt_Bx1xC.shape[0]
     dev = tgt_Bx1xC.device
+    quant = isinstance(self_cache, QuantKVCache)
     self_start = torch.zeros(B, dtype=torch.int32, device=dev)
-    self_end = torch.full((B,), write_slot + 1, dtype=torch.int32, device=dev)
+    self_end = torch.full((B,), write_slot + (0 if quant else 1), dtype=torch.int32, device=dev)
     cross_start = torch.zeros_like(cross_ends)
 
     x = _embed_channels(params, tgt_Bx1xC, compute_dtype)  # [B, 1, D]
@@ -278,16 +331,25 @@ def decode_step(
         h = rms_norm(x, lp["pre_sa_norm"]["scale"], eps)
         q, k, v = attention_qkv(lp["self_attention"], h, h, position, position,
                                 m.rope_min_timescale, m.rope_max_timescale)
-        self_cache.k[i, :, write_slot] = k[:, 0].to(self_cache.k.dtype)
-        self_cache.v[i, :, write_slot] = v[:, 0].to(self_cache.v.dtype)
-        sa = decode_attention(q[:, 0].contiguous(), self_cache.k[i], self_cache.v[i],
-                              self_start, self_end)[:, None]
+        if quant:
+            k1, v1 = k[:, 0].contiguous(), v[:, 0].contiguous()
+            sa = decode_attention(q[:, 0].contiguous(), self_cache.k[i], self_cache.v[i],
+                                  self_start, self_end, self_cache.ks[i], self_cache.vs[i],
+                                  k1, v1)[:, None]
+            self_cache.k[i, :, write_slot], self_cache.ks[i, :, write_slot] = quantize_kv(k1)
+            self_cache.v[i, :, write_slot], self_cache.vs[i, :, write_slot] = quantize_kv(v1)
+        else:
+            self_cache.k[i, :, write_slot] = k[:, 0].to(self_cache.k.dtype)
+            self_cache.v[i, :, write_slot] = v[:, 0].to(self_cache.v.dtype)
+            sa = decode_attention(q[:, 0].contiguous(), self_cache.k[i], self_cache.v[i],
+                                  self_start, self_end)[:, None]
         x = x + attention_out(lp["self_attention"], sa)
 
         h = rms_norm(x, lp["pre_ca_norm"]["scale"], eps)
         cq = dense_general(h, lp["cross_attention"]["q_proj"]["kernel"])
         cq = rope(cq, position, m.rope_min_timescale, m.rope_max_timescale)[:, 0].contiguous()
-        ca = decode_attention(cq, cross_cache.k[i], cross_cache.v[i], cross_start, cross_ends)
+        ca = decode_attention(cq, cross_cache.k[i], cross_cache.v[i], cross_start, cross_ends,
+                              *(t[i] for t in cross_cache[2:]))
         x = x + attention_out(lp["cross_attention"], ca[:, None])
 
         h = rms_norm(x, lp["pre_mlp_norm"]["scale"], eps)

@@ -4,8 +4,11 @@ run can show that the main path went through the kernel."""
 
 from .decode_attention import decode_attention, decode_attention_plain
 from .flash_attention import flash_attention, flash_attention_plain
+from .int4_gemv import int4_gemv, int4_gemv_plain
+from .int8_matmul import int8_matmul, int8_matmul_plain
 
-KERNEL_WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_attention}
+KERNEL_WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
+                   "int8_matmul": int8_matmul, "int4_gemv": int4_gemv}
 
 
 def reset_launch_counts() -> None:
@@ -19,5 +22,6 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNEL_WRAPPERS", "decode_attention", "decode_attention_plain", "flash_attention",
-    "flash_attention_plain", "launch_counts", "reset_launch_counts",
+    "flash_attention_plain", "int4_gemv", "int4_gemv_plain", "int8_matmul",
+    "int8_matmul_plain", "launch_counts", "reset_launch_counts",
 ]

@@ -1,0 +1,107 @@
+"""Int8-weight matmul for the decode path: CUDA kernel wrapper and its plain
+PyTorch version.
+
+Kernel: ``csrc/int8_matmul.cu`` (hand-written for sm_90a, loaded with
+ctypes).  It replaces the Pallas kernel
+``dia_tts_prune_tpu/ops/kernels/int8_matmul.py::int8_matmul`` (:37):
+``y[B, N] = (x[B, K] @ w_q[K, N]) * scale[N]`` with fp32 accumulation and one
+rounding to ``x.dtype``.  Activations are never quantized.
+
+At B <= 64 rows (the decode step has 2) this is a GEMV whose cost is the
+int8 weight bytes, so the kernel splits the weight over column strips and K
+slices, enough blocks to fill the card, and sums the slices' fp32 partials in
+a fixed order (no atomics: the output is the same from run to run).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MAX_ROWS = 64  # the JAX dispatcher's gate (ops/modules.py:160)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# The plan's constants come from tools/torch_port_gemv_sweep.py on an H100: the
+# model's five weight shapes are fastest at about eight blocks per SM with 64 to
+# 256 rows each, and 4-byte loads are as fast as wider ones.
+_TARGET_BLOCKS = 8 * 132
+_LANES = 32
+MAX_SLICE = 1024  # K rows a block keeps of x in shared memory (csrc: KS_MAX)
+MIN_SLICE = 64
+
+
+def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: int8 values widened exactly to fp32, fp32
+    matmul, scales on the fp32 result, one rounding to ``x.dtype``."""
+    return ((x.float() @ w_q.float()) * scale.float()[None, :]).to(x.dtype)
+
+
+def vector_width(n_cols: int, data_ptr: int) -> int:
+    """Bytes a thread loads at once: 4 where that divides both a weight row's
+    length and the weight's address, so that every load is aligned and lies
+    wholly inside or outside a row; else 1."""
+    return 4 if n_cols % 4 == 0 and data_ptr % 4 == 0 else 1
+
+
+def split_plan(k_rows: int, n_cols: int, vec: int, max_slice: int = MAX_SLICE) -> int:
+    """K slices for a [k_rows, n_cols] weight: enough that strips × slices
+    fill the card, each slice within [MIN_SLICE, max_slice] rows."""
+    strips = -(-n_cols // (_LANES * vec))
+    want = -(-_TARGET_BLOCKS // strips)
+    return max(-(-k_rows // max_slice), min(want, max(1, k_rows // MIN_SLICE)))
+
+
+def _check(x, w_q, scale):
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"int8_matmul takes float32 or bfloat16 activations, got {x.dtype}")
+    if w_q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"int8_matmul takes int8 weights and float32 scales, got "
+                        f"{w_q.dtype}, {scale.dtype}")
+    if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0] or 0 in w_q.shape:
+        raise ValueError(f"int8_matmul shapes: x {tuple(x.shape)}, w_q {tuple(w_q.shape)}")
+    if scale.shape != (w_q.shape[1],):
+        raise ValueError(f"int8_matmul scale must be [N]: {tuple(scale.shape)}")
+    if not 1 <= x.shape[0] <= MAX_ROWS:
+        raise ValueError(f"int8_matmul takes 1..{MAX_ROWS} rows, got {x.shape[0]}")
+    if any(t.device != x.device for t in (w_q, scale)):
+        raise ValueError("int8_matmul inputs must be on one device")
+    if not all(t.is_contiguous() for t in (x, w_q, scale)):
+        raise ValueError("int8_matmul inputs must be contiguous")
+
+
+def launch(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, vec: int,
+           n_split: int) -> torch.Tensor:
+    """Launch the kernel on checked CUDA inputs with a given load width and
+    number of K slices (``int8_matmul`` plans both; a tuning sweep sets them)."""
+    from ._build import kernel_function
+
+    fn = kernel_function("int8_matmul", "int8_matmul_fwd", _ARGTYPES)
+    B, K = x.shape
+    N = w_q.shape[1]
+    out = torch.empty(B, N, dtype=x.dtype, device=x.device)
+    part = torch.empty(n_split * B * N if n_split > 1 else 1, dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 B, K, N, vec, n_split, _DTYPE_CODES[x.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8_matmul kernel launch failed (cudaError {err})")
+    int8_matmul.launches += 1
+    return out
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x [B, K] @ (w_q int8 [K, N] * scale [N])`` in ``x.dtype``.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, w_q, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    _check(x, w_q, scale)
+    vec = vector_width(w_q.shape[1], w_q.data_ptr())
+    return launch(x, w_q, scale, vec, split_plan(*w_q.shape, vec))
+
+
+int8_matmul.launches = 0

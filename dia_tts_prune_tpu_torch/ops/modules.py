@@ -1,11 +1,13 @@
 """Core model ops: generalized dense, RMSNorm, RoPE, SwiGLU MLP, attention.
 
-PyTorch counterparts of ``dia_tts_prune_tpu/ops/modules.py`` (float weights),
-as plain functions over a params dict of tensors in the JAX layout:
+PyTorch counterparts of ``dia_tts_prune_tpu/ops/modules.py`` (float and
+packed int8/int4 weights), as plain functions over a params dict of tensors
+in the JAX layout:
 
 * ``dense_general`` contracts the trailing axes of ``x`` against the leading
   axes of a kernel stored ``in_shapes + out_features`` (reference:
-  dia/layers.py:35-66), one ``tensordot``;
+  dia/layers.py:35-66), one ``tensordot``; a packed kernel
+  (``ops/quant.py``) goes to the int8-matmul or int4-GEMV kernel;
 * GQA attention reshapes queries to [B, T, Nkv, G, H] and contracts them
   against un-repeated K/V;
 * norms, the SiLU gate, RoPE trig and softmax run in float32 whatever the
@@ -26,19 +28,60 @@ import torch
 import torch.nn.functional as F
 
 from .kernels.flash_attention import flash_attention
+from .kernels.int4_gemv import int4_gemv
+from .kernels.int8_matmul import MAX_ROWS, int8_matmul
+from .quant import Quantized4Kernel, QuantizedKernel, dequantize4
 
 Params = dict[str, Any]
 
 NEG = torch.finfo(torch.float32).min
 
 
-def dense_general(x: torch.Tensor, kernel: torch.Tensor,
-                  axis: tuple[int, ...] = (-1,)) -> torch.Tensor:
+def dense_general(x: torch.Tensor, kernel, axis: tuple[int, ...] = (-1,)) -> torch.Tensor:
     """Contract ``axis`` of ``x`` against the leading axes of ``kernel``
-    (reference: dia/layers.py:55-66).  No bias."""
+    (reference: dia/layers.py:55-66).  No bias.  ``kernel`` is a tensor, or a
+    packed ``QuantizedKernel`` / ``Quantized4Kernel`` (trailing axes only)."""
+    if isinstance(kernel, (QuantizedKernel, Quantized4Kernel)):
+        return _dense_general_packed(x, kernel, axis)
     norm_axis = [ax if ax >= 0 else x.dim() + ax for ax in axis]
     return torch.tensordot(x.to(kernel.dtype), kernel,
                            dims=(norm_axis, list(range(len(norm_axis)))))
+
+
+def _dense_general_packed(x: torch.Tensor, qk, axis: tuple[int, ...]) -> torch.Tensor:
+    """Contraction against a packed kernel; activations keep their dtype.
+
+    The route follows the JAX dispatcher's own rule (its ops/modules.py:160,
+    ops/kernels/int4_gemv.py:98), by shape and device only:
+
+    * up to 64 rows — every contraction of a decode step — the int8-matmul
+      or int4-GEMV wrapper: the CUDA kernel on the card, the plain version
+      on the CPU;
+    * more rows on the card (prompt prefill, the cross-attention K/V of the
+      text) are large matrix products, which the JAX package also computes
+      outside any Pallas kernel (``int8_matmul_upcast``,
+      ``int4_matmul_halfsplit*``): the weight is widened to ``x.dtype`` and
+      goes to ``torch.matmul``; int8 scales multiply the fp32 result, int4
+      scales (per group) are folded into the widened weight.
+    """
+    n_in = len(axis)
+    if n_in != len(qk.in_shape):
+        raise ValueError(
+            f"kernel packed for {len(qk.in_shape)} contraction axes, called with {n_in}")
+    K, N = math.prod(qk.in_shape), math.prod(qk.out_shape)
+    lead = x.shape[: x.dim() - n_in]
+    x2 = x.reshape(-1, K).contiguous()
+    int8 = isinstance(qk, QuantizedKernel)
+    if x2.is_cuda and x2.shape[0] > MAX_ROWS:
+        if int8:
+            y = ((x2 @ qk.values.to(x2.dtype)).float() * qk.scale.reshape(1, N)).to(x2.dtype)
+        else:
+            y = x2 @ dequantize4(qk, x2.dtype).reshape(K, N)
+    elif int8:
+        y = int8_matmul(x2, qk.values, qk.scale.reshape(N))
+    else:
+        y = int4_gemv(x2, qk.values, qk.scale, qk.layout)
+    return y.reshape(*lead, *qk.out_shape)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

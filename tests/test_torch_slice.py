@@ -98,6 +98,11 @@ import importlib, pkgutil, sys
 import dia_tts_prune_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+for name in ("ops.quant", "ops.kernels.int8_matmul", "ops.kernels.int4_gemv"):
+    assert pkg.__name__ + "." + name in sys.modules, name
+dia = pkg.Dia.from_pretrained("tests/fixtures/trained_small", device="cpu")
+dia.quantize_int8()
+assert dia.generate_codes("[S1] Hi.", max_tokens=20, temperature=0.0).shape[1] == 9
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "dia_tts_prune_tpu"))
 print(bad)
 """

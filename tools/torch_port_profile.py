@@ -4,7 +4,9 @@
 Builds the Dia-1.6B shapes (bf16, weights from a numpy seed), conditions on a
 two-speaker text, then runs decode steps of ``models.dia.decode_step`` as the
 generation loop does, including the per-step read-back of the sampled codes.
-Prints one JSON line:
+``--quant int8|int4`` packs the decoder first (``ops/quant.py``) and keeps both
+KV caches int8, as ``Dia.quantize_int8()`` / ``quantize_int4()`` then
+``generate`` do.  Prints one JSON line:
 
 * ``host_ms_per_step``  — wall time per step (host clock, synchronised);
 * ``device_ms_per_step`` — summed CUDA kernel time per step (torch.profiler);
@@ -12,7 +14,7 @@ Prints one JSON line:
 * ``top_kernels``       — kernel names by device time per step;
 * the card's name and power limit.
 
-Run on the card: ``python3 tools/torch_port_profile.py [--steps 64]``.
+Run on the card: ``python3 tools/torch_port_profile.py [--steps 64] [--quant int8]``.
 ``--tiny --device cpu`` rehearses the script on the CPU (no device numbers).
 """
 
@@ -33,6 +35,8 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=64)
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true", help="tiny_test_config (rehearsal)")
+    p.add_argument("--quant", choices=("none", "int8", "int4"), default="none",
+                   help="pack the decoder's kernels and keep the KV caches int8")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -41,7 +45,16 @@ def main(argv=None) -> int:
     from dia_tts_prune_tpu_torch.api import resolve_device
     from dia_tts_prune_tpu_torch.config import dia_1_6b_config, tiny_test_config
     from dia_tts_prune_tpu_torch.generate import CFG_BATCH, _cross_window_for, conditioning
-    from dia_tts_prune_tpu_torch.models.dia import decode_step, init_params, new_self_cache
+    from dia_tts_prune_tpu_torch.models.dia import (
+        decode_step,
+        init_params,
+        new_self_cache,
+        quantize_cache,
+    )
+    from dia_tts_prune_tpu_torch.ops.quant import (
+        quantize_params_int4_packed,
+        quantize_params_int8_packed,
+    )
     from dia_tts_prune_tpu_torch.ops.sampling import apply_constraints, cfg_combine
     from dia_tts_prune_tpu_torch.tokenizer import encode_cfg_batch
 
@@ -51,12 +64,19 @@ def main(argv=None) -> int:
     dtype = torch.float32 if args.tiny else torch.bfloat16
     d = cfg.data
     params = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    quant = args.quant != "none"
+    if args.quant == "int8":
+        params = quantize_params_int8_packed(params)
+    elif args.quant == "int4":
+        params = quantize_params_int4_packed(params, halfsplit=True)
     enc = encode_cfg_batch("[S1] Dia is an open weights text to dialogue model. [S2] Wow.",
                            d.text_length, d.text_pad_value)
     with torch.no_grad():
         cross, _, ends = conditioning(params, cfg, torch.from_numpy(enc).to(dev), dtype,
                                       _cross_window_for(enc, cfg))
-    cache = new_self_cache(cfg, CFG_BATCH, min(1024, d.audio_length), dtype, dev)
+    if quant:
+        cross = quantize_cache(cross)
+    cache = new_self_cache(cfg, CFG_BATCH, min(1024, d.audio_length), dtype, dev, quant=quant)
     tok = np.full((d.channels,), d.audio_bos_value, np.int32)
 
     def step(t):
@@ -78,6 +98,7 @@ def main(argv=None) -> int:
         sync()
         host_ms = 1e3 * (time.perf_counter() - t0) / args.steps
         result = {"tool": "torch_port_profile", "config": "tiny" if args.tiny else "dia_1_6b bf16",
+                  "quant": args.quant,
                   "cache_len": cache.k.shape[2], "steps": args.steps,
                   "host_ms_per_step": host_ms}
         if cuda:
