@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``dia_tts_prune_tpu_torch``) on one NVIDIA card.
 
 Run from the repository root: ``python3 chip_smoke.py`` (no arguments, one
-card).  Phases, each printing one JSON line; any failure raises and the
+card).  Naming phases (``python3 chip_smoke.py kernels training``) runs the
+build and only those, for work on one of them, and prints no result line.  Phases, each printing one JSON line; any failure raises and the
 script exits non-zero:
 
 1. build     — compile every CUDA kernel from ``dia_tts_prune_tpu_torch/csrc``
@@ -13,14 +14,19 @@ script exits non-zero:
                replayed from a CUDA graph), the plain version's time and the
                kernel's eager time (events around Python calls), the least
                time the card could take, launches.  The attention
-               kernels (float and int8 caches), and the int8-matmul and
+               kernels (float and int8 caches), the int8-matmul and
                int4-GEMV kernels at the five weight shapes of a decode step
-               and a few odd ones;
+               and a few odd ones, and the three training kernels (flash
+               forward with log-sum-exp, dK/dV, dQ) at the three attention
+               shapes of a Dia-1.6B training step and an odd one, dK/dV
+               bit-identical over two runs;
 3. fixtures  — the trained fixtures through ``Dia.from_pretrained(...,
                device="cuda")`` in fp32: greedy tokens equal ``golden.npz``,
                waveform length and head as recorded; then packed int8 and
                int4: teacher-forced logits on the card (kernels) against the
-               CPU (plain versions) on the same packed bytes;
+               CPU (plain versions) on the same packed bytes; then a few
+               full, LoRA and QAT-int8 optimizer steps on ``trained_small``,
+               the loss after each step on the card against the CPU run;
 4. full_width — Dia-1.6B shapes in bf16 and the 44.1 kHz DAC with weights
                from a numpy seed, three paths, each with the launch counts
                zeroed just before and read just after: (a) float weights — a
@@ -30,7 +36,19 @@ script exits non-zero:
                int8 KV caches); (c) a fresh model, ``quantize_int4()``, a
                greedy ``generate``.  Every kernel of a path must have
                launched, the GEMV kernels once per packed contraction of
-               every step.
+               every step;
+5. training  — teacher-forced fine-tuning at the same full width (bf16
+               compute, ``audio_length`` 3072, batch 2, every layer
+               rematerialized): three LoRA steps, two full fine-tune steps
+               (fp32 master weights and AdamW moments), one QAT-int8 step,
+               each step under the profiler (loss, gradient norm, wall and
+               device time, device time by kind of kernel) with the three
+               launch counts exactly layers x attention sites x 2 for the
+               forward and x 1 for each backward kernel; then the
+               ``finetune`` CLI end to end at two layers per stack on a
+               three-item dataset the script synthesizes (generate -> WAV ->
+               metadata.csv), and ``Dia.from_pretrained`` of its output
+               generates.
 
 Then a ``kernels`` line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -42,6 +60,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -66,9 +85,24 @@ GEMV_SUM_TOL = 1e-6
 # order differs; with int8 caches a K/V value on a rounding boundary may take the
 # neighbouring code on one side (one step of 1/127 of its head row's range).
 PACKED_LOGIT_TOL = {"kv_float": 1e-4, "kv_int8": 1e-2}
+# Gradients of the flash backward kernels against the plain version in fp32 on the
+# same values (the forward kernel's own out and lse included): a gradient element
+# sums up to 3072 fp32 products in another order, so fp32 differs by summation
+# order only (atol 1e-4 on gradients of size ~1, the JAX package's own limit for its
+# backward kernels) and bf16 also by the one rounding of the fp32 result to bf16.
+GRAD_TOL = {"float32": {"rtol": 1e-5, "atol": 1e-4}, "bfloat16": {"rtol": 2.0 ** -8, "atol": 1e-4}}
+LSE_ATOL = 2e-5  # log-sum-exp rows, fp32 in both dtypes: summation order
+# Optimizer steps on a fixture, card against CPU, fp32: the loss of step i depends on
+# every earlier AdamW update, which is lr * g / (|g| + 1e-8) at first, so gradient
+# elements within fp32 noise of zero move their weights differently on the two
+# devices; fake-quant adds weights that round to the neighbouring code on one side.
+TRAIN_LOSS_RTOL = {"full": 2e-4, "lora": 2e-4, "qat_int8": 2e-3}
 COLD_BYTES = 128 << 20  # a timing loop cycles through copies of the weight larger than the L2
 DECODER_GEMVS = 145  # packed contractions of one Dia-1.6B decode step: 8 * 18 + the logits head
 WAV_TOL = 1e-4  # cuDNN fp32 convs sum in another order than XLA's (the CPU test's cause)
+
+
+PHASES = ("kernels", "fixtures", "full_width", "training")  # after the build, in this order
 
 
 def emit(obj) -> None:
@@ -178,6 +212,126 @@ def flash_case(torch, name, dtype, B, T, Nq, Nkv, H, causal, real_len):
            "launches": launches}
     emit(rec)
     return rec
+
+
+def flash_train_case(torch, name_, dtype, B, Tq, Tk, Nq, Nkv, H, causal, q_real, kv_real,
+                     time_it=True):
+    """The three training kernels at one attention site: forward with LSE
+    against ``flash_attention_lse_plain``, dK/dV and dQ against
+    ``flash_attention_bwd_plain`` on the kernel forward's own out and lse.
+    ``q_real`` / ``kv_real``: real lengths per batch row (None = all real);
+    query row 5 of batch row 0 is fully masked.  Returns one record per kernel."""
+    import torch.nn.functional as F
+
+    from dia_tts_prune_tpu_torch.ops.kernels import (
+        flash_attention_bwd_kv, flash_attention_bwd_plain, flash_attention_bwd_q,
+        flash_attention_lse, flash_attention_lse_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dt = getattr(torch, dtype)
+    q, k, v, dout = (torch.randn(*s, generator=g, device="cuda").to(dt) for s in (
+        (B, Tq, Nq, H), (B, Tk, Nkv, H), (B, Tk, Nkv, H), (B, Tq, Nq, H)))
+
+    def seg_of(T, real):
+        if real is None:
+            return torch.ones(B, T, dtype=torch.int32, device="cuda")
+        return (torch.arange(T, device="cuda")[None]
+                < torch.tensor(real, device="cuda")[:, None]).to(torch.int32).contiguous()
+
+    q_seg, kv_seg = seg_of(Tq, q_real), seg_of(Tk, kv_real)
+    q_seg[0, 5] = 7  # matches no key: a fully masked row
+    wide = lambda *a: tuple(x.float() if x.is_floating_point() else x for x in a)  # noqa: E731
+
+    counts = lambda: (flash_attention_lse.launches, flash_attention_bwd_kv.launches,  # noqa: E731
+                      flash_attention_bwd_q.launches)
+    n0 = counts()
+    out, lse = flash_attention_lse(q, k, v, q_seg, kv_seg, causal)
+    dd = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal, dd)
+    dq = flash_attention_bwd_q(q, k, v, q_seg, kv_seg, out, lse, dout, causal, dd)
+    launches = [b - a for a, b in zip(n0, counts())]
+    dk2, dv2 = flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal, dd)
+    torch.cuda.synchronize()
+    repeatable = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+
+    ref_out, ref_lse = flash_attention_lse_plain(*wide(q, k, v), q_seg, kv_seg, causal)
+    ref_dq, ref_dk, ref_dv = flash_attention_bwd_plain(
+        *wide(q, k, v), q_seg, kv_seg, out.float(), lse, dout.float(), causal)
+
+    def err(got, ref, tol):
+        diff = (got.float() - ref).abs()
+        return {"max_abs_err": diff.max().item(), "tol": tol,
+                "max_err_less_rtol": (diff - tol["rtol"] * ref.abs()).max().item()}
+
+    errs = {"flash_attention_lse": err(out, ref_out, TOL[dtype]),
+            "flash_attention_bwd_kv": max((err(dk, ref_dk, GRAD_TOL[dtype]),
+                                           err(dv, ref_dv, GRAD_TOL[dtype])),
+                                          key=lambda e: e["max_err_less_rtol"]),
+            "flash_attention_bwd_q": err(dq, ref_dq, GRAD_TOL[dtype])}
+    errs["flash_attention_lse"]["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
+    errs["flash_attention_bwd_kv"]["bit_identical_over_two_runs"] = repeatable
+    masked_ok = bool((out[0, 5] == 0).all() and (dq[0, 5] == 0).all())
+    del ref_out, ref_lse, ref_dq, ref_dk, ref_dv, dk2, dv2
+
+    mask = q_seg[:, :, None] == kv_seg[:, None, :]
+    if causal:
+        mask &= torch.ones(Tq, Tk, dtype=torch.bool, device="cuda").tril()
+    pairs = mask.sum().item()
+    e = q.element_size()
+    seg_bytes = 4 * B * (Tq + Tk)
+    stat_bytes = 4 * B * Nq * Tq  # one fp32 row statistic [B, Nq, Tq]
+    qo, kv = e * B * Tq * Nq * H, e * B * Tk * Nkv * H
+    # per kernel: (bytes in + out, tile products it needs: each is 2 * H * Nq * pairs flops)
+    work = {"flash_attention_lse": (2 * qo + 2 * kv + seg_bytes + stat_bytes, 2),
+            "flash_attention_bwd_kv": (2 * qo + 4 * kv + seg_bytes + 2 * stat_bytes, 4),
+            "flash_attention_bwd_q": (3 * qo + 2 * kv + seg_bytes + 2 * stat_bytes, 3)}
+    calls = {"flash_attention_lse": lambda: flash_attention_lse(q, k, v, q_seg, kv_seg, causal),
+             "flash_attention_bwd_kv": lambda: flash_attention_bwd_kv(
+                 q, k, v, q_seg, kv_seg, out, lse, dout, causal, dd),
+             "flash_attention_bwd_q": lambda: flash_attention_bwd_q(
+                 q, k, v, q_seg, kv_seg, out, lse, dout, causal, dd)}
+    times = {name: {} for name in calls}
+    if time_it:
+        for name, fn in calls.items():
+            times[name]["ms"] = graph_ms(torch, fn, iters=4)
+        times["flash_attention_lse"]["plain_ms"] = cuda_ms(
+            torch, lambda: flash_attention_lse_plain(q, k, v, q_seg, kv_seg, causal),
+            iters=2, warmup=1)
+        bwd_plain = cuda_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, q_seg, kv_seg, out, lse, dout, causal), iters=2, warmup=1)
+        # the library call: SDPA forward, and its whole backward (dq, dk and dv in one call)
+        qh, kh, vh = (x.transpose(1, 2).repeat_interleave(Nq // x.shape[2], dim=1)
+                      .detach().requires_grad_(True) for x in (q, k, v))
+        doh = dout.transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask[:, None])  # noqa: E731
+        with torch.no_grad():
+            lib_fwd = graph_ms(torch, sdpa, iters=4)
+        lib_both = graph_ms(torch, lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh),
+                            iters=4)
+        times["flash_attention_lse"]["library_ms"] = lib_fwd
+        for name in ("flash_attention_bwd_kv", "flash_attention_bwd_q"):
+            times[name].update({"plain_ms": bwd_plain, "library_ms": lib_both - lib_fwd,
+                                "plain_and_library_cover": "dq, dk and dv together"})
+    recs = {}
+    for name, launched in zip(calls, launches):
+        nbytes, products = work[name]
+        bound_ms, bound_by = bound(nbytes, products * 2.0 * H * Nq * pairs, dtype)
+        rec = {"phase": "kernels", "kernel": name, "case": name_, "dtype": dtype,
+               "shape": {"B": B, "Tq": Tq, "Tk": Tk, "Nq": Nq, "Nkv": Nkv, "H": H,
+                         "causal": causal, "q_real": q_real, "kv_real": kv_real},
+               **errs[name], "fully_masked_row_exact_zero": masked_ok, **times[name],
+               "bound_ms": bound_ms, "bound_by": bound_by, "tile_products": products,
+               "launches": launched}
+        emit(rec)
+        if not rec["max_err_less_rtol"] <= rec["tol"]["atol"]:
+            raise RuntimeError(f"{name} {name_} {dtype}: kernel disagrees with its plain "
+                               f"version: {rec}")
+        recs[name] = rec
+    if not (errs["flash_attention_lse"]["lse_max_abs_err"] <= LSE_ATOL and repeatable
+            and masked_ok and launches == [1, 1, 1]):
+        raise RuntimeError(f"training flash kernels {name_} {dtype}: lse, repeatability, the "
+                           f"masked row or the launch counts are off: {recs}")
+    return recs
 
 
 def decode_case(torch, name, dtype, B, T, Nq, Nkv, H, ends):
@@ -367,8 +521,18 @@ def phase_kernels(torch) -> dict:
             gemv_case(torch, "int4_gemv", dtype, 3, K, N, 50, "parity", time_it=False)
         gemv_case(torch, "int4_gemv", dtype, 3, 1023, 520, 33, "unpacked", time_it=False)
         gemv_case(torch, "int4_gemv", dtype, 3, 1023, 520, None, "unpacked", time_it=False)
+        # the three attention sites of a Dia-1.6B training step, and an odd shape
+        flash_train_case(torch, "encoder_self", dtype, 2, 1024, 1024, 16, 16, 128, False,
+                         [700, 300], [700, 300])
+        train = flash_train_case(torch, "decoder_self", dtype, 2, 3072, 3072, 16, 4, 128, True,
+                                 None, None)
+        flash_train_case(torch, "decoder_cross", dtype, 2, 3072, 1024, 16, 16, 128, False,
+                         None, [700, 300])
+        for causal in (False, True):
+            flash_train_case(torch, "odd", dtype, 2, 320, 320, 4, 2, 64, causal, [320, 250],
+                             [320, 250], time_it=False)
         picked = {"flash_attention": enc, "decode_attention": rec, "decode_attention_int8": rec8,
-                  "int8_matmul": mlp8, "int4_gemv": mlp4}
+                  "int8_matmul": mlp8, "int4_gemv": mlp4, **train}
     return picked
 
 
@@ -580,6 +744,246 @@ def phase_full_width(torch) -> dict:
     return rec
 
 
+def train_launch_counts():
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts
+
+    c = launch_counts()
+    return {k: c[k] for k in ("flash_attention", "flash_attention_lse",
+                              "flash_attention_bwd_kv", "flash_attention_bwd_q")}
+
+
+def expected_train_launches(cfg, steps, remat=True):
+    """Attention sites of one loss: one per encoder layer, two per decoder
+    layer.  The LSE forward runs once per site and once more under
+    rematerialization, each backward kernel once, the forward-only kernel never."""
+    sites = cfg.model.encoder.n_layer + 2 * cfg.model.decoder.n_layer
+    return {"flash_attention": 0, "flash_attention_lse": steps * sites * (2 if remat else 1),
+            "flash_attention_bwd_kv": steps * sites, "flash_attention_bwd_q": steps * sites}
+
+
+def phase_train_fixture(torch, repo: Path) -> None:
+    """A few optimizer steps on ``trained_small`` in fp32, on the card
+    (kernels both ways, every layer rematerialized) and on the CPU (plain
+    versions under autograd): the losses must agree step by step."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia
+    from dia_tts_prune_tpu_torch.lora import LoraConfig
+    from dia_tts_prune_tpu_torch.ops.kernels import reset_launch_counts
+    from dia_tts_prune_tpu_torch.tokenizer import encode_text
+    from dia_tts_prune_tpu_torch.train import TrainConfig, Trainer, build_train_batch
+
+    d = repo / "tests" / "fixtures" / "trained_small"
+    tokens = np.load(d / "golden.npz")["tokens"].astype(np.int32)
+    meta = json.loads((d / "FIXTURE.json").read_text())
+    cpu = Dia.from_pretrained(d, compute_dtype="float32", device="cpu")
+    cfg, dd = cpu.config, cpu.config.data
+    texts = np.stack([encode_text(t, dd.text_length, dd.text_pad_value)
+                      for t in (meta["prompt"], "[S2] A second, shorter line.")])
+    batches = [build_train_batch(cfg, texts, [tokens, tokens[::-1][:150]]),
+               build_train_batch(cfg, texts[::-1].copy(), [tokens[40:], tokens[:90]])]
+    modes = {"full": {}, "lora": {"adapter_mode": "lora", "lora": LoraConfig(r=4, alpha=8.0)},
+             "qat_int8": {"qat_mode": "int8"}}
+    steps = 3
+    for mode, kw in modes.items():
+        tc = TrainConfig(learning_rate=1e-4, remat=True, compute_dtype="float32", **kw)
+        logs = {}
+        for device in ("cuda", "cpu"):
+            params = params_to(cpu.params, device)
+            trainer = Trainer(params, cfg, tc, 10)
+            reset_launch_counts()
+            logs[device] = [trainer.step(batches[i % 2]) for i in range(steps)]
+            if device == "cuda":
+                launched = train_launch_counts()
+        rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+               for a, b in zip(logs["cuda"], logs["cpu"])]
+        rec = {"phase": "fixtures", "fixture": "trained_small", "training": mode, "steps": steps,
+               "loss_card": [x["loss"] for x in logs["cuda"]],
+               "loss_cpu": [x["loss"] for x in logs["cpu"]],
+               "grad_norm_card": [x["grad_norm"] for x in logs["cuda"]],
+               "grad_norm_cpu": [x["grad_norm"] for x in logs["cpu"]],
+               "loss_max_rel_diff": max(rel), "loss_rtol": TRAIN_LOSS_RTOL[mode],
+               "launches_on_card": launched}
+        emit(rec)
+        if not max(rel) <= TRAIN_LOSS_RTOL[mode] or launched != expected_train_launches(cfg, steps):
+            raise RuntimeError(f"fixture training {mode}: card and CPU disagree, or the launch "
+                               f"counts are not {expected_train_launches(cfg, steps)}: {rec}")
+        if not logs["cuda"][-1]["loss"] < logs["cuda"][0]["loss"]:
+            raise RuntimeError(f"fixture training {mode}: the loss did not fall: {rec}")
+
+
+KERNEL_KINDS = (("attention_forward", ("flash_fwd_kernel",)),
+                ("attention_backward", ("flash_bwd_kv_kernel", "flash_bwd_q_kernel")),
+                ("gemm", ("gemm", "cutlass", "cublas", "nvjet", "xmma", "wgmma", "gemv")))
+
+
+def profiled(torch, fn):
+    """``fn()`` under ``torch.profiler``: (result, wall ms, device ms — the sum
+    of the kernels' own times —, device ms by kind of kernel with the largest
+    kernels of no kind by name, kernel count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kinds = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    kinds["other"] = 0.0
+    count, others = 0, []
+    for ev in prof.key_averages():  # kernel rows only: op rows repeat their time
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        key = ev.key.lower()
+        kind = next((kind for kind, words in KERNEL_KINDS if any(w in key for w in words)), "other")
+        kinds[kind] += us / 1e3
+        count += ev.count
+        if kind == "other":
+            others.append((us / 1e3, ev.count, ev.key[:60]))
+    device_ms = sum(kinds.values())
+    if device_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    kinds["largest_other"] = [{"ms": ms, "calls": n, "name": name}
+                              for ms, n, name in sorted(others, reverse=True)[:6]]
+    return out, wall_ms, device_ms, kinds, count
+
+
+def phase_training(torch, tmp: Path) -> dict:
+    """Teacher-forced fine-tuning at full width through ``Trainer`` and the
+    ``finetune`` CLI; returns {path: {"launches": ...}} for the kernels line."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia, dia_1_6b_config
+    from dia_tts_prune_tpu_torch.finetune import main as finetune_main
+    from dia_tts_prune_tpu_torch.lora import LoraConfig
+    from dia_tts_prune_tpu_torch.models.dac import DACConfig, init_dac_params
+    from dia_tts_prune_tpu_torch.models.dia import init_params
+    from dia_tts_prune_tpu_torch.ops.kernels import reset_launch_counts
+    from dia_tts_prune_tpu_torch.train import TrainConfig, Trainer, build_train_batch, global_norm
+
+    cfg = dia_1_6b_config()
+    dd = cfg.data
+    rng = np.random.default_rng(7)
+    text = rng.integers(1, 256, (2, dd.text_length)).astype(np.int32)
+    text[0, 700:] = dd.text_pad_value
+    text[1, 300:] = dd.text_pad_value
+    codes = [rng.integers(0, 1024, (n, dd.channels)).astype(np.int32) for n in (3072, 2000)]
+    batch = build_train_batch(cfg, text, codes)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    paths = {}
+
+    def run(name, steps, **kw):
+        tc = TrainConfig(learning_rate=1e-4, compute_dtype="bfloat16", remat=True, **kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = Trainer(params, cfg, tc, 10)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        log, total = [], {k: 0 for k in train_launch_counts()}
+        for _ in range(steps):
+            reset_launch_counts()
+            out, wall_ms, device_ms, kinds, kernels = profiled(torch, lambda: trainer.step(batch))
+            launched = train_launch_counts()
+            log.append({**out, "wall_ms": wall_ms, "device_ms": device_ms,
+                        "device_ms_by_kind": kinds, "device_idle_share":
+                        max(0.0, 1.0 - device_ms / wall_ms), "kernels": kernels,
+                        "launches": launched})
+            total = {k: total[k] + launched[k] for k in total}
+            if launched != expected_train_launches(cfg, 1):
+                raise RuntimeError(f"training {name}: launches {launched}, expected "
+                                   f"{expected_train_launches(cfg, 1)}")
+            if not (np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"])):
+                raise RuntimeError(f"training {name}: non-finite step {out}")
+        rec = {"phase": "training", "path": name, "config": "dia_1_6b_config() bf16 compute, "
+               "audio_length 3072, batch 2, remat", "trainer_init_s": init_s, "steps": log,
+               "launches": total, "peak_memory_bytes": int(torch.cuda.max_memory_allocated())}
+        return trainer, rec
+
+    trainer, rec = run("train_lora", 3, adapter_mode="lora",
+                       lora=LoraConfig(r=8, alpha=16.0, target_modules=("q_proj", "v_proj")))
+    b = trainer.adapter()["weights"]["decoder"]["layers"]["self_attention"]["q_proj"]["b"]
+    rec["lora_b_max_abs"] = float(b.abs().max())
+    emit(rec)
+    if not rec["lora_b_max_abs"] > 0:
+        raise RuntimeError("training train_lora: LoRA's B never left zero")
+    paths["train_lora"] = rec
+    del trainer, b
+
+    trainer, rec = run("train_full", 2)
+    # the optimizer's share: one more update (zero gradients) between events
+    zeros = {n: torch.zeros_like(p) for n, p in trainer.optimizer.leaves.items()}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    norm = global_norm(zeros.values())
+    trainer.optimizer.update(zeros)
+    end.record()
+    torch.cuda.synchronize()
+    rec["optimizer_update_ms"] = start.elapsed_time(end)
+    rec["trained_parameters"] = sum(p.numel() for p in trainer.optimizer.leaves.values())
+    emit(rec)
+    paths["train_full"] = rec
+    del trainer, zeros, norm
+
+    trainer, rec = run("train_qat_int8", 1, qat_mode="int8")
+    emit(rec)
+    paths["train_qat_int8"] = rec
+    del trainer, params
+    torch.cuda.empty_cache()
+
+    # the finetune CLI end to end, two layers per stack at full width
+    m = cfg.model
+    small = cfg.model_copy(update={"model": m.model_copy(update={
+        "encoder": m.encoder.model_copy(update={"n_layer": 2}),
+        "decoder": m.decoder.model_copy(update={"n_layer": 2})})})
+    dac_cfg = DACConfig()
+    dia = Dia(small, init_params(small, seed=2, dtype=torch.bfloat16, device="cuda"), "bfloat16",
+              dac_params=init_dac_params(dac_cfg, seed=1, device="cuda"), dac_config=dac_cfg,
+              device="cuda")
+    model_dir, data_dir, out_dir = tmp / "model", tmp / "dataset", tmp / "finetuned"
+    (data_dir / "wavs").mkdir(parents=True)
+    lines = []
+    for i, line in enumerate(("[S1] Hello there.", "[S2] Hi, how are you?", "[S1] One more.")):
+        wav = dia.generate(line, max_tokens=48 + 16 * i, temperature=0.0, seed=i)
+        dia.save_audio(data_dir / "wavs" / f"item{i}.wav", wav, dac_cfg.sample_rate)
+        lines.append(f"item{i}.wav|{line}")
+    (data_dir / "metadata.csv").write_text("\n".join(lines) + "\n")
+    dia.save_pretrained(model_dir)
+    del dia
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = finetune_main(["--model-path", str(model_dir), "--dataset-dir", str(data_dir),
+                        "--output-dir", str(out_dir), "--adapter-mode", "lora",
+                        "--compute-dtype", "bfloat16", "--batch-size", "2", "--epochs", "1",
+                        "--learning-rate", "1e-4", "--logging-steps", "1", "--save-steps", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launched = train_launch_counts()
+    steps = 2  # three items in batches of two
+    tuned = Dia.from_pretrained(out_dir, compute_dtype="bfloat16", device="cuda")
+    wav = tuned.generate("[S1] Hello again.", max_tokens=48, temperature=0.0, seed=0)
+    files = sorted(p.name for p in out_dir.iterdir())
+    rec = {"phase": "training", "path": "finetune_cli", "config": "dia_1_6b_config() widths, 2 + 2 "
+           "layers, DACConfig(), seed weights, 3 synthesized items", "return_code": rc,
+           "seconds": cli_s, "launches": launched, "output_files": files,
+           "adapter_files": sorted(p.name for p in (out_dir / "adapter").iterdir()),
+           "generated_samples": 0 if wav is None else int(wav.shape[0]),
+           "waveform_finite": bool(wav is not None and np.isfinite(wav).all())}
+    emit(rec)
+    want = {"adapter", "pytorch_model.bin", "config.json", "dac.safetensors", "dac_config.json"}
+    if rc != 0 or not want <= set(files) or launched != expected_train_launches(small, steps) \
+            or not rec["waveform_finite"] or rec["generated_samples"] <= 0:
+        raise RuntimeError(f"the finetune CLI run failed its checks (expected launches "
+                           f"{expected_train_launches(small, steps)}): {rec}")
+    paths["finetune_cli"] = rec
+    return paths
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     try:
@@ -599,23 +1003,49 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # every phase, unless the caller names some (a partial run prints no result line)
+    only = set(sys.argv[1:])
+    unknown = only - set(PHASES)
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}; known: {PHASES}", file=sys.stderr)
+        return 1
+    wanted = lambda name: not only or name in only  # noqa: E731
+
     t0 = time.perf_counter()
     phase_build()
-    picked = phase_kernels(torch)
-    phase_fixtures(torch, repo)
-    full = phase_full_width(torch)
+    picked = phase_kernels(torch) if wanted("kernels") else None
+    if wanted("fixtures"):
+        phase_fixtures(torch, repo)
+        phase_train_fixture(torch, repo)
+    full = phase_full_width(torch) if wanted("full_width") else None
+    if wanted("training"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            training = phase_training(torch, Path(tmp))
+    if only:
+        print(f"# chip_smoke partial run {sorted(only)}: {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr)
+        return 0
+    paths = {**full["paths"], **training}
 
     csrc, jax_kernels = "dia_tts_prune_tpu_torch/csrc/", "dia_tts_prune_tpu/ops/kernels/"
+    SOURCES = {"flash_attention_lse": "flash_attention",
+               "flash_attention_bwd_kv": "flash_attention_bwd",
+               "flash_attention_bwd_q": "flash_attention_bwd"}
     # (kernel, its record of the kernels phase, the path whose launches it reports, replaces)
-    lines = [("flash_attention", "flash_attention", "bf16", "flash_attention.py:359"),
+    lines = [("flash_attention", "flash_attention", "bf16", "flash_attention.py:157"),
+             ("flash_attention_lse", "flash_attention_lse", "train_lora", "flash_attention.py:359"),
+             ("flash_attention_bwd_kv", "flash_attention_bwd_kv", "train_lora",
+              "flash_attention.py:456"),
+             ("flash_attention_bwd_q", "flash_attention_bwd_q", "train_lora",
+              "flash_attention.py:481"),
              ("decode_attention", "decode_attention", "bf16", "decode_attention.py:133"),
              ("decode_attention", "decode_attention_int8", "int8", "decode_attention.py:133"),
              ("int8_matmul", "int8_matmul", "int8", "int8_matmul.py:53"),
              ("int4_gemv", "int4_gemv", "int4", "int4_gemv.py:129")]
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": f"{csrc}{name}.cu",
+        {"name": name, "route": "cuda", "source": f"{csrc}{SOURCES.get(name, name)}.cu",
          "replaces": jax_kernels + replaces,
-         "launches": full["paths"][path]["launches"][name], "max_abs_err": rec["max_abs_err"],
+         "launches": paths[path]["launches"][name], "max_abs_err": rec["max_abs_err"],
          "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
          "case": f"{rec.get('case', '')} {json.dumps(rec['shape'])} {rec['dtype']}".strip(),

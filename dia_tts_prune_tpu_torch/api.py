@@ -4,7 +4,11 @@ reference: dia/model.py:101-846).
 ``Dia.from_pretrained(local_dir)`` / ``Dia.from_local(config, checkpoint)``,
 ``generate_codes(text)`` → codec tokens, ``generate(text)`` → waveform and
 ``save_audio`` (16-bit PCM WAV); ``quantize_int8()`` / ``quantize_int4()``
-switch the decoder to packed weights before generating.  Everything runs on ``device``, ``"cuda"``
+switch the decoder to packed weights before generating; ``load_audio`` turns
+a WAV file into codec tokens (voice-cloning prompts, fine-tuning data);
+``load_adapter_weights`` / ``unload_adapter`` / ``set_adapter`` fuse a LoRA
+adapter into the weights and take it out again; ``save_pretrained`` writes a
+model directory both packages load.  Everything runs on ``device``, ``"cuda"``
 unless the caller passes another; asking for CUDA on a machine without it
 raises — nothing moves to the CPU on its own.
 """
@@ -18,11 +22,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .checkpoint import load_safetensors_checkpoint
+from .checkpoint import load_checkpoint, to_torch_state_dict
 from .config import DiaConfig
 from .generate import DTYPES, DiaGenerator
-from .models.dac import DEFAULT_SAMPLE_RATE, DACConfig, decode_codes, load_dac_safetensors
+from .models.dac import (
+    DEFAULT_SAMPLE_RATE,
+    DACConfig,
+    decode_codes,
+    encode_audio,
+    load_dac_safetensors,
+    pad_audio,
+)
 from .ops.quant import quantize_params_int4_packed, quantize_params_int8_packed
+from .utils.audio_io import load_audio_mono
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -56,6 +68,21 @@ def write_wav(path: str | Path, audio: np.ndarray, sample_rate: int = DEFAULT_SA
         f.writeframes(pcm.tobytes())
 
 
+def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dicts/lists of tensors → flat dotted-key dict of numpy arrays
+    (list indices become numeric key segments; the layout of
+    ``dac.safetensors``, read back by ``models.dac.load_dac_safetensors``)."""
+    flat = {}
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) else tree.items()
+    for k, v in items:
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, (dict, list, tuple)):
+            flat.update(flatten_tree(v, key))
+        else:
+            flat[key] = np.ascontiguousarray(v.detach().float().cpu().numpy())
+    return flat
+
+
 class Dia:
     """Model params + generator + codec (reference: dia/model.py:101)."""
 
@@ -68,32 +95,39 @@ class Dia:
         self.compute_dtype = compute_dtype
         self.dac_config = dac_config or DACConfig()
         self.dac_params = dac_params
+        self._active_adapter = None
         self.generator = DiaGenerator(params, config, compute_dtype, self.device)
 
     @classmethod
     def from_local(cls, config_path: str | Path, checkpoint_path: str | Path,
                    compute_dtype: str = "float32", dac_config=None,
                    device: str | torch.device = "cuda") -> "Dia":
-        """Load a reference-format config.json + safetensors checkpoint."""
+        """Load a reference-format config.json + checkpoint (safetensors, or a
+        torch ``.bin`` / ``.pth`` state dict)."""
         dev = resolve_device(device)
         config = DiaConfig.load(config_path)
         if config is None:
             raise FileNotFoundError(f"Config file not found at {config_path}")
-        params = load_safetensors_checkpoint(checkpoint_path, config, DTYPES[compute_dtype], dev)
+        params = load_checkpoint(checkpoint_path, config, DTYPES[compute_dtype], dev)
         return cls(config, params, compute_dtype, dac_config=load_dac_config(dac_config),
                    device=dev)
 
     @classmethod
     def from_pretrained(cls, model_dir: str | Path, compute_dtype: str = "float32",
                         device: str | torch.device = "cuda") -> "Dia":
-        """Load a local model directory: config.json + model.safetensors, and,
-        when present, dac_config.json + dac.safetensors (the codec)."""
+        """Load a local model directory: config.json + model.safetensors (or
+        pytorch_model.bin, as the fine-tuning CLI writes), and, when present,
+        dac_config.json + dac.safetensors (the codec)."""
         dev = resolve_device(device)
         path = Path(model_dir)
         if not path.is_dir():
             raise FileNotFoundError(f"'{model_dir}' is not a local model directory")
+        ckpt = next((path / c for c in ("model.safetensors", "pytorch_model.bin")
+                     if (path / c).exists()), None)
+        if ckpt is None:
+            raise FileNotFoundError(f"No checkpoint found under {path}")
         dac_cfg = path / "dac_config.json"
-        dia = cls.from_local(path / "config.json", path / "model.safetensors", compute_dtype,
+        dia = cls.from_local(path / "config.json", ckpt, compute_dtype,
                              dac_config=dac_cfg if dac_cfg.exists() else None, device=dev)
         if (path / "dac.safetensors").exists():
             dia.dac_params = load_dac_safetensors(path / "dac.safetensors", dev)
@@ -106,10 +140,13 @@ class Dia:
     _DEC_OV = 32
     _DEC_LA = 32
 
-    def _decode_waveform(self, codes_TxC: np.ndarray) -> np.ndarray:
+    def _require_dac(self) -> None:
         if self.dac_params is None:
             raise RuntimeError("DAC weights not loaded: set dac_params or load a model "
                                "directory with dac.safetensors")
+
+    def _decode_waveform(self, codes_TxC: np.ndarray) -> np.ndarray:
+        self._require_dac()
         hop = self.dac_config.hop_length
         T = codes_TxC.shape[0]
         body, ov, la = self._DEC_BODY, self._DEC_OV, self._DEC_LA
@@ -141,11 +178,10 @@ class Dia:
                  audio_prompt: np.ndarray | None = None, audio_prompt_text: str | None = None,
                  seed: int | None = None, verbose: bool = False) -> np.ndarray | None:
         """Text → waveform (float32 [T_audio]), None when nothing was generated.
-        ``audio_prompt`` is a pre-encoded [T, C] code array (voice cloning
-        from an audio file needs the DAC encoder, not ported yet)."""
+        ``audio_prompt`` is a WAV path (encoded by ``load_audio``) or a
+        pre-encoded [T, C] code array."""
         if isinstance(audio_prompt, (str, Path)):
-            raise NotImplementedError("audio prompts from files need the DAC encoder, which "
-                                      "the port does not have yet; pass [T, C] codes")
+            audio_prompt = self.load_audio(audio_prompt)
         codes = self.generate_codes(
             text, max_tokens=max_tokens, cfg_scale=cfg_scale, temperature=temperature,
             top_p=top_p, cfg_filter_top_k=cfg_filter_top_k,
@@ -181,6 +217,72 @@ class Dia:
         params = quantize_params_int4_packed(self.params, group=group, mlp_only=mlp_only,
                                              halfsplit=halfsplit)
         self._set_params(quantize_params_int8_packed(params) if mlp_only else params)
+
+    def load_audio(self, audio_path: str | Path) -> np.ndarray:
+        """WAV file → DAC codes int32 [T_codes, C] (reference:
+        dia/model.py:546-576): mono, resampled to the codec's rate, padded to a
+        hop multiple, encoded on this model's device."""
+        self._require_dac()
+        mono = load_audio_mono(audio_path, self.dac_config.sample_rate)
+        mono = pad_audio(mono[None, :], self.dac_config.hop_length)
+        codes = encode_audio(self.dac_params, self.dac_config,
+                             torch.from_numpy(np.ascontiguousarray(mono)).to(self.device))
+        return codes[0].cpu().numpy()
+
+    # ---- adapters ----------------------------------------------------
+
+    def load_adapter_weights(self, adapter_path: str | Path, fuse: bool = True) -> None:
+        """Load a LoRA adapter directory (this package's, the JAX package's,
+        or torch-peft's) and fuse it into the base weights (reference intent:
+        dia/model.py:598-628).  The fused adapter is remembered so that
+        ``unload_adapter`` / ``set_adapter`` can switch adapters (the fp32
+        merge is invertible).  A packed (quantized) model raises: merge
+        first, then quantize."""
+        from .lora import load_adapter, merge_lora
+
+        if not fuse:
+            raise NotImplementedError(
+                "Unfused adapters are not supported: fusion is free at inference "
+                "(W + (alpha/r)·A@B folds into the kernels) and unload_adapter() "
+                "reverses it. Use fuse=True.")
+        adapter = load_adapter(adapter_path, self.device)
+        self.unload_adapter()
+        self._set_params(merge_lora(self.params, adapter))
+        self._active_adapter = adapter
+
+    def unload_adapter(self) -> None:
+        """Un-merge the active adapter (the inverse of the fuse)."""
+        from .lora import merge_lora
+
+        if self._active_adapter is not None:
+            self._set_params(merge_lora(self.params, self._active_adapter, sign=-1.0))
+            self._active_adapter = None
+
+    def set_adapter(self, adapter_path: str | Path) -> None:
+        """Swap the active adapter (unload the current one, fuse the new)."""
+        self.load_adapter_weights(adapter_path, fuse=True)
+
+    def save_pretrained(self, directory: str | Path, include_dac: bool = True) -> None:
+        """Write a model directory both packages load: config.json +
+        model.safetensors (reference key schema, float32), plus — when codec
+        weights are loaded and ``include_dac`` — dac.safetensors +
+        dac_config.json."""
+        from dataclasses import asdict
+
+        from safetensors.numpy import save_file
+
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        self.config.save(directory / "config.json")
+        save_file({k: np.ascontiguousarray(v)
+                   for k, v in to_torch_state_dict(self.params, self.config).items()},
+                  str(directory / "model.safetensors"))
+        bundle_dac = include_dac and self.dac_params is not None
+        if bundle_dac:
+            save_file(flatten_tree(self.dac_params), str(directory / "dac.safetensors"))
+        if bundle_dac or self.dac_config != DACConfig():
+            (directory / "dac_config.json").write_text(
+                json.dumps(asdict(self.dac_config), indent=2))
 
     def save_audio(self, path: str | Path, audio: np.ndarray | None,
                    sample_rate: int = DEFAULT_SAMPLE_RATE) -> None:

@@ -1,11 +1,13 @@
-"""Checkpoint loading into the port's params dict (counterpart of
-``dia_tts_prune_tpu/checkpoint.py``).
+"""Checkpoint loading into, and export from, the port's params dict
+(counterpart of ``dia_tts_prune_tpu/checkpoint.py``).
 
 The reference ``DenseGeneral`` stores kernels as ``in_shapes + out_features``
 (dia/layers.py:19-53), so a reference state dict converts by renaming keys
 and stacking per-layer tensors on a leading ``L`` axis — the JAX package's
 layout, which the port keeps.  ``lora_`` keys are dropped as in the reference
-loader (dia/model.py:172).
+loader (dia/model.py:172).  ``to_torch_state_dict`` is the inverse, so weights
+trained by either package load in the other.  Optimizer checkpoints
+(``train.Trainer.save``) are this package's own files.
 """
 
 from __future__ import annotations
@@ -88,6 +90,72 @@ def convert_torch_state_dict(state_dict: Mapping[str, Any], config: DiaConfig,
             "logits_dense": {"kernel": t(get("decoder.logits_dense.weight"))},
         },
     }
+
+
+def to_torch_state_dict(params: Params, config: DiaConfig) -> dict[str, np.ndarray]:
+    """Inverse conversion: stacked params → reference-schema flat dict of
+    float32 numpy arrays (the JAX package's ``to_torch_state_dict`` :116)."""
+    out: dict[str, np.ndarray] = {}
+    enc, dec = params["encoder"], params["decoder"]
+    out["encoder.embedding.weight"] = _to_numpy(enc["embedding"]["embedding"])
+    out["encoder.norm.weight"] = _to_numpy(enc["norm"]["scale"])
+    out["decoder.norm.weight"] = _to_numpy(dec["norm"]["scale"])
+    out["decoder.logits_dense.weight"] = _to_numpy(dec["logits_dense"]["kernel"])
+    embeddings = _to_numpy(dec["embeddings"]["embedding"])
+    for c in range(config.data.channels):
+        out[f"decoder.embeddings.{c}.weight"] = embeddings[c]
+
+    def unstack(prefix, tree, L):
+        for path, arr in _flatten_reference(tree).items():
+            arr = _to_numpy(arr)
+            for i in range(L):
+                out[f"{prefix}.{i}.{path}"] = arr[i]
+
+    unstack("encoder.layers", enc["layers"], config.model.encoder.n_layer)
+    unstack("decoder.layers", dec["layers"], config.model.decoder.n_layer)
+    return out
+
+
+def _flatten_reference(tree: Params, prefix: str = "") -> dict[str, Any]:
+    """Flatten a params subtree to reference key names (kernel/scale/embedding → weight)."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flatten_reference(v, f"{prefix}.{k}" if prefix else k))
+        elif isinstance(v, (QuantizedKernel, Quantized4Kernel)):
+            raise TypeError(f"{prefix}.{k} is a packed kernel: export float weights, "
+                            "then quantize after loading")
+        else:
+            name = {"kernel": "weight", "scale": "weight", "embedding": "weight"}.get(k, k)
+            flat[f"{prefix}.{name}" if prefix else name] = v
+    return flat
+
+
+def load_torch_checkpoint(path: str | Path, config: DiaConfig, dtype=torch.float32,
+                          device: str | torch.device = "cuda") -> Params:
+    """Load a reference ``pytorch_model.bin`` / ``.pth`` state dict
+    (reference load path: dia/model.py:139-187)."""
+    state_dict = torch.load(str(path), map_location="cpu", weights_only=True)
+    return convert_torch_state_dict(state_dict, config, dtype=dtype, device=device)
+
+
+def load_checkpoint(path: str | Path, config: DiaConfig, dtype=torch.float32,
+                    device: str | torch.device = "cuda") -> Params:
+    """A safetensors or torch checkpoint, by suffix."""
+    if Path(path).suffix == ".safetensors":
+        return load_safetensors_checkpoint(path, config, dtype=dtype, device=device)
+    return load_torch_checkpoint(path, config, dtype=dtype, device=device)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """A tree of tensors (params, an adapter's weights, gradients, optimizer
+    moments; nested dicts and lists) as the same tree of float32 numpy arrays
+    — what the JAX package takes through ``jnp.asarray``."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return _to_numpy(tree)
 
 
 def load_safetensors_checkpoint(path: str | Path, config: DiaConfig, dtype=torch.float32,

@@ -5,7 +5,11 @@
 // pallas_call :359, the forward that ops/modules.py:397 runs).  Same math:
 // blockwise online softmax over key tiles, two positions attend iff their
 // segment ids are equal (and, if causal, key <= query), GQA query head n
-// reads kv head n / group, fully masked rows write exact zeros.
+// reads kv head n / group, fully masked rows write exact zeros.  The
+// training entry (`flash_attention_fwd_lse`) also writes each row's
+// log-sum-exp, lse[b, n, t] = m + log(max(l, 1e-30)) with m taken as 0 on a
+// fully masked row, which the backward kernels (flash_attention_bwd.cu) read
+// to recompute the softmax weights.
 //
 // What bounds it on the H100: operations.  The encoder pass (B=2, T=1024,
 // 16 heads, H=128) does ~1 GFLOP per layer against ~17 MB of q/k/v/o, far
@@ -63,8 +67,8 @@ template <typename T, int H>
 __global__ void __launch_bounds__(NWARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-                 T* __restrict__ out, int Tq, int Tk, int Nq, int Nkv, int causal,
-                 float scale) {
+                 T* __restrict__ out, float* __restrict__ lse, int Tq, int Tk, int Nq, int Nkv,
+                 int causal, float scale) {
   constexpr int DPL = H / 32;  // output dims per lane
   extern __shared__ float smem[];
   float* q_s = smem;                    // [BQ][H]
@@ -167,13 +171,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* o = out + (((size_t)b * Tq + row_idx[r]) * Nq + n) * H;
 #pragma unroll
     for (int dd = 0; dd < DPL; ++dd) o[lane + 32 * dd] = from_f<T>(acc[r][dd] * inv);
+    if (lse != nullptr && lane == 0) {
+      const float m_val = m[r] <= NEG * 0.5f ? 0.f : m[r];
+      lse[((size_t)b * Nq + n) * Tq + row_idx[r]] = m_val + logf(fmaxf(l[r], 1e-30f));
+    }
   }
 }
 
 template <typename T, int H>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* q_seg,
-                   const void* kv_seg, void* out, int B, int Tq, int Tk, int Nq, int Nkv,
-                   int causal, cudaStream_t stream) {
+                   const void* kv_seg, void* out, float* lse, int B, int Tq, int Tk, int Nq,
+                   int Nkv, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<H>();
   auto kernel = flash_fwd_kernel<T, H>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -183,20 +191,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_se
   kernel<<<grid, NWARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), static_cast<T*>(out),
-      Tq, Tk, Nq, Nkv, causal, 1.0f / sqrtf((float)H));
+      lse, Tq, Tk, Nq, Nkv, causal, 1.0f / sqrtf((float)H));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_h(int H, const void* q, const void* k, const void* v, const void* q_seg,
-                       const void* kv_seg, void* out, int B, int Tq, int Tk, int Nq, int Nkv,
-                       int causal, cudaStream_t stream) {
+                       const void* kv_seg, void* out, float* lse, int B, int Tq, int Tk, int Nq,
+                       int Nkv, int causal, cudaStream_t stream) {
   switch (H) {
-    case 32: return launch<T, 32>(q, k, v, q_seg, kv_seg, out, B, Tq, Tk, Nq, Nkv, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, q_seg, kv_seg, out, B, Tq, Tk, Nq, Nkv, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, q_seg, kv_seg, out, B, Tq, Tk, Nq, Nkv, causal, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, q_seg, kv_seg, out, lse, B, Tq, Tk, Nq, Nkv, causal, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, q_seg, kv_seg, out, lse, B, Tq, Tk, Nq, Nkv, causal, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, q_seg, kv_seg, out, lse, B, Tq, Tk, Nq, Nkv, causal, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* q_seg,
+                     const void* kv_seg, void* out, float* lse, int B, int Tq, int Tk, int Nq,
+                     int Nkv, int H, int dtype, int causal, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || Nkv <= 0 || Nq % Nkv != 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_h<float>(H, q, k, v, q_seg, kv_seg, out, lse, B, Tq, Tk, Nq, Nkv, causal, s);
+  if (dtype == 1)
+    return dispatch_h<__nv_bfloat16>(H, q, k, v, q_seg, kv_seg, out, lse, B, Tq, Tk, Nq, Nkv,
+                                     causal, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -208,11 +232,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* q_seg, const void* kv_seg, void* out, int B,
                                    int Tq, int Tk, int Nq, int Nkv, int H, int dtype,
                                    int causal, void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || Nkv <= 0 || Nq % Nkv != 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_h<float>(H, q, k, v, q_seg, kv_seg, out, B, Tq, Tk, Nq, Nkv, causal, s);
-  if (dtype == 1)
-    return dispatch_h<__nv_bfloat16>(H, q, k, v, q_seg, kv_seg, out, B, Tq, Tk, Nq, Nkv, causal, s);
-  return cudaErrorInvalidValue;
+  return dispatch(q, k, v, q_seg, kv_seg, out, nullptr, B, Tq, Tk, Nq, Nkv, H, dtype, causal,
+                  stream);
+}
+
+// The same forward, also writing lse float32 [B,Nq,Tq] (head-major, as the
+// backward kernels read it).
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v,
+                                       const void* q_seg, const void* kv_seg, void* out,
+                                       void* lse, int B, int Tq, int Tk, int Nq, int Nkv, int H,
+                                       int dtype, int causal, void* stream) {
+  if (lse == nullptr) return cudaErrorInvalidValue;
+  return dispatch(q, k, v, q_seg, kv_seg, out, static_cast<float*>(lse), B, Tq, Tk, Nq, Nkv, H,
+                  dtype, causal, stream);
 }

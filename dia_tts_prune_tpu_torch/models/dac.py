@@ -1,4 +1,4 @@
-"""Descript Audio Codec (DAC), decode side (counterpart of
+"""Descript Audio Codec (DAC), decode and encode (counterpart of
 ``dia_tts_prune_tpu/models/dac.py``).
 
 Codes → waveform for the 44.1 kHz model: per-codebook embedding lookup and
@@ -9,9 +9,14 @@ torch.  The convolutions are ``torch.nn.functional`` calls, as the JAX
 package leaves them to XLA.  A float32 decode keeps cuDNN off TF32 so that
 fp32 means fp32, as the JAX package's HIGHEST-precision convs do.
 
+Waveform → codes (voice-cloning prompts, fine-tuning data): the encoder, a
+Conv1d stem → strided blocks {3 ResidualUnits → Snake → strided Conv1d} →
+Snake → Conv1d, then residual VQ with an L2-normalized nearest-neighbour
+lookup per codebook.  The same fp32 rule holds (TF32 off).
+
 Weights come from the flattened ``dac.safetensors`` a model directory
 carries (the JAX package's ``save_pretrained`` layout) or from a numpy seed.
-Encoding audio into codes (voice cloning from a file) is not ported yet.
+Converting a published torch DAC checkpoint is not ported yet.
 """
 
 from __future__ import annotations
@@ -105,15 +110,72 @@ def dac_decode_latent(params: Params, config: DACConfig, z: torch.Tensor) -> tor
     return torch.tanh(x)
 
 
+def _fp32_convs():
+    """cuDNN kept off TF32, so that a float32 convolution is float32."""
+    return torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                      benchmark=torch.backends.cudnn.benchmark,
+                                      deterministic=torch.backends.cudnn.deterministic,
+                                      allow_tf32=False)
+
+
 @torch.no_grad()
 def decode_codes(params: Params, config: DACConfig, codes_BxTxC: torch.Tensor) -> torch.Tensor:
     """Codec tokens [B, T, C] → waveform [B, T*hop] (reference: dia/audio.py:166-185)."""
-    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                    benchmark=torch.backends.cudnn.benchmark,
-                                    deterministic=torch.backends.cudnn.deterministic,
-                                    allow_tf32=False):
+    with _fp32_convs():
         z = rvq_from_codes(params, config, codes_BxTxC.transpose(1, 2))
         return dac_decode_latent(params, config, z)[:, 0, :]
+
+
+def dac_encode_latent(params: Params, config: DACConfig, audio: torch.Tensor) -> torch.Tensor:
+    """Waveform [B, 1, T] → continuous latent [B, latent_dim, T/hop]."""
+    p = params["encoder"]
+    x = conv1d(audio, p["stem"]["weight"], p["stem"]["bias"], padding=3)
+    for block, stride in zip(p["blocks"], config.encoder_rates):
+        x = _res_unit(block["res1"], x, 1)
+        x = _res_unit(block["res2"], x, 3)
+        x = _res_unit(block["res3"], x, 9)
+        x = snake(x, block["snake"]["alpha"])
+        x = conv1d(x, block["conv"]["weight"], block["conv"]["bias"], stride=stride,
+                   padding=math.ceil(stride / 2))
+    x = snake(x, p["snake"]["alpha"])
+    return conv1d(x, p["head"]["weight"], p["head"]["bias"], padding=1)
+
+
+def _nearest_code(codebook_VxD: torch.Tensor, z_e_BxDxT: torch.Tensor) -> torch.Tensor:
+    """L2-normalized nearest-neighbour lookup (DAC decode_latents semantics):
+    argmin ||e - c||² over normalized vectors == argmax cosine similarity.
+    Ties go to the lowest index, as in the JAX package's argmax."""
+    enc = z_e_BxDxT.transpose(1, 2)  # [B, T, D]
+    enc_n = enc / torch.linalg.vector_norm(enc, dim=-1, keepdim=True).clamp_min(1e-12)
+    cb_n = codebook_VxD / torch.linalg.vector_norm(
+        codebook_VxD, dim=-1, keepdim=True).clamp_min(1e-12)
+    sim = torch.einsum("btd,vd->btv", enc_n, cb_n)
+    return torch.argmax(sim, dim=-1).to(torch.int32)  # [B, T]
+
+
+@torch.no_grad()
+def encode_audio(params: Params, config: DACConfig, audio_BxT: torch.Tensor) -> torch.Tensor:
+    """Waveform [B, T] → codec tokens int32 [B, T/hop, C] (DAC encode + RVQ;
+    reference: dia/model.py:546-576).  The caller pads T to a multiple of
+    ``config.hop_length`` (see ``pad_audio``)."""
+    with _fp32_convs():
+        residual = dac_encode_latent(params, config, audio_BxT.float()[:, None, :])
+        codes = []
+        for q in params["quantizer"]["quantizers"][: config.n_codebooks]:
+            z_e = conv1d(residual, q["in_proj"]["weight"], q["in_proj"]["bias"])
+            idx = _nearest_code(q["codebook"]["embedding"], z_e)  # [B, T]
+            z_p = q["codebook"]["embedding"][idx.long()].transpose(1, 2)  # [B, D, T]
+            residual = residual - conv1d(z_p, q["out_proj"]["weight"], q["out_proj"]["bias"])
+            codes.append(idx)
+        return torch.stack(codes, dim=-1)
+
+
+def pad_audio(audio: np.ndarray, hop_length: int) -> np.ndarray:
+    """Right-pad to a hop multiple (DAC preprocess semantics)."""
+    pad = (-audio.shape[-1]) % hop_length
+    if pad == 0:
+        return audio
+    return np.pad(audio, [(0, 0)] * (audio.ndim - 1) + [(0, pad)])
 
 
 def _unflatten(flat: dict[str, np.ndarray], device) -> Params:
@@ -144,41 +206,68 @@ def load_dac_safetensors(path: str | Path, device: str | torch.device = "cuda") 
     return _unflatten(load_file(str(path)), device)
 
 
+class _SeededInit:
+    """Weight draws from one numpy stream: normal / sqrt(fan_in) kernels, zero
+    biases, unit snake alphas."""
+
+    def __init__(self, rng: np.random.Generator, device):
+        self.rng, self.device = rng, device
+
+    def t(self, a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
+
+    def conv(self, o, i, k, transpose=False):
+        shape = (i, o, k) if transpose else (o, i, k)
+        w = self.rng.standard_normal(size=shape, dtype=np.float32) / np.float32(math.sqrt(i * k))
+        return {"weight": self.t(w), "bias": self.t(np.zeros(o))}
+
+    def alpha(self, dim):
+        return {"alpha": self.t(np.ones((1, dim, 1)))}
+
+    def res(self, dim):
+        return {"snake1": self.alpha(dim), "conv1": self.conv(dim, dim, 7),
+                "snake2": self.alpha(dim), "conv2": self.conv(dim, dim, 1)}
+
+
 def init_dac_decoder_params(config: DACConfig, seed: int = 0,
                             device: str | torch.device = "cuda") -> Params:
-    """Random decode-side weights from a numpy seed (normal / sqrt(fan_in)
-    kernels, zero biases, unit snake alphas), for runs without a checkpoint."""
-    rng = np.random.default_rng(seed)
-
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
-
-    def conv(o, i, k, transpose=False):
-        shape = (i, o, k) if transpose else (o, i, k)
-        w = rng.standard_normal(size=shape, dtype=np.float32) / np.float32(math.sqrt(i * k))
-        return {"weight": t(w), "bias": t(np.zeros(o))}
-
-    def alpha(dim):
-        return {"alpha": t(np.ones((1, dim, 1)))}
-
-    def res(dim):
-        return {"snake1": alpha(dim), "conv1": conv(dim, dim, 7),
-                "snake2": alpha(dim), "conv2": conv(dim, dim, 1)}
-
+    """Random decode-side weights from a numpy seed, for runs without a checkpoint."""
+    init = _SeededInit(np.random.default_rng(seed), device)
     dd = config.decoder_dim
     blocks = []
     for i, stride in enumerate(config.decoder_rates):
         in_d, out_d = dd // 2 ** i, dd // 2 ** (i + 1)
-        blocks.append({"snake": alpha(in_d), "conv_t": conv(out_d, in_d, 2 * stride, True),
-                       "res1": res(out_d), "res2": res(out_d), "res3": res(out_d)})
+        blocks.append({"snake": init.alpha(in_d),
+                       "conv_t": init.conv(out_d, in_d, 2 * stride, True),
+                       "res1": init.res(out_d), "res2": init.res(out_d), "res3": init.res(out_d)})
     final_d = dd // 2 ** len(config.decoder_rates)
     quantizers = [{
-        "out_proj": conv(config.latent_dim, config.codebook_dim, 1),
-        "codebook": {"embedding": t(rng.standard_normal(
+        "out_proj": init.conv(config.latent_dim, config.codebook_dim, 1),
+        "codebook": {"embedding": init.t(init.rng.standard_normal(
             size=(config.codebook_size, config.codebook_dim), dtype=np.float32))},
     } for _ in range(config.n_codebooks)]
     return {
-        "decoder": {"stem": conv(dd, config.latent_dim, 7), "blocks": blocks,
-                    "snake": alpha(final_d), "head": conv(1, final_d, 7)},
+        "decoder": {"stem": init.conv(dd, config.latent_dim, 7), "blocks": blocks,
+                    "snake": init.alpha(final_d), "head": init.conv(1, final_d, 7)},
         "quantizer": {"quantizers": quantizers},
     }
+
+
+def init_dac_params(config: DACConfig, seed: int = 0,
+                    device: str | torch.device = "cuda") -> Params:
+    """Random weights for both directions: ``init_dac_decoder_params(seed)``
+    (the same decode-side draws) plus the encoder and the quantizers'
+    in-projections, drawn from a second stream of the seed."""
+    params = init_dac_decoder_params(config, seed, device)
+    init = _SeededInit(np.random.default_rng([seed, 1]), device)
+    d = config.encoder_dim
+    blocks = []
+    for stride in config.encoder_rates:
+        blocks.append({"res1": init.res(d), "res2": init.res(d), "res3": init.res(d),
+                       "snake": init.alpha(d), "conv": init.conv(2 * d, d, 2 * stride)})
+        d *= 2
+    params["encoder"] = {"stem": init.conv(config.encoder_dim, 1, 7), "blocks": blocks,
+                         "snake": init.alpha(d), "head": init.conv(config.latent_dim, d, 3)}
+    for q in params["quantizer"]["quantizers"]:
+        q["in_proj"] = init.conv(config.codebook_dim, config.latent_dim, 1)
+    return params

@@ -28,6 +28,11 @@ plus its own unquantized K/V before committing them quantized — the order of
 the JAX package's ``decode_step_scan`` (:661-745), which the port needs no
 separate function for (it has no ``lax.scan``; ``decode_step`` is the one
 step for float and packed trees alike).
+
+Training runs ``encoder_forward(remat=...)`` and ``decoder_forward``: the
+same layer bodies, no cache and no in-place write, each layer optionally
+rematerialized in the backward pass; every attention goes through the
+trainable flash kernels (``ops/modules.py::full_attention``).
 """
 
 from __future__ import annotations
@@ -90,6 +95,32 @@ def _layer(layers: Params, i: int) -> Params:
     """Layer ``i`` of the stacked tree; a packed kernel indexes its values
     and scales and keeps its metadata."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+
+
+def _unstack(layers: Params, n: int) -> list[Params]:
+    """The stacked tree as ``n`` per-layer trees.  Tensors are unbound in one
+    op, so under autograd a stacked weight's gradient is assembled by one
+    ``stack`` of its layers' gradients (indexing layer by layer would add a
+    full-size zero-padded tensor per layer)."""
+    def parts(v):
+        if isinstance(v, dict):
+            sub = {k: parts(x) for k, x in v.items()}
+            return [{k: x[i] for k, x in sub.items()} for i in range(n)]
+        return v.unbind(0) if isinstance(v, torch.Tensor) else [v[i] for i in range(n)]
+
+    return parts(layers)
+
+
+def _run_layer(fn, remat: bool, *args):
+    """``fn(*args)``, rematerialized in the backward pass when ``remat``
+    (the JAX package's ``jax.checkpoint`` on its layer scans): only the
+    layer's inputs are kept, and its forward — attention kernels included —
+    runs a second time during backward."""
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def init_params(config: DiaConfig, seed: int = 0, dtype=torch.float32,
@@ -173,23 +204,27 @@ def encoder_forward(
     x_ids: torch.Tensor,  # [B, T] int
     positions: torch.Tensor,  # [B, T]
     compute_dtype=torch.float32,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Encoder stack (reference: dia/layers.py:445-462).  Returns [B, T, D].
     The padding mask is the flash kernel's segment ids (pad attends pad,
-    non-pad attends non-pad)."""
+    non-pad attends non-pad).  ``remat`` rematerializes each layer in the
+    backward pass (training memory against a second forward)."""
     m = config.model
     eps = m.normalization_layer_epsilon
     x = params["encoder"]["embedding"]["embedding"][x_ids.long()].to(compute_dtype)
     seg = (x_ids != config.data.text_pad_value).to(torch.int32)
-    layers = params["encoder"]["layers"]
-    for i in range(m.encoder.n_layer):
-        lp = _layer(layers, i)
+
+    def layer_fn(x, lp):
         h = rms_norm(x, lp["pre_sa_norm"]["scale"], eps)
         sa = attention(lp["self_attention"], h, h, positions, positions,
                        m.rope_min_timescale, m.rope_max_timescale, False, seg, seg)
         x = x + sa.to(x.dtype)
         h = rms_norm(x, lp["post_sa_norm"]["scale"], eps)
-        x = x + mlp_block(lp["mlp"], h).to(x.dtype)
+        return x + mlp_block(lp["mlp"], h).to(x.dtype)
+
+    for lp in _unstack(params["encoder"]["layers"], m.encoder.n_layer):
+        x = _run_layer(layer_fn, remat, x, lp)
     return rms_norm(x, params["encoder"]["norm"]["scale"], eps)
 
 
@@ -217,10 +252,11 @@ def precompute_cross_cache(
     m = config.model
     ca = params["decoder"]["layers"]["cross_attention"]
     ks, vs = [], []
-    for i in range(m.decoder.n_layer):
-        k = dense_general(enc_out, ca["k_proj"]["kernel"][i])
+    for lp in _unstack({"k": ca["k_proj"]["kernel"], "v": ca["v_proj"]["kernel"]},
+                       m.decoder.n_layer):
+        k = dense_general(enc_out, lp["k"])
         ks.append(rope(k, enc_positions, m.rope_min_timescale, m.rope_max_timescale))
-        vs.append(dense_general(enc_out, ca["v_proj"]["kernel"][i]))
+        vs.append(dense_general(enc_out, lp["v"]))
     return KVCache(k=torch.stack(ks), v=torch.stack(vs))
 
 
@@ -242,6 +278,74 @@ def new_self_cache(config: DiaConfig, batch: int, max_len: int | None = None,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _decoder_layer_full(lp: Params, m, x, dec_positions, cross_k, cross_v, is_causal: bool,
+                        dec_segment_ids, cross_q_segment_ids, enc_segment_ids):
+    """One decoder block on a full sequence (the JAX package's
+    ``_decoder_layer_full`` :324): flash self-attention, flash
+    cross-attention, MLP.  Returns (x, self_k, self_v); writes nothing in
+    place, so it is safe under autograd."""
+    eps = m.normalization_layer_epsilon
+    h = rms_norm(x, lp["pre_sa_norm"]["scale"], eps)
+    q, k, v = attention_qkv(lp["self_attention"], h, h, dec_positions, dec_positions,
+                            m.rope_min_timescale, m.rope_max_timescale)
+    sa = full_attention(q, k, v, is_causal, dec_segment_ids, dec_segment_ids)
+    x = x + attention_out(lp["self_attention"], sa).to(x.dtype)
+
+    h = rms_norm(x, lp["pre_ca_norm"]["scale"], eps)
+    cq = dense_general(h, lp["cross_attention"]["q_proj"]["kernel"])
+    cq = rope(cq, dec_positions, m.rope_min_timescale, m.rope_max_timescale)
+    ca = full_attention(cq, cross_k, cross_v, False, cross_q_segment_ids, enc_segment_ids)
+    x = x + attention_out(lp["cross_attention"], ca).to(x.dtype)
+
+    h = rms_norm(x, lp["pre_mlp_norm"]["scale"], eps)
+    x = x + mlp_block(lp["mlp"], h).to(x.dtype)
+    return x, k, v
+
+
+def decoder_forward(
+    params: Params,
+    config: DiaConfig,
+    tgt_BxTxC: torch.Tensor,  # [B, T, C]
+    enc_out: torch.Tensor,  # [B, S, E]
+    enc_positions: torch.Tensor,  # [B, S]
+    dec_positions: torch.Tensor,  # [B, T]
+    enc_padding_mask: torch.Tensor,  # bool [B, S]
+    compute_dtype=torch.float32,
+    return_kv: bool = False,
+    remat: bool = False,
+):
+    """Full-sequence decoder pass for teacher-forced training (reference:
+    dia/layers.py:722-766; the JAX package's ``decoder_forward`` :360 on its
+    flash route).  Causal self-attention over every row (segment = ones),
+    cross-attention from every row to the text's non-pad keys.  Differentiable:
+    nothing is written in place.  Returns logits [B, T, C, V] fp32, and with
+    ``return_kv`` also the stacked self-attention K/V ([L, B, T, Nkv, H]).
+    The JAX signature's mask arguments have no counterpart: the segment ids
+    carry the same masks to the flash kernels."""
+    m = config.model
+    cross = precompute_cross_cache(params, config, enc_out, enc_positions)
+    x = _embed_channels(params, tgt_BxTxC, compute_dtype)
+    dec_seg = torch.ones(tgt_BxTxC.shape[:2], dtype=torch.int32, device=x.device)
+    enc_seg = enc_padding_mask.to(torch.int32)
+
+    def layer_fn(x, lp, ck, cv):
+        return _decoder_layer_full(lp, m, x, dec_positions, ck, cv, True, dec_seg, dec_seg,
+                                   enc_seg)
+
+    ks, vs = [], []
+    layers = _unstack(params["decoder"]["layers"], m.decoder.n_layer)
+    for lp, ck, cv in zip(layers, cross.k.unbind(0), cross.v.unbind(0)):
+        x, k, v = _run_layer(layer_fn, remat, x, lp, ck, cv)
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+    x = rms_norm(x, params["decoder"]["norm"]["scale"], m.normalization_layer_epsilon)
+    logits = dense_general(x, params["decoder"]["logits_dense"]["kernel"]).float()
+    if return_kv:
+        return logits, KVCache(k=torch.stack(ks), v=torch.stack(vs))
+    return logits
+
+
 def decoder_prefill(
     params: Params,
     config: DiaConfig,
@@ -260,34 +364,21 @@ def decoder_prefill(
     logits [B, P, C, V] fp32 (reference: dia/model.py:403-419, without its
     prefill off-by-one, quirk Q5)."""
     m = config.model
-    eps = m.normalization_layer_epsilon
     P = tgt_BxTxC.shape[1]
     x = _embed_channels(params, tgt_BxTxC, compute_dtype)
     ones = torch.ones_like(dec_segment_ids)
     layers = params["decoder"]["layers"]
     for i in range(m.decoder.n_layer):
-        lp = _layer(layers, i)
-        h = rms_norm(x, lp["pre_sa_norm"]["scale"], eps)
-        q, k, v = attention_qkv(lp["self_attention"], h, h, dec_positions, dec_positions,
-                                m.rope_min_timescale, m.rope_max_timescale)
-        sa = full_attention(q, k, v, True, dec_segment_ids, dec_segment_ids)
-        x = x + attention_out(lp["self_attention"], sa).to(x.dtype)
-
-        h = rms_norm(x, lp["pre_ca_norm"]["scale"], eps)
-        cq = dense_general(h, lp["cross_attention"]["q_proj"]["kernel"])
-        cq = rope(cq, dec_positions, m.rope_min_timescale, m.rope_max_timescale)
-        ca = full_attention(cq, cross_cache.k[i], cross_cache.v[i], False, ones, enc_segment_ids)
-        x = x + attention_out(lp["cross_attention"], ca).to(x.dtype)
-
-        h = rms_norm(x, lp["pre_mlp_norm"]["scale"], eps)
-        x = x + mlp_block(lp["mlp"], h).to(x.dtype)
+        x, k, v = _decoder_layer_full(_layer(layers, i), m, x, dec_positions, cross_cache.k[i],
+                                      cross_cache.v[i], True, dec_segment_ids, ones,
+                                      enc_segment_ids)
         if isinstance(self_cache, QuantKVCache):
             self_cache.k[i, :, :P], self_cache.ks[i, :, :P] = quantize_kv(k)
             self_cache.v[i, :, :P], self_cache.vs[i, :, :P] = quantize_kv(v)
         else:
             self_cache.k[i, :, :P] = k.to(self_cache.k.dtype)
             self_cache.v[i, :, :P] = v.to(self_cache.v.dtype)
-    x = rms_norm(x, params["decoder"]["norm"]["scale"], eps)
+    x = rms_norm(x, params["decoder"]["norm"]["scale"], m.normalization_layer_epsilon)
     return dense_general(x, params["decoder"]["logits_dense"]["kernel"]).float()
 
 

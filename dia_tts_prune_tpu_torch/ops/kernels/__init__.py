@@ -3,12 +3,24 @@ version.  A wrapper counts its own launches (``<wrapper>.launches``) so a
 run can show that the main path went through the kernel."""
 
 from .decode_attention import decode_attention, decode_attention_plain
-from .flash_attention import flash_attention, flash_attention_plain
+from .flash_attention import (
+    flash_attention,
+    flash_attention_bwd_kv,
+    flash_attention_bwd_plain,
+    flash_attention_bwd_q,
+    flash_attention_lse,
+    flash_attention_lse_plain,
+    flash_attention_plain,
+    flash_attention_trainable,
+)
 from .int4_gemv import int4_gemv, int4_gemv_plain
 from .int8_matmul import int8_matmul, int8_matmul_plain
 
 KERNEL_WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
-                   "int8_matmul": int8_matmul, "int4_gemv": int4_gemv}
+                   "int8_matmul": int8_matmul, "int4_gemv": int4_gemv,
+                   "flash_attention_lse": flash_attention_lse,
+                   "flash_attention_bwd_kv": flash_attention_bwd_kv,
+                   "flash_attention_bwd_q": flash_attention_bwd_q}
 
 
 def reset_launch_counts() -> None:
@@ -22,6 +34,8 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNEL_WRAPPERS", "decode_attention", "decode_attention_plain", "flash_attention",
-    "flash_attention_plain", "int4_gemv", "int4_gemv_plain", "int8_matmul",
+    "flash_attention_bwd_kv", "flash_attention_bwd_plain", "flash_attention_bwd_q",
+    "flash_attention_lse", "flash_attention_lse_plain", "flash_attention_plain",
+    "flash_attention_trainable", "int4_gemv", "int4_gemv_plain", "int8_matmul",
     "int8_matmul_plain", "launch_counts", "reset_launch_counts",
 ]

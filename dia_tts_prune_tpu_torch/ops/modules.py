@@ -27,7 +27,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from .kernels.flash_attention import flash_attention
+from .kernels.flash_attention import flash_attention, flash_attention_trainable
 from .kernels.int4_gemv import int4_gemv
 from .kernels.int8_matmul import MAX_ROWS, int8_matmul
 from .quant import Quantized4Kernel, QuantizedKernel, dequantize4
@@ -190,10 +190,15 @@ def full_attention(
     q_segment_ids: torch.Tensor,
     kv_segment_ids: torch.Tensor,
 ) -> torch.Tensor:
-    """Full-sequence attention: always the flash kernel (segment ids carry the
-    reference's pad mask, ops/masks.py).  Unlike the JAX dispatcher, head_dim
-    is not padded to 128 — the kernel takes 32, 64 and 128 as they are."""
-    return flash_attention(
+    """Full-sequence attention: always the flash kernels (segment ids carry
+    the reference's pad mask, ops/masks.py).  When autograd will need a
+    gradient of q, k or v it is the trainable entry (LSE forward, dK/dV and dQ
+    backward kernels), else the forward-only kernel.  Unlike the JAX
+    dispatcher, head_dim is not padded to 128 — the kernels take 32, 64 and
+    128 as they are."""
+    needs_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                              or v.requires_grad)
+    return (flash_attention_trainable if needs_grad else flash_attention)(
         q.contiguous(), k.contiguous(), v.contiguous(),
         q_segment_ids.to(torch.int32).contiguous(), kv_segment_ids.to(torch.int32).contiguous(),
         is_causal,

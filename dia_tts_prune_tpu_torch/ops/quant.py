@@ -19,9 +19,13 @@ the logical kernel dims kept as metadata.
 
 Not here: the JAX package's ``unpack_to_s4`` / ``unpack_params_s4`` and its
 ``kng`` layout serve XLA's 4-bit dtype, which PyTorch lacks — int4 values stay
-nibble bytes; ``fake_quant_ste`` / ``fake_quant_params_ste`` belong to
-quantization-aware training; the fused-step weight pack
-(``repack_decoder_fused``) belongs to the fused decode-step kernel.
+nibble bytes; the fused-step weight pack (``repack_decoder_fused``) belongs
+to the fused decode-step kernel.
+
+Quantization-aware training (``fake_quant_ste``, ``fake_quant_params_ste``)
+is built on the same packers, so its forward sees exactly the weights a
+packed model serves with, while gradients pass straight through to the float
+weights.
 """
 
 from __future__ import annotations
@@ -184,6 +188,39 @@ def quantize_params_int8(params: Params) -> Params:
     """Fake-quantize every dense kernel (int8 precision, original dtype)."""
     return _map_kernels(params, lambda w, path: dequantize(
         quantize_int8(w, **_quant_args_for(path)), dtype=w.dtype))
+
+
+def fake_quant_ste(w: torch.Tensor, fq: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: the forward sees ``fq``, the backward sees
+    ``w`` (round() has zero gradient almost everywhere, so
+    d(loss)/d(w) := d(loss)/d(fq))."""
+    return w + (fq.to(w.dtype) - w).detach()
+
+
+def fake_quant_params_ste(params: Params, mode: str, scope: str | None = "decoder",
+                          group: int | None = 128) -> Params:
+    """Quantization-aware-training view of the params: every dense kernel
+    inside ``scope`` is replaced by its fake-quantized value behind a
+    straight-through estimator.  The values are those of
+    ``quantize_params_int8_packed`` / ``quantize_params_int4_packed`` on the
+    same weights (the same per-column / per-group grids, recomputed from the
+    live weights every step).  ``mode``: ``int8`` | ``int4`` (grouped,
+    ``group`` rows per scale) | ``int4_hybrid`` (int4 MLP kernels, int8
+    elsewhere).  ``scope`` defaults to ``decoder``, the serving quantizers'
+    scope."""
+    if mode not in ("int8", "int4", "int4_hybrid"):
+        raise ValueError(f"Unknown QAT mode: {mode!r}")
+
+    def fq(w, path):
+        a = _quant_args_for(path)
+        with torch.no_grad():
+            if mode == "int4" or (mode == "int4_hybrid" and "mlp" in path):
+                deq = dequantize4(quantize_int4(w, group=group, **a), dtype=w.dtype)
+            else:
+                deq = dequantize(quantize_int8(w, **a), dtype=w.dtype)
+        return fake_quant_ste(w, deq)
+
+    return _map_scope(params, scope, fq)
 
 
 def quantize_params_int8_packed(params: Params, scope: str | None = "decoder") -> Params:

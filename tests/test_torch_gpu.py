@@ -15,7 +15,13 @@ from dia_tts_prune_tpu_torch.ops.kernels import (
     decode_attention,
     decode_attention_plain,
     flash_attention,
+    flash_attention_bwd_kv,
+    flash_attention_bwd_plain,
+    flash_attention_bwd_q,
+    flash_attention_lse,
+    flash_attention_lse_plain,
     flash_attention_plain,
+    flash_attention_trainable,
     int4_gemv,
     int4_gemv_plain,
     int8_matmul,
@@ -62,6 +68,90 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, rtol, atol):
         out = flash_attention(q, k, v, seg, seg, causal)
         ref = flash_attention_plain(*_wide(q, k, v, seg, seg), causal)
         torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+
+
+# Gradients sum up to T products of size ~|dO|.|v| per element, so their fp32
+# summation-order error is larger than the forward's: atol 1e-4 (the JAX
+# package's own limit for its backward kernels), plus the one rounding to bf16.
+GRAD_TOLS = [(torch.float32, 1e-5, 1e-4), (torch.bfloat16, 2.0 ** -8, 1e-4)]
+FLASH_BWD_SHAPES = [  # B, Tq, Tk, Nq, Nkv, H
+    (2, 320, 320, 4, 2, 64), (2, 100, 77, 4, 4, 128), (1, 33, 65, 8, 2, 32)]
+
+
+def _flash_training_inputs(device, dtype, shape, seed=21):
+    rng = np.random.default_rng(seed)
+    B, Tq, Tk, Nq, Nkv, H = shape
+    q, k, v, dout = (_t(_normal(rng, s)).to(device, dtype) for s in (
+        (B, Tq, Nq, H), (B, Tk, Nkv, H), (B, Tk, Nkv, H), (B, Tq, Nq, H)))
+    q_seg = torch.ones(B, Tq, dtype=torch.int32, device=device)
+    kv_seg = torch.ones(B, Tk, dtype=torch.int32, device=device)
+    kv_seg[-1, Tk * 2 // 3:] = 0  # ragged real length
+    q_seg[0, 5] = 7  # one fully masked query row
+    return q, k, v, q_seg, kv_seg, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol,atol", GRAD_TOLS)
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_training_kernels_match_plain_on_card(cuda_device, dtype, rtol, atol, shape, causal):
+    q, k, v, q_seg, kv_seg, dout = _flash_training_inputs(cuda_device, dtype, shape)
+    out, lse = flash_attention_lse(q, k, v, q_seg, kv_seg, causal)
+    assert torch.equal(out, flash_attention(q, k, v, q_seg, kv_seg, causal))
+    ref_out, ref_lse = flash_attention_lse_plain(*_wide(q, k, v, q_seg, kv_seg), causal)
+    fwd_rtol, fwd_atol = dict((t[0], t[1:]) for t in TOLS)[dtype]
+    torch.testing.assert_close(out.float(), ref_out, rtol=fwd_rtol, atol=fwd_atol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=2e-5)
+    assert torch.all(out[0, 5] == 0) and torch.all(lse[0, :, 5] == lse[0, 0, 5])
+
+    dk, dv = flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal)
+    dq = flash_attention_bwd_q(q, k, v, q_seg, kv_seg, out, lse, dout, causal)
+    again = flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])  # no atomics: repeatable
+    refs = flash_attention_bwd_plain(*_wide(q, k, v, q_seg, kv_seg, out, lse, dout), causal)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=atol)
+    assert torch.all(dq[0, 5] == 0)  # a fully masked row gets exactly no gradient
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_trainable_gradients_on_card(cuda_device, causal):
+    """The autograd.Function (kernels both ways) against autograd through the
+    plain version, fp32, at the JAX backward tests' limits."""
+    q, k, v, q_seg, kv_seg, dout = _flash_training_inputs(
+        cuda_device, torch.float32, FLASH_BWD_SHAPES[0])
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = (flash_attention_lse.launches, flash_attention_bwd_kv.launches,
+          flash_attention_bwd_q.launches)
+    out = flash_attention_trainable(*leaves, q_seg, kv_seg, causal)
+    grads = torch.autograd.grad((out * dout).sum(), leaves)
+    assert (flash_attention_lse.launches, flash_attention_bwd_kv.launches,
+            flash_attention_bwd_q.launches) == tuple(n + 1 for n in n0)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_plain(*ref_leaves, q_seg, kv_seg, causal)
+    ref_grads = torch.autograd.grad((ref * dout).sum(), ref_leaves)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+    for got, want in zip(grads, ref_grads):
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_training_wrappers_raise_on_the_card(cuda_device):
+    q, k, v, q_seg, kv_seg, dout = _flash_training_inputs(
+        cuda_device, torch.float32, FLASH_BWD_SHAPES[0])
+    with pytest.raises(TypeError):
+        flash_attention_trainable(q.half(), k.half(), v.half(), q_seg, kv_seg)
+    with pytest.raises(TypeError):
+        flash_attention_lse(q, k, v, q_seg.long(), kv_seg)
+    out, lse = flash_attention_lse(q, k, v, q_seg, kv_seg)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_q(q, k, v, q_seg, kv_seg, out, lse.transpose(1, 2), dout)
+    with pytest.raises(ValueError, match="dd"):
+        flash_attention_bwd_q(q, k, v, q_seg, kv_seg, out, lse, dout, False, lse[:, :, :-1])
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout[:, :-1])
 
 
 @pytest.mark.gpu

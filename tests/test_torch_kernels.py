@@ -24,6 +24,10 @@ from dia_tts_prune_tpu_torch.ops.kernels import (
 )
 from dia_tts_prune_tpu_torch.ops.kernels.decode_attention import ends_from_padding_mask
 
+# Several pytest workers run at once: one intra-op thread each keeps torch's
+# thread pools from spinning on each other's cores (these tensors are tiny).
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -32,6 +32,10 @@ from dia_tts_prune_tpu_torch.ops.kernels.decode_attention import ends_from_paddi
 from dia_tts_prune_tpu_torch.ops.modules import full_attention
 from dia_tts_prune_tpu_torch.state import cross_attention_mask, new_encoder_state
 
+# Several pytest workers run at once: one intra-op thread each keeps torch's
+# thread pools from spinning on each other's cores (these tensors are tiny).
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 
 

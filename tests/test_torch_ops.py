@@ -25,6 +25,10 @@ from dia_tts_prune_tpu_torch.ops import masks as tmasks
 from dia_tts_prune_tpu_torch.ops import modules as tmod
 from dia_tts_prune_tpu_torch.ops import sampling as tsamp
 
+# Several pytest workers run at once: one intra-op thread each keeps torch's
+# thread pools from spinning on each other's cores (these tensors are tiny).
+torch.set_num_threads(1)
+
 ATOL = 1e-6
 
 

@@ -57,6 +57,10 @@ from dia_tts_prune_tpu_torch.ops.kernels.decode_attention import ends_from_paddi
 from dia_tts_prune_tpu_torch.ops.modules import dense_general
 from dia_tts_prune_tpu_torch.state import cross_attention_mask, new_encoder_state
 
+# Several pytest workers run at once: one intra-op thread each keeps torch's
+# thread pools from spinning on each other's cores (these tensors are tiny).
+torch.set_num_threads(1)
+
 FIXTURES = Path(__file__).parent / "fixtures"
 ATOL = 1e-4  # model logits and hidden states
 
@@ -660,3 +664,84 @@ def test_quantize_frees_the_float_decoder_kernels():
     assert old() is None
     assert dia.params["encoder"]["layers"]["mlp"]["wo"]["kernel"] is enc
     assert all(isinstance(k, tq.QuantizedKernel) for _, k in _kernels(dia.params["decoder"]))
+
+
+# ---------------------------------------------------------------------------
+# quantization-aware training: straight-through fake-quant
+# ---------------------------------------------------------------------------
+
+QAT_MODES = ["int8", "int4", "int4_hybrid"]
+
+
+def test_ste_gradient_is_identity():
+    w = torch.from_numpy(np.random.default_rng(40).normal(size=(6, 5)).astype(np.float32))
+    w.requires_grad_(True)
+    fq = tq.dequantize(tq.quantize_int8(w.detach()))
+    out = tq.fake_quant_ste(w, fq)
+    assert torch.equal(out.detach(), fq)  # the forward sees the quantized values
+    cot = torch.arange(30, dtype=torch.float32).reshape(6, 5)
+    (grad,) = torch.autograd.grad((out * cot).sum(), w)
+    assert torch.equal(grad, cot)  # the backward sees the identity
+
+
+@pytest.mark.parametrize("mode", QAT_MODES)
+def test_fake_quant_params_ste_matches_jax(tiny, mode):
+    """Same fake-quantized values as the JAX function, kernel by kernel; the
+    encoder is out of scope and shared as it is; gradients reach the float
+    weights unchanged."""
+    _, jp, _ = tiny
+    tp = _carry(jp)
+    ref = jq.fake_quant_params_ste(jp, mode)
+    out = tq.fake_quant_params_ste(tp, mode)
+    for (path, a), (_, b) in zip(_kernels(out), _kernels(ref)):
+        _same(a, b)
+        if path[0] == "encoder":
+            assert a is _get(tp, path)["kernel"]
+    with pytest.raises(ValueError, match="Unknown QAT mode"):
+        tq.fake_quant_params_ste(tp, "int2")
+
+    w = tp["decoder"]["layers"]["mlp"]["wo"]["kernel"].requires_grad_(True)
+    view = tq.fake_quant_params_ste(tp, mode)["decoder"]["layers"]["mlp"]["wo"]["kernel"]
+    (grad,) = torch.autograd.grad(view.sum(), w)
+    assert torch.equal(grad, torch.ones_like(w))
+    w.requires_grad_(False)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("mode", QAT_MODES)
+def test_qat_forward_equals_packed_serving_forward(tiny, mode):
+    """The QAT view of the weights is the dequantized packed tree of the
+    serving quantizer (same grids, same scales), so the training loss under
+    QAT is the loss of the weights a packed model serves with — within the
+    fp32 rounding of w + (fq - w)."""
+    from dia_tts_prune_tpu_torch.train import build_train_batch, compute_loss
+
+    _, jp, cfg = tiny
+    tp = _carry(jp)
+    packed = {"int8": lambda p: tq.quantize_params_int8_packed(p),
+              "int4": lambda p: tq.quantize_params_int4_packed(p),
+              "int4_hybrid": lambda p: tq.quantize_params_int8_packed(
+                  tq.quantize_params_int4_packed(p, mlp_only=True))}[mode](tp)
+    deq = tq._map_kernels(packed, lambda k, path: (
+        tq.dequantize(k) if isinstance(k, tq.QuantizedKernel)
+        else tq.dequantize4(k) if isinstance(k, tq.Quantized4Kernel) else k))
+    view = tq.fake_quant_params_ste(tp, mode)
+    for (path, a), (_, b) in zip(_kernels(view), _kernels(deq)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+
+    rng = np.random.default_rng(41)
+    text = rng.integers(1, 200, (2, cfg.data.text_length)).astype(np.int32)
+    text[:, 50:] = 0
+    codes = [rng.integers(0, 1024, (60, 9)).astype(np.int32) for _ in range(2)]
+    batch = {k: torch.from_numpy(v) for k, v in build_train_batch(cfg, text, codes).items()}
+    with torch.no_grad():
+        qat = compute_loss(tp, cfg, batch, qat_mode=mode)
+        served = compute_loss(deq, cfg, batch)
+        plain = compute_loss(tp, cfg, batch)
+    torch.testing.assert_close(qat, served, rtol=1e-6, atol=0)
+    assert float(qat) != float(plain)

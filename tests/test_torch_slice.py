@@ -25,6 +25,10 @@ import torch
 
 from dia_tts_prune_tpu_torch import Dia
 
+# Several pytest workers run at once: one intra-op thread each keeps torch's
+# thread pools from spinning on each other's cores (these tensors are tiny).
+torch.set_num_threads(1)
+
 FIXTURES = Path(__file__).parent / "fixtures"
 REPO = Path(__file__).parents[1]
 
@@ -95,12 +99,21 @@ def test_default_device_needs_cuda():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = """
 import importlib, pkgutil, sys
+import torch
+torch.set_num_threads(1)
 import dia_tts_prune_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
-for name in ("ops.quant", "ops.kernels.int8_matmul", "ops.kernels.int4_gemv"):
+for name in ("ops.quant", "ops.kernels.int8_matmul", "ops.kernels.int4_gemv", "train", "lora",
+             "finetune", "data", "utils.audio_io", "utils.prefetch", "checkpoint"):
     assert pkg.__name__ + "." + name in sys.modules, name
 dia = pkg.Dia.from_pretrained("tests/fixtures/trained_small", device="cpu")
+from dia_tts_prune_tpu_torch.train import TrainConfig, Trainer, build_train_batch
+import numpy as np
+batch = build_train_batch(dia.config, np.ones((1, dia.config.data.text_length), np.int32),
+                          [np.zeros((12, 9), np.int32)])
+for tc in (TrainConfig(adapter_mode="lora"), TrainConfig(qat_mode="int8")):
+    assert np.isfinite(Trainer(dia.params, dia.config, tc, 2).step(batch)["loss"])
 dia.quantize_int8()
 assert dia.generate_codes("[S1] Hi.", max_tokens=20, temperature=0.0).shape[1] == 9
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "dia_tts_prune_tpu"))
