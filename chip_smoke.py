@@ -19,12 +19,20 @@ script exits non-zero:
                and a few odd ones, and the three training kernels (flash
                forward with log-sum-exp, dK/dV, dQ) at the three attention
                shapes of a Dia-1.6B training step and an odd one, dK/dV
-               bit-identical over two runs;
+               bit-identical over two runs; the block-sparse matmul at the
+               five decode shapes at block density 0.5 (per-module 256 x 256
+               ranking) and 1.0, fp32, 8, 64 and 512 rows, NaN in every
+               unlisted block, bit-identical runs, rows independent of M;
 3. fixtures  — the trained fixtures through ``Dia.from_pretrained(...,
                device="cuda")`` in fp32: greedy tokens equal ``golden.npz``,
                waveform length and head as recorded; then packed int8 and
                int4: teacher-forced logits on the card (kernels) against the
-               CPU (plain versions) on the same packed bytes; then a few
+               CPU (plain versions) on the same packed bytes;
+               ``prune_block_sparse(0.5, (32, 64))`` (both fixtures),
+               ``shrink_heads`` / ``shrink_ffn`` (``trained_small``): greedy
+               tokens on the card equal the CPU's; two batched streams with
+               voice prompts of different lengths equal their
+               single-stream runs; then a few
                full, LoRA and QAT-int8 optimizer steps on ``trained_small``,
                the loss after each step on the card against the CPU run;
 4. full_width — Dia-1.6B shapes in bf16 and the 44.1 kHz DAC with weights
@@ -34,9 +42,15 @@ script exits non-zero:
                ``generate_codes`` (the causal-flash prefill); (b)
                ``quantize_int8()`` then a greedy ``generate`` (int8 weights,
                int8 KV caches); (c) a fresh model, ``quantize_int4()``, a
-               greedy ``generate``.  Every kernel of a path must have
-               launched, the GEMV kernels once per packed contraction of
-               every step;
+               greedy ``generate``; (d) ``pruned``: a fresh model, per-module
+               block ranking at 0.5 (and the global ranking's densities,
+               reported), ``sparsify_block``, a greedy ``generate``; (e)
+               ``batched``: four greedy streams on it against their
+               single-stream runs; (f) ``prune_cli``: ``offline_prune
+               --prune-mode block`` at 2 + 2 layers, ``from_pretrained``,
+               ``sparsify_block``, generate.  Every kernel of a path must
+               have launched, the GEMV and block-sparse kernels once per
+               contraction of every step;
 5. training  — teacher-forced fine-tuning at the same full width (bf16
                compute, ``audio_length`` 3072, batch 2, every layer
                rematerialized): three LoRA steps, two full fine-tune steps
@@ -492,6 +506,140 @@ GEMV_SHAPES = {"attn_2048x2048": (2048, 2048), "self_kv_2048x512": (2048, 512),
 INT4_FORMS = [(128, "halfsplit"), (None, "halfsplit"), (128, "parity"), (None, "parity")]
 
 
+SPARSE_BLOCK = (256, 256)  # the offline CLI's and Dia.prune_block_sparse's default blocks
+
+
+def sparse_weight(torch, K, N, density, dtype, seed=6):
+    """A [K, N] weight from a seed, pruned by the per-module block ranking to
+    ``density`` of its 256 x 256 blocks (1.0: unpruned), packed with its plan."""
+    from dia_tts_prune_tpu_torch.ops.sparse import sparse_kernel_from_weight
+    from dia_tts_prune_tpu_torch.prune import apply_masks, block_masks
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = (torch.randn(K, N, generator=g, device="cuda") / K ** 0.5).to(dtype)
+    if density < 1.0:
+        tree = {"w": {"kernel": w}}
+        w = apply_masks(tree, block_masks(tree, 1.0 - density, SPARSE_BLOCK,
+                                          scope="module"))["w"]["kernel"]
+    return sparse_kernel_from_weight(w, 1, False, *SPARSE_BLOCK)
+
+
+def listed_elements(torch, sk) -> int:
+    """Weight entries in the listed blocks of a (possibly stacked)
+    BlockSparseKernel: what the kernel must read."""
+    from dia_tts_prune_tpu_torch.ops.kernels.sparse_matmul import listed_mask
+
+    K, N = sk.values.shape[-2:]
+    idx = sk.indices.reshape(-1, *sk.indices.shape[-2:])
+    cnt = sk.counts.reshape(-1, sk.counts.shape[-1])
+    return sum(int(listed_mask(i, c, K, N, sk.block_k, sk.block_n).sum()) for i, c in zip(idx, cnt))
+
+
+def sparse_case(torch, dtype, M, K, N, density, time_it=True, poison=False):
+    """``block_sparse_matmul`` against its plain version (fp32, same values),
+    within the GEMV tolerance; bit-identical over two runs; with ``poison``
+    NaN in every unlisted block must change nothing.  Times over copies of
+    the weight that together exceed the L2, as a decode step finds them cold;
+    the library time is cuBLAS on the zero-filled values (the same function,
+    reading every block)."""
+    from dia_tts_prune_tpu_torch.ops.kernels import block_sparse_matmul, block_sparse_matmul_plain
+    from dia_tts_prune_tpu_torch.ops.kernels.sparse_matmul import listed_mask
+
+    dt = getattr(torch, dtype)
+    sk = sparse_weight(torch, K, N, density, dt)
+    x = torch.randn(M, K, generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda").to(dt)
+    plan = (sk.indices, sk.counts, *SPARSE_BLOCK)
+    before = block_sparse_matmul.launches
+    out = block_sparse_matmul(x, sk.values, *plan)
+    launches = block_sparse_matmul.launches - before
+    again = block_sparse_matmul(x, sk.values, *plan)
+    torch.cuda.synchronize()
+    listed = listed_mask(*plan[:2], K, N, *SPARSE_BLOCK)
+    ref = block_sparse_matmul_plain(x.float(), sk.values.float(), *plan)
+    diff = (out.float() - ref).abs()
+    sum_abs = x.float().abs() @ torch.where(listed, sk.values.float().abs(), 0.0)
+    tol = GEMV_SUM_TOL * sum_abs + TOL[dtype]["rtol"] * ref.abs()
+    rec = {"phase": "kernels", "kernel": "block_sparse_matmul", "dtype": dtype,
+           "shape": {"M": M, "K": K, "N": N, "block": list(SPARSE_BLOCK)},
+           "density": sk.density, "max_abs_err": diff.max().item(),
+           "max_err_over_tol": torch.where(diff > 0, diff / tol, 0.0).max().item(),
+           "tol": {"sum_abs": GEMV_SUM_TOL, "rtol": TOL[dtype]["rtol"]},
+           "bit_identical_over_two_runs": bool(torch.equal(out, again)), "launches": launches,
+           "empty_tiles": int((sk.counts == 0).sum())}
+    ok = rec["max_err_over_tol"] <= 1.0 and rec["bit_identical_over_two_runs"] and launches == 1
+    if poison:
+        poisoned = torch.where(listed, sk.values, float("nan"))
+        p_out = block_sparse_matmul(x, poisoned, *plan)
+        rec["poison_finite"] = bool(torch.isfinite(p_out).all())
+        rec["poison_equals_clean"] = bool(torch.equal(p_out, out))
+        ok = ok and rec["poison_finite"] and rec["poison_equals_clean"]
+        del poisoned, p_out
+    n_listed = int(listed.sum())
+    e = x.element_size()
+    nbytes = e * (n_listed + M * K + M * N) + 4 * (sk.indices.numel() + sk.counts.numel())
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * M * n_listed, dtype)
+    rec["listed_weight_bytes"] = e * n_listed
+    if time_it:
+        n = max(2, min(64, -(-COLD_BYTES // (e * K * N))))
+        vals = [sk.values.clone() for _ in range(n)]
+        turn = iter(range(1 << 30))
+        rec["ms"] = graph_ms(torch, lambda: block_sparse_matmul(x, vals[next(turn) % n], *plan),
+                             iters=2 * n)
+        rec["eager_ms"] = cuda_ms(torch, lambda: block_sparse_matmul(
+            x, vals[next(turn) % n], *plan), iters=max(32, 2 * n))
+        rec["plain_ms"] = cuda_ms(torch, lambda: block_sparse_matmul_plain(
+            x, vals[next(turn) % n], *plan), iters=4, warmup=1)
+        rec["library_ms"] = graph_ms(torch, lambda: torch.matmul(x, vals[next(turn) % n]),
+                                     iters=2 * n)
+        rec["weight_copies"] = n
+        del vals
+    emit(rec)
+    if not ok:
+        raise RuntimeError(f"block_sparse_matmul: kernel disagrees with its plain version, "
+                           f"is not repeatable, or reads an unlisted block: {rec}")
+    return rec
+
+
+def sparse_rows_case(torch) -> None:
+    """Each row of a 64-row product equals the same row computed 2 and 8
+    rows at a time: the split never depends on the row count."""
+    from dia_tts_prune_tpu_torch.ops.kernels import block_sparse_matmul
+
+    for dtype in ("float32", "bfloat16"):
+        sk = sparse_weight(torch, 2048, 2048, 0.5, getattr(torch, dtype))
+        x = torch.randn(64, 2048, generator=torch.Generator(device="cuda").manual_seed(8),
+                        device="cuda").to(sk.values.dtype)
+        plan = (sk.indices, sk.counts, *SPARSE_BLOCK)
+        full = block_sparse_matmul(x, sk.values, *plan)
+        same = {M: all(torch.equal(block_sparse_matmul(x[r:r + M].contiguous(), sk.values, *plan),
+                                   full[r:r + M]) for r in range(0, 64, M)) for M in (2, 8)}
+        emit({"phase": "kernels", "kernel": "block_sparse_matmul", "dtype": dtype,
+              "case": "rows independent of M", "shape": {"M": 64, "K": 2048, "N": 2048},
+              "rows_equal_at_M": same})
+        if not all(same.values()):
+            raise RuntimeError(f"block_sparse_matmul {dtype}: a row depends on the row count")
+
+
+def phase_sparse_kernels(torch) -> dict:
+    """The block-sparse matmul at the five decode shapes (B = 2, bf16) at
+    density 0.5 and 1.0, fp32, B = 8 and 64, a prefill-sized product, the
+    poison cases and the row-count check; returns the record of the MLP input
+    projection at 0.5 for the kernels line."""
+    for name, (K, N) in GEMV_SHAPES.items():
+        for density in (0.5, 1.0):
+            rec = sparse_case(torch, "bfloat16", 2, K, N, density)
+            if name == "mlp_wi_2048x16384" and density == 0.5:
+                picked = rec
+    sparse_case(torch, "float32", 2, 2048, 2048, 0.5)
+    for M in (8, 64, 512):  # 512: a prompt prefill's rows on the MLP input projection
+        sparse_case(torch, "bfloat16", M, 2048, 16384, 0.5)
+    for dtype in ("float32", "bfloat16"):
+        sparse_case(torch, dtype, 3, 2048, 9252, 0.5, time_it=False, poison=True)
+    sparse_rows_case(torch)
+    return picked
+
+
 def phase_kernels(torch) -> dict:
     """Every kernel at the main paths' shapes; returns the bf16 record of
     each kernel's heaviest use for the final ``kernels`` line."""
@@ -533,6 +681,7 @@ def phase_kernels(torch) -> dict:
                              [320, 250], time_it=False)
         picked = {"flash_attention": enc, "decode_attention": rec, "decode_attention_int8": rec8,
                   "int8_matmul": mlp8, "int4_gemv": mlp4, **train}
+    picked["block_sparse_matmul"] = phase_sparse_kernels(torch)
     return picked
 
 
@@ -560,6 +709,8 @@ def phase_fixtures(torch, repo: Path) -> None:
             raise RuntimeError(f"fixture {name} disagrees with golden.npz: {rec}")
         for mode in ("int8", "int4"):
             packed_fixture(torch, d, name, mode, golden["tokens"], meta)
+        pruned_fixture(torch, d, name, meta)
+    batched_fixture(torch, repo / "tests" / "fixtures" / "trained_small")
 
 
 def params_to(tree, device):
@@ -567,6 +718,78 @@ def params_to(tree, device):
     if isinstance(tree, dict):
         return {k: params_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def pruned_fixture(torch, d, name, meta) -> None:
+    """The fixture pruned on the CPU (``prune_block_sparse(0.5, (32, 64))``)
+    and, on ``trained_small``, shrunk (``shrink_heads(0.5)``,
+    ``shrink_ffn(0.5)``); the same weights generate greedy tokens on the card
+    (kernels) and on the CPU (plain versions), which must be equal."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts
+    from dia_tts_prune_tpu_torch.prune import shrink_ffn, shrink_heads
+
+    cpu = Dia.from_pretrained(d, compute_dtype="float32", device="cpu")
+    base_params, base_cfg = cpu.params, cpu.config
+    variants = {"prune_block_sparse(0.5, (32, 64))": lambda dia: dia.prune_block_sparse(
+        0.5, (32, 64))}
+    if name == "trained_small":
+        for shrink in (shrink_heads, shrink_ffn):
+            variants[f"{shrink.__name__}(0.5)"] = lambda dia, f=shrink: f(dia.params, dia.config,
+                                                                           0.5)
+    kw = dict(temperature=0.0, seed=meta["seed"])
+    for variant, make in variants.items():
+        cpu = Dia(base_cfg, base_params, "float32", device="cpu")
+        made = make(cpu)
+        if isinstance(made, tuple):  # a shrink: new params and a new config
+            cpu = Dia(made[1], made[0], "float32", device="cpu")
+        gpu = Dia(cpu.config, params_to(cpu.params, "cuda"), "float32", device="cuda")
+        n0 = launch_counts()
+        card = gpu.generate_codes(meta["prompt"], **kw)
+        launched = {k: v - n0[k] for k, v in launch_counts().items() if v != n0[k]}
+        host = cpu.generate_codes(meta["prompt"], **kw)
+        rec = {"phase": "fixtures", "fixture": name, "variant": variant,
+               "greedy_tokens_equal_card_cpu": bool(np.array_equal(card, host)),
+               "frames": int(card.shape[0]), "launches_on_card": launched}
+        if isinstance(made, dict):
+            rec["block_density"] = {k: round(v, 4) for k, v in made.items()}
+        emit(rec)
+        sparse = isinstance(made, dict)
+        if not rec["greedy_tokens_equal_card_cpu"] or card.shape[0] == 0 or (
+                sparse and launched.get("block_sparse_matmul", 0) <= 0):
+            raise RuntimeError(f"fixture {name} {variant}: card and CPU disagree: {rec}")
+
+
+def batched_fixture(torch, d) -> None:
+    """Two streams with voice prompts of 20 and 40 frames through
+    ``generate_tokens_batch`` and ``Dia.generate_batch`` on the card: each
+    lane's codes equal its single-stream run on the card."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia
+
+    dia = Dia.from_pretrained(d, compute_dtype="float32", device="cuda")
+    golden = np.load(d / "golden.npz")["tokens"]
+    texts = ["[S1] The birch canoe slid. [S2]", "[S2] Hello there, friend."]
+    prompts, prompt_texts = [golden[:20], golden[50:90]], ["[S1] A voice.", "[S2] Another one."]
+    kw = dict(max_tokens=96, temperature=0.0)
+    batch = dia.generator.generate_tokens_batch(texts, audio_prompt_codes=prompts,
+                                                audio_prompt_texts=prompt_texts, **kw)
+    singles = [dia.generate_codes(t, audio_prompt_codes=p, audio_prompt_text=pt, **kw)
+               for t, p, pt in zip(texts, prompts, prompt_texts)]
+    wavs = dia.generate_batch(texts, audio_prompts=prompts, audio_prompt_texts=prompt_texts, **kw)
+    rec = {"phase": "fixtures", "fixture": d.name, "batched": "2 streams, prompts of 20 and 40 "
+           "frames", "lanes_equal_single_stream": [bool(np.array_equal(b, s))
+                                                   for b, s in zip(batch, singles)],
+           "frames": [int(b.shape[0]) for b in batch],
+           "waveform_samples": [0 if w is None else int(w.shape[0]) for w in wavs]}
+    emit(rec)
+    if not all(rec["lanes_equal_single_stream"]) or min(rec["frames"]) == 0 or any(
+            w is None or w.shape[0] != f * dia.dac_config.hop_length
+            for w, f in zip(wavs, rec["frames"])):
+        raise RuntimeError(f"batched fixture: a lane differs from its single-stream run: {rec}")
 
 
 def packed_fixture(torch, d, name, mode, tokens, meta, steps=96) -> None:
@@ -634,12 +857,25 @@ def packed_fixture(torch, d, name, mode, tokens, meta, steps=96) -> None:
     emit(rec)
 
 
+_SEED_WEIGHTS = {}
+
+
+def seed_weights(torch, cfg):
+    """Fresh Dia-1.6B bf16 weights on the card, ``init_params(cfg, seed=0)``:
+    drawn once on the host (numpy's normals for 1.6 G weights take ~30 s),
+    then copied to the card for every model that needs fresh ones."""
+    from dia_tts_prune_tpu_torch.models.dia import init_params
+
+    if "host" not in _SEED_WEIGHTS:
+        _SEED_WEIGHTS["host"] = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    return params_to(_SEED_WEIGHTS["host"], "cuda")
+
+
 def phase_full_width(torch) -> dict:
     import numpy as np
 
     from dia_tts_prune_tpu_torch import Dia, dia_1_6b_config
     from dia_tts_prune_tpu_torch.models.dac import DACConfig, init_dac_decoder_params
-    from dia_tts_prune_tpu_torch.models.dia import init_params
     from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
@@ -648,8 +884,8 @@ def phase_full_width(torch) -> dict:
     dac_params = init_dac_decoder_params(dac_cfg, seed=1, device="cuda")
 
     def new_model():
-        return Dia(cfg, init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda"), "bfloat16",
-                   dac_params=dac_params, dac_config=dac_cfg, device="cuda")
+        return Dia(cfg, seed_weights(torch, cfg), "bfloat16", dac_params=dac_params,
+                   dac_config=dac_cfg, device="cuda")
 
     dia = new_model()
     torch.cuda.synchronize()
@@ -731,17 +967,157 @@ def phase_full_width(torch) -> dict:
     quantized_path("int8", dia, lambda d: d.quantize_int8(), "int8_matmul")
     del dia
     quantized_path("int4", new_model(), lambda d: d.quantize_int4(), "int4_gemv")
+    paths.update(pruned_paths(torch, new_model(), text, timed, describe))
 
     rec = {"phase": "full_width", "config": "dia_1_6b_config() bf16, DACConfig(), seed weights",
            "init_s": init_s, "paths": paths}
     emit(rec)
+    kernel_of = {"int8": "int8_matmul", "int4": "int4_gemv", "pruned": "block_sparse_matmul",
+                 "batched": "block_sparse_matmul", "prune_cli": "block_sparse_matmul"}
     for name, path in paths.items():
-        ran = ("flash_attention", "decode_attention",
-               *(k for k in ("int8_matmul", "int4_gemv") if k.startswith(name)))
+        ran = ("flash_attention", "decode_attention", *([kernel_of[name]] if name in kernel_of
+                                                        else []))
         missing = [k for k in ran if path["launches"][k] <= 0]
         if missing:
             raise RuntimeError(f"the {name} path never launched {missing}: {path['launches']}")
     return rec
+
+
+def pruned_paths(torch, dia, text, timed, describe) -> dict:
+    """Pruned serving at full width on a fresh model: (d) ``pruned`` — the
+    per-module block ranking at 0.5 with 256 x 256 blocks, ``apply_masks``,
+    ``sparsify_block``, a greedy ``generate`` whose block-sparse launches
+    must equal the count derived from the code; what the global ranking
+    (``prune_block_sparse(0.5)``) gives on the same weights, reported only;
+    (e) ``batched`` — four greedy streams on the pruned model, and for how
+    many frames each lane equals its single-stream run (recorded: random
+    weights give near-ties); (f) ``prune_cli`` — ``offline_prune
+    --prune-mode block`` at 2 + 2 layers, ``from_pretrained``,
+    ``sparsify_block``, generate."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia
+    from dia_tts_prune_tpu_torch.models.dia import init_params
+    from dia_tts_prune_tpu_torch.offline_prune import main as prune_main
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dia_tts_prune_tpu_torch.ops.sparse import sparsify_params_block, sparsity_summary
+    from dia_tts_prune_tpu_torch.prune import apply_masks, block_masks
+
+    cfg = dia.config
+    L = cfg.model.decoder.n_layer
+    paths = {}
+    allocated = {"at_entry": int(torch.cuda.memory_allocated())}
+    t = time.perf_counter()
+    global_tree = apply_masks(dia.params, block_masks(dia.params, 0.5, SPARSE_BLOCK))
+    global_density = sparsity_summary(sparsify_params_block(global_tree, block_k=256,
+                                                            block_n=256))
+    del global_tree
+    allocated["after_global_ranking"] = int(torch.cuda.memory_allocated())
+    # block_masks(scope="module") -> apply_masks -> sparsify_block
+    density = dia.prune_block_sparse(0.5, SPARSE_BLOCK, scope="module")
+    torch.cuda.synchronize()
+    prune_s = time.perf_counter() - t
+    allocated["after_pruning"] = int(torch.cuda.memory_allocated())
+    # weight bytes one decode step reads: every decoder kernel but the cross
+    # K/V projections, which run once per request
+    step_kernels = [(k, v) for k, v in _decoder_kernels(dia.params) if "cross_attention.k_proj"
+                    not in k and "cross_attention.v_proj" not in k]
+    e = 2  # bf16
+    step_bytes = sum(e * listed_elements(torch, v) for _, v in step_kernels)
+    dense_bytes = sum(e * v.values.numel() for _, v in step_kernels)
+
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    codes, gen_s, steps = timed(
+        lambda: dia.generate_codes(text, max_tokens=512, temperature=0.0, seed=0))
+    wav, dec_s, _ = timed(lambda: dia._decode_waveform(codes))
+    counts = launch_counts()
+    # 8 contractions in each decoder layer and the logits head per step, and the
+    # cross K/V projections of every layer once (there is no prompt prefill)
+    expected = (8 * L + 1) * steps + 2 * L  # 145 per step at 18 layers (DECODER_GEMVS)
+    paths["pruned"] = {
+        "runs": describe([("greedy", codes.shape[0], steps, gen_s, dec_s, wav)]),
+        "launches": counts, "expected_block_sparse_launches": expected,
+        "prune_and_pack_s": prune_s, "block_density": density,
+        "global_ranking_block_density": global_density,
+        "weight_bytes_per_step": step_bytes, "dense_weight_bytes_per_step": dense_bytes,
+        "bound_ms_per_step_weights": 1e3 * step_bytes / HBM_BYTES_PER_S,
+        "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+        "memory_allocated_bytes": allocated}
+    emit({"phase": "full_width", "path": "pruned", **paths["pruned"]})
+    if steps <= 0 or counts["block_sparse_matmul"] != expected or counts["int8_matmul"] != 0 \
+            or counts["int4_gemv"] != 0:
+        raise RuntimeError(f"full-width pruned: expected {expected} block_sparse_matmul launches "
+                           f"({steps} steps) and no GEMV launches: {counts}")
+
+    texts = [text, "[S2] Four streams share every weight read. [S1] Do they?",
+             "[S1] Batched serving on a pruned model.", "[S2] The last of the four. [S1] Yes."]
+    reset_launch_counts()
+    batch, batch_s, bsteps = timed(lambda: dia.generator.generate_tokens_batch(
+        texts, max_tokens=192, temperature=0.0))
+    bcounts = launch_counts()
+    singles, single_s, single_steps = [], 0.0, 0
+    for t_ in texts:
+        c, s_, n_ = timed(lambda: dia.generate_codes(t_, max_tokens=192, temperature=0.0))
+        singles.append(c)
+        single_s, single_steps = single_s + s_, single_steps + n_
+
+    def same_frames(a, b):
+        n = min(a.shape[0], b.shape[0])
+        diff = np.flatnonzero((a[:n] != b[:n]).any(axis=1))
+        return int(diff[0]) if diff.size else n
+
+    paths["batched"] = {
+        "streams": len(texts), "decode_steps": bsteps, "wall_s": batch_s,
+        "ms_per_step": 1e3 * batch_s / max(bsteps, 1),
+        "aggregate_tokens_per_s": len(texts) * bsteps / batch_s,
+        "single_stream_ms_per_step": 1e3 * single_s / max(1, single_steps),
+        "frames": [int(b.shape[0]) for b in batch],
+        "frames_equal_single_stream": [same_frames(b, s_) for b, s_ in zip(batch, singles)],
+        "launches": bcounts}
+    emit({"phase": "full_width", "path": "batched", **paths["batched"]})
+    if bsteps <= 0 or min(paths["batched"]["frames"]) == 0:
+        raise RuntimeError(f"full-width batched: no frames: {paths['batched']}")
+    del dia, batch, singles
+    torch.cuda.empty_cache()
+
+    # the offline CLI (global ranking, as the JAX CLI) at 2 + 2 layers of full width
+    m = cfg.model
+    small = cfg.model_copy(update={"model": m.model_copy(update={
+        "encoder": m.encoder.model_copy(update={"n_layer": 2}),
+        "decoder": m.decoder.model_copy(update={"n_layer": 2})})})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prune_") as tmp:
+        src, out = Path(tmp) / "model", Path(tmp) / "pruned"
+        Dia(small, init_params(small, seed=3, dtype=torch.bfloat16, device="cuda"), "bfloat16",
+            device="cuda").save_pretrained(src)
+        t = time.perf_counter()
+        rc = prune_main(["--model-path", str(src), "--output-dir", str(out), "--prune-mode",
+                         "block", "--prune-amount", "0.5"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        files = sorted(p.name for p in out.iterdir())
+        report = json.loads((out / "prune_report.json").read_text())
+        pruned = Dia.from_pretrained(out, compute_dtype="bfloat16", device="cuda")
+        cli_density = pruned.sparsify_block(SPARSE_BLOCK)
+        reset_launch_counts()
+        codes = pruned.generate_codes("[S1] Pruned offline.", max_tokens=64, temperature=0.0)
+        torch.cuda.synchronize()
+    paths["prune_cli"] = {"config": "dia_1_6b_config() widths, 2 + 2 layers, seed weights",
+                          "return_code": rc, "seconds": cli_s, "output_files": files,
+                          "report": report, "block_density": cli_density,
+                          "frames": int(codes.shape[0]), "launches": launch_counts()}
+    emit({"phase": "full_width", "path": "prune_cli", **paths["prune_cli"]})
+    if rc != 0 or codes.shape[0] == 0 or "pytorch_model.bin" not in files:
+        raise RuntimeError(f"the offline_prune CLI run failed its checks: {paths['prune_cli']}")
+    return paths
+
+
+def _decoder_kernels(params):
+    """(dotted path, kernel) of every decoder kernel."""
+    from dia_tts_prune_tpu_torch.prune import prunable_items
+
+    return [(".".join(path), k) for path, k in prunable_items({"decoder": params["decoder"]})]
 
 
 def train_launch_counts():
@@ -874,7 +1250,7 @@ def phase_training(torch, tmp: Path) -> dict:
     text[1, 300:] = dd.text_pad_value
     codes = [rng.integers(0, 1024, (n, dd.channels)).astype(np.int32) for n in (3072, 2000)]
     batch = build_train_batch(cfg, text, codes)
-    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    params = seed_weights(torch, cfg)
     paths = {}
 
     def run(name, steps, **kw):
@@ -1041,14 +1417,16 @@ def main() -> int:
              ("decode_attention", "decode_attention", "bf16", "decode_attention.py:133"),
              ("decode_attention", "decode_attention_int8", "int8", "decode_attention.py:133"),
              ("int8_matmul", "int8_matmul", "int8", "int8_matmul.py:53"),
-             ("int4_gemv", "int4_gemv", "int4", "int4_gemv.py:129")]
+             ("int4_gemv", "int4_gemv", "int4", "int4_gemv.py:129"),
+             ("block_sparse_matmul", "block_sparse_matmul", "pruned", "sparse_matmul.py:121")]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"{csrc}{SOURCES.get(name, name)}.cu",
          "replaces": jax_kernels + replaces,
          "launches": paths[path]["launches"][name], "max_abs_err": rec["max_abs_err"],
          "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-         "case": f"{rec.get('case', '')} {json.dumps(rec['shape'])} {rec['dtype']}".strip(),
+         "case": f"{rec.get('case', '')} {json.dumps(rec['shape'])} {rec['dtype']}"
+                 f"{' density %.3f' % rec['density'] if 'density' in rec else ''}".strip(),
          "path": path}
         for name, pick, path, replaces in lines for rec in (picked[pick],)]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

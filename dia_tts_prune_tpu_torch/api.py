@@ -6,6 +6,9 @@ reference: dia/model.py:101-846).
 ``save_audio`` (16-bit PCM WAV); ``quantize_int8()`` / ``quantize_int4()``
 switch the decoder to packed weights before generating; ``load_audio`` turns
 a WAV file into codec tokens (voice-cloning prompts, fine-tuning data);
+``prune_block_sparse()`` / ``sparsify_block()`` swap the decoder to
+block-sparse kernels (pruned blocks are never read); ``generate_batch``
+decodes N texts in one loop;
 ``load_adapter_weights`` / ``unload_adapter`` / ``set_adapter`` fuse a LoRA
 adapter into the weights and take it out again; ``save_pretrained`` writes a
 model directory both packages load.  Everything runs on ``device``, ``"cuda"``
@@ -191,6 +194,30 @@ class Dia:
             return None
         return self._decode_waveform(codes)
 
+    def generate_batch(self, texts: list[str], max_tokens: int | None = None,
+                       cfg_scale: float = 3.0, temperature: float = 1.3, top_p: float = 0.95,
+                       cfg_filter_top_k: int = 35,
+                       audio_prompts: list[str | np.ndarray | None] | None = None,
+                       audio_prompt_texts: list[str | None] | None = None,
+                       seed: int | None = None,
+                       seeds: list[int | None] | None = None) -> list[np.ndarray | None]:
+        """N texts → N waveforms (None where nothing was generated), decoded
+        in one loop over 2N CFG rows, then one codec decode per stream.
+        ``audio_prompts`` are per-stream WAV paths or [T, C] code arrays
+        (batched voice cloning); ``seeds`` per-stream seeds, ``seed`` one for
+        all — each stream repeats its single-stream run
+        (``DiaGenerator.generate_tokens_batch``)."""
+        prompt_codes = None
+        if audio_prompts is not None:
+            prompt_codes = [self.load_audio(p) if isinstance(p, (str, Path))
+                            else (None if p is None else np.asarray(p)) for p in audio_prompts]
+        codes_list = self.generator.generate_tokens_batch(
+            texts, max_tokens=max_tokens, cfg_scale=cfg_scale, temperature=temperature,
+            top_p=top_p, cfg_filter_top_k=cfg_filter_top_k, audio_prompt_codes=prompt_codes,
+            audio_prompt_texts=audio_prompt_texts, seed=seed, seeds=seeds)
+        self._require_dac()
+        return [self._decode_waveform(c) if c.shape[0] else None for c in codes_list]
+
     def _set_params(self, params) -> None:
         """Swap the weights and rebuild the generator, so that nothing keeps
         the replaced tensors alive: their device memory is freed here."""
@@ -217,6 +244,36 @@ class Dia:
         params = quantize_params_int4_packed(self.params, group=group, mlp_only=mlp_only,
                                              halfsplit=halfsplit)
         self._set_params(quantize_params_int8_packed(params) if mlp_only else params)
+
+    def prune_block_sparse(self, amount: float, block: tuple[int, int] = (256, 256),
+                           scope: str = "global") -> dict:
+        """Block-granular magnitude pruning wired into inference: the
+        ``amount`` fraction of (block_k, block_n) blocks with the smallest L1
+        norms is zeroed (``prune.block_masks``), then the decoder's kernels
+        become ``BlockSparseKernel``s, whose matmul never reads a pruned
+        block.  Returns the per-module block densities.
+
+        ``scope="global"`` ranks all dense kernels together, as the JAX
+        method does; at Dia-1.6B width that spends the budget on ``o_proj``
+        slabs no kernel block holds and leaves every decoder kernel dense
+        (see ``prune.block_masks``).  ``scope="module"`` (not in the JAX
+        signature) ranks each kernel on its own."""
+        from .prune import apply_masks, block_masks
+
+        self._set_params(apply_masks(self.params, block_masks(self.params, amount, block=block,
+                                                              scope=scope)))
+        return self.sparsify_block(block)
+
+    def sparsify_block(self, block: tuple[int, int] = (256, 256)) -> dict:
+        """Pack the zero blocks the weights already have (a checkpoint written
+        by ``offline_prune --prune-mode block``, or masks applied by hand) into
+        ``BlockSparseKernel``s, pruning nothing more; their values are the
+        dense kernels' storage, viewed 2-D.  Returns the per-module block
+        densities."""
+        from .ops.sparse import sparsify_params_block, sparsity_summary
+
+        self._set_params(sparsify_params_block(self.params, block_k=block[0], block_n=block[1]))
+        return sparsity_summary(self.params)
 
     def load_audio(self, audio_path: str | Path) -> np.ndarray:
         """WAV file → DAC codes int32 [T_codes, C] (reference:

@@ -20,6 +20,7 @@ import torch
 
 from .config import DiaConfig
 from .ops.quant import Quantized4Kernel, QuantizedKernel
+from .ops.sparse import BlockSparseKernel
 
 Params = dict[str, Any]
 
@@ -122,9 +123,9 @@ def _flatten_reference(tree: Params, prefix: str = "") -> dict[str, Any]:
     for k, v in tree.items():
         if isinstance(v, dict):
             flat.update(_flatten_reference(v, f"{prefix}.{k}" if prefix else k))
-        elif isinstance(v, (QuantizedKernel, Quantized4Kernel)):
+        elif isinstance(v, (QuantizedKernel, Quantized4Kernel, BlockSparseKernel)):
             raise TypeError(f"{prefix}.{k} is a packed kernel: export float weights, "
-                            "then quantize after loading")
+                            "then quantize or sparsify after loading")
         else:
             name = {"kernel": "weight", "scale": "weight", "embedding": "weight"}.get(k, k)
             flat[f"{prefix}.{name}" if prefix else name] = v
@@ -173,8 +174,17 @@ def params_from_jax(numpy_tree: Any, dtype=torch.float32,
     layouts are identical, so this is a leaf-by-leaf copy.  A packed kernel
     of the JAX package (recognised by its class name and fields: nothing of
     that package is imported) becomes the port's container with the very
-    same bytes: int8 values and fp32 scales keep their types."""
+    same bytes: int8 values and fp32 scales keep their types; a block-sparse
+    kernel keeps its int32 plan and takes ``dtype`` for its values."""
     packed = type(numpy_tree).__name__
+    if packed == "BlockSparseKernel":
+        src = numpy_tree
+        return BlockSparseKernel(
+            torch.from_numpy(np.array(src.values, dtype=np.float32)).to(device=device,
+                                                                        dtype=dtype),
+            torch.from_numpy(np.array(src.indices, dtype=np.int32)).to(device),
+            torch.from_numpy(np.array(src.counts, dtype=np.int32)).to(device),
+            src.block_k, src.block_n, src.in_shape, src.out_shape)
     if packed in ("QuantizedKernel", "Quantized4Kernel"):
         src = numpy_tree
         scale = torch.from_numpy(np.array(src.scale, dtype=np.float32)).to(device)

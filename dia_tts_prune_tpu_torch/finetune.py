@@ -6,12 +6,13 @@ Full, LoRA or quantization-aware fine-tuning over an LJSpeech-format dataset
 checkpointing (:563-581), resume, and a final save (:588-621): the LoRA
 adapter, ``pytorch_model.bin`` in the reference key schema (loadable by this
 package, the JAX package and the torch reference), ``config.json`` and the
-codec files.  Runs on CUDA unless ``--device cpu`` is given.
+codec files.  ``--prune-before unstructured|structured`` prunes the weights
+first (``prune.py``, as the JAX CLI at its finetune.py:119-128) and trains the
+masked dense weights.  Runs on CUDA unless ``--device cpu`` is given.
 
-Not here yet (their modules are not ported): pruning before fine-tuning
-(``--prune-before*``), sharding over several cards (``--mesh-data``,
-``--mesh-model``, ``--fsdp``) and a separate torch DAC checkpoint
-(``--dac-checkpoint``: the model directory must carry ``dac.safetensors``).
+Not here yet: sharding over several cards (``--mesh-data``, ``--mesh-model``,
+``--fsdp``) and a separate torch DAC checkpoint (``--dac-checkpoint``: the
+model directory must carry ``dac.safetensors``).
 
 Run: ``python -m dia_tts_prune_tpu_torch.finetune --model-path … --dataset-dir …
 --output-dir … --adapter-mode lora``
@@ -77,6 +78,11 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--lora-target-modules", type=str, nargs="+",
                    default=["q_proj", "v_proj"])
 
+    pr = p.add_argument_group("Pruning before fine-tuning")
+    pr.add_argument("--prune-before", type=str, default=None,
+                    choices=["unstructured", "structured"])
+    pr.add_argument("--prune-amount", type=float, default=0.5)
+    pr.add_argument("--prune-dim", type=int, default=0)
     return p
 
 
@@ -107,6 +113,16 @@ def main(argv=None) -> int:
         params = merge_lora(params, adapter)
         print(f"Merged adapter {args.merge_adapter} into base weights "
               f"({lora_param_count(adapter)} adapter params)")
+
+    if args.prune_before:
+        from .prune import apply_masks, sparsity_report, structured_masks, unstructured_masks
+
+        if args.prune_before == "unstructured":
+            masks = unstructured_masks(params, args.prune_amount)
+        else:
+            masks = structured_masks(params, args.prune_amount, dim=args.prune_dim)
+        params = apply_masks(params, masks)
+        print(f"Pruned before fine-tuning: sparsity={sparsity_report(params)['sparsity']:.4f}")
 
     dia._require_dac()
     dataset = FineTuneDataset(

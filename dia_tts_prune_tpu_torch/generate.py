@@ -1,6 +1,7 @@
-"""Autoregressive generation (counterpart of ``dia_tts_prune_tpu/generate.py``,
-single-stream: ``generate_fused`` :460 and ``DiaGenerator.generate_tokens``
-:865).
+"""Autoregressive generation (counterpart of ``dia_tts_prune_tpu/generate.py``:
+single-stream ``generate_fused`` :460 / ``DiaGenerator.generate_tokens`` :865,
+and N streams at once, ``generate_fused_batch`` :546 /
+``generate_tokens_batch`` :1047).
 
 Conditioning (encoder + cross K/V, trimmed to a 128-bucket of the text
 length), the voice-prompt prefill, and the decode loop run on the device; the
@@ -25,6 +26,11 @@ the place of the JAX package's ``DIA_KV_INT8`` environment variable.
 Sampling draws Gumbel noise from a ``torch.Generator`` seeded per call, so a
 seeded run repeats itself; it cannot repeat the JAX package's ``jax.random``
 draws (greedy decoding is identical).
+
+The batched loop runs 2N CFG rows ([uncond × N; cond × N]) with voice
+prompts left-padded to one window, row-local RoPE positions, a first valid
+cache slot per row (``decode_step(valid_from=...)``), and an EOS countdown
+and a generator per stream, so each stream repeats its single-stream run.
 """
 
 from __future__ import annotations
@@ -111,16 +117,24 @@ def conditioning(params, config: DiaConfig, enc_input: torch.Tensor, compute_dty
 
 @torch.no_grad()
 def run_prefill(params, config: DiaConfig, tokens_buf: np.ndarray, prefill_window: int,
-                prefill_step: int, cross_cache, padding_mask, self_cache, compute_dtype) -> None:
-    """Write the prompt's K/V into cache slots [0, prefill_window): rows
-    [0, prefill_step - 1) are valid, the last prompt row is left for the
-    first loop step (single-stream form of ``_run_prefill``, generate.py:408)."""
+                offsets: np.ndarray, prefill_steps: np.ndarray, cross_cache, padding_mask,
+                self_cache, compute_dtype) -> None:
+    """Write the prompts' K/V into cache slots [0, prefill_window) (the JAX
+    ``_run_prefill``, generate.py:408).  ``tokens_buf`` [N, T, C] holds N
+    streams, left-padded so that every prompt ends on row ``W - 1``: stream
+    i's rows [offsets[i], W - 1) are valid (segment 1), its pads segment 0,
+    and its last prompt row is left for the first loop step.  RoPE
+    positions are row-local (``row - offsets[i]``), so a stream's numbers are
+    those of its own unpadded run.  CFG rows are [uncond × N; cond × N]."""
     dev = padding_mask.device
-    window = torch.from_numpy(np.clip(tokens_buf[:prefill_window], 0, None)).to(dev)
-    tgt = window[None].expand(CFG_BATCH, -1, -1)
-    rows = torch.arange(prefill_window, device=dev)[None].expand(CFG_BATCH, -1)
-    valid = (rows < prefill_step - 1).to(torch.int32)
-    decoder_prefill(params, config, tgt, rows, cross_cache, self_cache, valid,
+    window = torch.from_numpy(np.clip(tokens_buf[:, :prefill_window], 0, None)).to(dev)
+    tgt = torch.cat([window, window])  # [2N, W, C]
+    rows = torch.arange(prefill_window, device=dev)[None]
+    off2 = torch.from_numpy(np.concatenate([offsets, offsets]).astype(np.int64)).to(dev)[:, None]
+    steps2 = torch.from_numpy(np.concatenate([prefill_steps, prefill_steps]).astype(np.int64))
+    positions = (rows - off2).clamp_min(0)
+    valid = ((rows >= off2) & (rows - off2 < steps2.to(dev)[:, None] - 1)).to(torch.int32)
+    decoder_prefill(params, config, tgt, positions, cross_cache, self_cache, valid,
                     padding_mask.to(torch.int32), compute_dtype)
 
 
@@ -184,6 +198,91 @@ def decode_loop(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, c
     return dec_step
 
 
+@torch.no_grad()
+def decode_loop_batch(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cross_cache,
+                      cross_ends, start: int, offsets: np.ndarray, caps: np.ndarray,
+                      cfg_scale: float, temperature: float, top_p: float, cfg_filter_top_k: int,
+                      generators: list | None, compute_dtype) -> np.ndarray:
+    """The N-stream decode loop (``generate_fused_batch``'s body,
+    generate.py:625-698): all streams advance in lockstep from row
+    ``start``, each with its own RoPE positions (``t - offsets[i]``), its
+    own first valid cache slot, its own EOS countdown and its own generator,
+    so that stream i repeats its single-stream run.  A finished stream stops
+    being written and sampled; its rows keep running until every stream has
+    stopped or the longest cap is reached.  Fills ``tokens_buf`` [N, T, C]
+    in place and returns each stream's last completed step."""
+    d = config.data
+    dev = cross_ends.device
+    N = tokens_buf.shape[0]
+    delay = np.asarray(d.delay_pattern, np.int32)[None]
+    max_delay, eos, pad = d.max_delay, d.audio_eos_value, d.audio_pad_value
+    off2 = np.concatenate([offsets, offsets]).astype(np.int64)
+    valid_from = torch.from_numpy(off2.astype(np.int32)).to(dev)
+
+    prev_tok = tokens_buf[:, start - 1].copy()  # [N, C]
+    bos_rows = tokens_buf[:, start:start + max_delay].copy()  # [N, max_delay, C]
+    eos_detected = np.zeros(N, bool)
+    countdown = np.full(N, -1, np.int64)
+    stopped = np.zeros(N, bool)
+    final_step = np.full(N, start - 1, np.int64)
+    t = start - 1
+    while t < caps.max() - 1 and not stopped.all():
+        t += 1
+        tgt = torch.from_numpy(np.concatenate([prev_tok, prev_tok])).to(dev)[:, None]
+        position = torch.from_numpy(t - off2[:, None]).to(dev)
+        logits = decode_step(params, config, tgt, position, t - 1, self_cache, cross_cache,
+                             cross_ends, compute_dtype, valid_from=valid_from)  # [2N, 1, C, V]
+        pred = prev_tok.copy()  # a stopped stream is neither sampled nor written
+        live = np.flatnonzero(~stopped)
+        picks = [sample_next_token(
+            apply_constraints(cfg_combine(logits[[i, N + i], 0], cfg_scale), eos, pad,
+                              d.audio_bos_value),
+            temperature, top_p, cfg_filter_top_k,
+            generator=None if generators is None else generators[i]) for i in live]
+        pred[live] = torch.stack(picks).to(torch.int32).cpu().numpy()
+
+        # per-stream EOS state machines (reference: dia/model.py:771-797)
+        newly_eos = ~eos_detected & (pred[:, 0] == eos)
+        eos_detected |= newly_eos
+        countdown = np.where(newly_eos, max_delay, countdown)
+        active = (countdown > 0)[:, None]
+        step_after = (max_delay - countdown)[:, None]
+        pred = np.where(active & (step_after == delay), eos,
+                        np.where(active & (step_after > delay) & (pred != eos), pad, pred))
+        countdown = np.where(countdown > 0, countdown - 1, countdown)
+
+        # BOS-window masked write: every prompt ends on row start - 1, so the
+        # write-protected window is the first max_delay - 1 steps for all
+        row = bos_rows[:, 0] if t - start < max_delay else np.full_like(prev_tok, -1)
+        write = np.where((t - start < max_delay - 1) & (row != -1), row, pred).astype(np.int32)
+        tokens_buf[live, t] = write[live]
+        bos_rows = np.roll(bos_rows, -1, axis=1)
+
+        stop_now = (countdown == 0) & ~stopped
+        hit_cap = (t >= caps - 1) & ~stopped & ~stop_now
+        final_step = np.where(stopped, final_step, np.where(stop_now, t - 1, t))
+        prev_tok = np.where(stopped[:, None], prev_tok, write)
+        stopped = stopped | stop_now | hit_cap
+        # near-max EOS trigger (reference: dia/model.py:800-804)
+        near_max = (t >= caps - max_delay - 1) & ~eos_detected
+        eos_detected |= near_max
+        countdown = np.where(near_max, max_delay, countdown)
+    return final_step
+
+
+def _undelay(generated: np.ndarray, config: DiaConfig) -> np.ndarray:
+    """Generated delayed rows [T, C] → codec tokens: delay reverted, the
+    ``max_delay`` tail trimmed, out-of-codebook values clamped to 0
+    (reference: dia/model.py:490-530)."""
+    d = config.data
+    if generated.shape[0] == 0:
+        return np.zeros((0, d.channels), dtype=np.int32)
+    reverted = revert_audio_delay_np(generated[None], d.audio_pad_value, tuple(d.delay_pattern),
+                                     generated.shape[0])[0]
+    reverted = reverted[: max(0, reverted.shape[0] - d.max_delay)]
+    return np.where((reverted < 0) | (reverted > 1023), 0, reverted).astype(np.int32)
+
+
 class DiaGenerator:
     """Generation orchestrator (reference API: dia/model.py:631-846)."""
 
@@ -242,8 +341,8 @@ class DiaGenerator:
             kv_int8 = decoder_is_packed(self.params)
         self_cache = new_self_cache(cfg, CFG_BATCH, cache_len, dtype, self.device, quant=kv_int8)
         if window is not None:
-            run_prefill(self.params, cfg, tokens_buf, window, prefill_step, cross_cache,
-                        padding_mask, self_cache, dtype)
+            run_prefill(self.params, cfg, tokens_buf[None], window, np.zeros(1, np.int64),
+                        np.asarray([prefill_step]), cross_cache, padding_mask, self_cache, dtype)
         if kv_int8:  # prefill's flash attention reads the float cross cache
             cross_cache = quantize_cache(cross_cache)
         final_step = decode_loop(
@@ -254,12 +353,97 @@ class DiaGenerator:
             steps = final_step + 1 - prefill_step
             print(f"generate: {steps} steps in {dt:.3f}s ({steps / max(dt, 1e-9):.2f} tokens/s)")
 
-        generated = tokens_buf[prefill_step: final_step + 1]  # (reference: dia/model.py:831)
-        if generated.shape[0] == 0:
-            return np.zeros((0, d.channels), dtype=np.int32)
-        # delay revert + tail trim + clamp (reference: dia/model.py:490-530)
-        reverted = revert_audio_delay_np(generated[None], d.audio_pad_value,
-                                         tuple(d.delay_pattern), generated.shape[0])[0]
-        reverted = reverted[: max(0, reverted.shape[0] - d.max_delay)]
-        reverted = np.where((reverted < 0) | (reverted > 1023), 0, reverted)
-        return reverted.astype(np.int32)
+        return _undelay(tokens_buf[prefill_step: final_step + 1], cfg)  # (dia/model.py:831)
+
+    @torch.no_grad()
+    def generate_tokens_batch(
+        self,
+        texts: list[str],
+        max_tokens: int | None = None,
+        cfg_scale: float = 3.0,
+        temperature: float = 1.3,
+        top_p: float = 0.95,
+        cfg_filter_top_k: int = 35,
+        audio_prompt_codes: list[np.ndarray | None] | None = None,
+        audio_prompt_texts: list[str | None] | None = None,
+        seed: int | None = None,
+        seeds: list[int | None] | None = None,
+        cache_len: int | None = None,
+        kv_int8: bool | None = None,
+    ) -> list[np.ndarray]:
+        """N texts → N undelayed token arrays, decoded together in one loop
+        over 2N CFG rows (the JAX ``generate_tokens_batch``, generate.py:1047,
+        with ``generate_fused_batch``'s semantics): every stream shares each
+        step's weight reads.
+
+        Voice prompts may differ per stream: the delayed templates are
+        left-padded to a shared 128-bucket window so that every prompt ends
+        on one row, with row-local RoPE positions and per-row first valid
+        cache slots.  ``seeds`` gives each stream its own seed (None entries a
+        fresh one), ``seed`` one seed to all; each stream samples from its own
+        ``torch.Generator``.  So stream i repeats its single-stream run with
+        that seed whatever streams ride with it."""
+        cfg = self.config
+        d = cfg.data
+        dtype = DTYPES[self.compute_dtype]
+        max_tokens = d.audio_length if max_tokens is None else min(max_tokens, d.audio_length)
+        N = len(texts)
+        if N == 0:
+            return []
+        prompts = audio_prompt_codes or [None] * N
+        prompt_texts = audio_prompt_texts or [None] * N
+        if len(prompts) != N or len(prompt_texts) != N:
+            raise ValueError("audio prompt lists must match len(texts)")
+        for p, pt in zip(prompts, prompt_texts):
+            if p is not None and not pt:
+                raise ValueError("`audio_prompt_texts[i]` is required when "
+                                 "`audio_prompt_codes[i]` is provided.")
+        conds = [encode_cfg_batch(build_effective_text(t, pt), d.text_length, d.text_pad_value)
+                 for t, pt in zip(texts, prompt_texts)]
+        enc_input = np.concatenate([np.stack([c[0] for c in conds]),
+                                    np.stack([c[1] for c in conds])])  # [uncond × N; cond × N]
+
+        templates = [prepare_audio_prompt(cfg, p) for p in prompts]
+        prefill_steps = np.asarray([t[1] for t in templates], np.int64)
+        max_p = int(prefill_steps.max())
+        window = None
+        if max_p > 1:
+            # all streams start generating at row `window`: the exact window
+            # when the bucket would eat the generation budget
+            window = _bucket(max_p, 128, d.audio_length)
+            if window > d.audio_length - 32:
+                window = max_p
+        start = window if window is not None else 1
+        offsets = start - prefill_steps
+        tokens_buf = np.full((N, d.audio_length, d.channels), -1, dtype=np.int32)
+        for i, (delayed, _) in enumerate(templates):
+            tokens_buf[i, offsets[i]: offsets[i] + delayed.shape[0]] = delayed
+        caps = np.minimum(max_tokens + offsets, d.audio_length)
+
+        if seeds is not None:
+            if len(seeds) != N:
+                raise ValueError("seeds must match len(texts)")
+            seed_list = [_resolve_seed(s) for s in seeds]
+        else:
+            seed_list = [_resolve_seed(seed) for _ in range(N)]
+        generators = None
+        if temperature != 0.0:
+            generators = [torch.Generator(device=self.device).manual_seed(s) for s in seed_list]
+
+        cross_cache, padding_mask, cross_ends = conditioning(
+            self.params, cfg, torch.from_numpy(enc_input).to(self.device), dtype,
+            _cross_window_for(enc_input, cfg))
+        if kv_int8 is None:
+            kv_int8 = decoder_is_packed(self.params)
+        self_cache = new_self_cache(cfg, 2 * N, _cache_len_for(cache_len or int(caps.max()),
+                                                               start, cfg),
+                                    dtype, self.device, quant=kv_int8)
+        if window is not None:
+            run_prefill(self.params, cfg, tokens_buf, window, offsets, prefill_steps,
+                        cross_cache, padding_mask, self_cache, dtype)
+        if kv_int8:
+            cross_cache = quantize_cache(cross_cache)
+        final_steps = decode_loop_batch(
+            self.params, cfg, tokens_buf, self_cache, cross_cache, cross_ends, start, offsets,
+            caps, cfg_scale, temperature, top_p, cfg_filter_top_k, generators, dtype)
+        return [_undelay(tokens_buf[i, start: int(final_steps[i]) + 1], cfg) for i in range(N)]

@@ -20,9 +20,9 @@ token would dominate the step's memory traffic.  Every decode-step attention
 range; full-sequence attention (encoder, prompt prefill) runs the flash
 kernel.
 
-Decoder kernels may be packed int8/int4 containers (``ops/quant.py``): every
-function here works unchanged on such a tree, ``dense_general`` dispatching on
-the leaf's type.  The caches may be int8 (``QuantKVCache``): prefill quantizes
+Decoder kernels may be packed int8/int4 containers (``ops/quant.py``) or
+block-sparse ones (``ops/sparse.py``): every function here works unchanged on
+such a tree, ``dense_general`` dispatching on the leaf's type.  The caches may be int8 (``QuantKVCache``): prefill quantizes
 K/V on the way into the cache, and a decode step attends the quantized prefix
 plus its own unquantized K/V before committing them quantized — the order of
 the JAX package's ``decode_step_scan`` (:661-745), which the port needs no
@@ -392,14 +392,19 @@ def decode_step(
     cross_cache: KVCache | QuantKVCache,
     cross_ends: torch.Tensor,  # int32 [B]: text keys per row (0 = fully masked)
     compute_dtype=torch.float32,
+    valid_from: torch.Tensor | None = None,  # int32 [B]: first valid self-cache slot
 ) -> torch.Tensor:
     """Single autoregressive decode step (reference: dia/layers.py:671-720).
     Writes this token's K/V into slot ``write_slot`` of every layer (in
     place) and returns logits [B, 1, C, V] fp32.
 
-    Self-attention reads slots [0, write_slot]; cross-attention reads each
-    row's first ``cross_ends[b]`` text keys — both through the
-    decode-attention kernel.  With an int8 self cache the step attends the
+    Self-attention reads slots [valid_from[b], write_slot] (``valid_from``
+    None: from slot 0); cross-attention reads each row's first
+    ``cross_ends[b]`` text keys — both through the decode-attention kernel.
+    ``valid_from`` serves batched voice prompts of different lengths
+    (the JAX ``decode_step``'s argument, :475): streams are left-padded so
+    that all prompts end on one slot, and each row's pad slots stay out of
+    its attention.  With an int8 self cache the step attends the
     quantized slots [0, write_slot) and this token's own unquantized K/V, and
     then writes them quantized (``decode_step_scan``'s order: quantizing
     first would change the last token's share).  The JAX step's
@@ -411,7 +416,8 @@ def decode_step(
     B = tgt_Bx1xC.shape[0]
     dev = tgt_Bx1xC.device
     quant = isinstance(self_cache, QuantKVCache)
-    self_start = torch.zeros(B, dtype=torch.int32, device=dev)
+    self_start = (torch.zeros(B, dtype=torch.int32, device=dev) if valid_from is None
+                  else valid_from.to(device=dev, dtype=torch.int32).contiguous())
     self_end = torch.full((B,), write_slot + (0 if quant else 1), dtype=torch.int32, device=dev)
     cross_start = torch.zeros_like(cross_ends)
 

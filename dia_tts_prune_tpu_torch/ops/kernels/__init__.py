@@ -15,12 +15,14 @@ from .flash_attention import (
 )
 from .int4_gemv import int4_gemv, int4_gemv_plain
 from .int8_matmul import int8_matmul, int8_matmul_plain
+from .sparse_matmul import block_sparse_matmul, block_sparse_matmul_plain
 
 KERNEL_WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
                    "int8_matmul": int8_matmul, "int4_gemv": int4_gemv,
                    "flash_attention_lse": flash_attention_lse,
                    "flash_attention_bwd_kv": flash_attention_bwd_kv,
-                   "flash_attention_bwd_q": flash_attention_bwd_q}
+                   "flash_attention_bwd_q": flash_attention_bwd_q,
+                   "block_sparse_matmul": block_sparse_matmul}
 
 
 def reset_launch_counts() -> None:
@@ -33,7 +35,7 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = [
-    "KERNEL_WRAPPERS", "decode_attention", "decode_attention_plain", "flash_attention",
+    "KERNEL_WRAPPERS", "block_sparse_matmul", "block_sparse_matmul_plain", "decode_attention", "decode_attention_plain", "flash_attention",
     "flash_attention_bwd_kv", "flash_attention_bwd_plain", "flash_attention_bwd_q",
     "flash_attention_lse", "flash_attention_lse_plain", "flash_attention_plain",
     "flash_attention_trainable", "int4_gemv", "int4_gemv_plain", "int8_matmul",

@@ -7,7 +7,8 @@ in the JAX layout:
 * ``dense_general`` contracts the trailing axes of ``x`` against the leading
   axes of a kernel stored ``in_shapes + out_features`` (reference:
   dia/layers.py:35-66), one ``tensordot``; a packed kernel
-  (``ops/quant.py``) goes to the int8-matmul or int4-GEMV kernel;
+  (``ops/quant.py``) goes to the int8-matmul or int4-GEMV kernel, a
+  block-sparse one (``ops/sparse.py``) to the block-sparse matmul;
 * GQA attention reshapes queries to [B, T, Nkv, G, H] and contracts them
   against un-repeated K/V;
 * norms, the SiLU gate, RoPE trig and softmax run in float32 whatever the
@@ -30,7 +31,9 @@ import torch.nn.functional as F
 from .kernels.flash_attention import flash_attention, flash_attention_trainable
 from .kernels.int4_gemv import int4_gemv
 from .kernels.int8_matmul import MAX_ROWS, int8_matmul
+from .kernels.sparse_matmul import block_sparse_matmul
 from .quant import Quantized4Kernel, QuantizedKernel, dequantize4
+from .sparse import BlockSparseKernel
 
 Params = dict[str, Any]
 
@@ -39,10 +42,13 @@ NEG = torch.finfo(torch.float32).min
 
 def dense_general(x: torch.Tensor, kernel, axis: tuple[int, ...] = (-1,)) -> torch.Tensor:
     """Contract ``axis`` of ``x`` against the leading axes of ``kernel``
-    (reference: dia/layers.py:55-66).  No bias.  ``kernel`` is a tensor, or a
-    packed ``QuantizedKernel`` / ``Quantized4Kernel`` (trailing axes only)."""
+    (reference: dia/layers.py:55-66).  No bias.  ``kernel`` is a tensor, a
+    packed ``QuantizedKernel`` / ``Quantized4Kernel`` or a
+    ``BlockSparseKernel`` (trailing axes only)."""
     if isinstance(kernel, (QuantizedKernel, Quantized4Kernel)):
         return _dense_general_packed(x, kernel, axis)
+    if isinstance(kernel, BlockSparseKernel):
+        return _dense_general_sparse(x, kernel, axis)
     norm_axis = [ax if ax >= 0 else x.dim() + ax for ax in axis]
     return torch.tensordot(x.to(kernel.dtype), kernel,
                            dims=(norm_axis, list(range(len(norm_axis)))))
@@ -82,6 +88,25 @@ def _dense_general_packed(x: torch.Tensor, qk, axis: tuple[int, ...]) -> torch.T
     else:
         y = int4_gemv(x2, qk.values, qk.scale, qk.layout)
     return y.reshape(*lead, *qk.out_shape)
+
+
+def _dense_general_sparse(x: torch.Tensor, sk: BlockSparseKernel,
+                          axis: tuple[int, ...]) -> torch.Tensor:
+    """Contraction against a block-sparse kernel (the JAX package's
+    ``_dense_general_sparse``, its ops/modules.py:185): ``x`` cast to the
+    values' dtype, its trailing axes flattened to K, the block-sparse matmul
+    at every row count — decode steps, prompt prefill and the cross K/V
+    projection alike, as the JAX dispatcher sends them all to its Pallas
+    kernel — and the result shaped to the kernel's output dims."""
+    n_in = len(axis)
+    if n_in != len(sk.in_shape):
+        raise ValueError(
+            f"kernel packed for {len(sk.in_shape)} contraction axes, called with {n_in}")
+    K = math.prod(sk.in_shape)
+    lead = x.shape[: x.dim() - n_in]
+    x2 = x.reshape(-1, K).to(sk.values.dtype).contiguous()
+    y = block_sparse_matmul(x2, sk.values, sk.indices, sk.counts, sk.block_k, sk.block_n)
+    return y.reshape(*lead, *sk.out_shape)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

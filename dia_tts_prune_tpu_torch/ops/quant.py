@@ -114,6 +114,14 @@ class Quantized4Kernel:
 PACKED_TYPES = (QuantizedKernel, Quantized4Kernel)
 
 
+def _is_block_sparse(w) -> bool:
+    """A ``BlockSparseKernel`` (``ops/sparse.py``, which imports this module):
+    the packers leave pruned kernels as they are, like the JAX packer."""
+    from .sparse import BlockSparseKernel
+
+    return isinstance(w, BlockSparseKernel)
+
+
 def _per_layer(fn, w: torch.Tensor, stacked: bool):
     """Apply ``fn`` to each layer of a stacked kernel and stack the parts:
     scales are per layer anyway, and the fp32 temporaries stay one layer
@@ -229,14 +237,15 @@ def quantize_params_int8_packed(params: Params, scope: str | None = "decoder") -
     ``scope`` limits packing to one top-level subtree — default ``"decoder"``:
     the decode loop streams the decoder's weights every step, the encoder
     runs once per call as a large matrix product.  ``scope=None`` packs the
-    whole tree.  Kernels already packed (the int4-MLP hybrid) are kept.
+    whole tree.  Kernels already packed (the int4-MLP hybrid) and
+    block-sparse kernels (``ops/sparse.py``) are kept.
 
     The JAX function's ``fused`` argument builds the fused decode-step
     kernel's weight pack; the port has neither that kernel nor the argument
     yet."""
 
     def pk(w, path):
-        if isinstance(w, PACKED_TYPES):
+        if isinstance(w, PACKED_TYPES) or _is_block_sparse(w):
             return w
         return quantize_int8(w, **_quant_args_for(path))
 
@@ -329,10 +338,11 @@ def quantize_params_int4_packed(
     scoped as ``quantize_params_int8_packed``.  ``mlp_only`` packs only the
     MLP kernels (wi_fused/wo) and leaves the rest for the caller; compose
     with the int8 packer for the hybrid:
-    ``quantize_params_int8_packed(quantize_params_int4_packed(p, mlp_only=True))``."""
+    ``quantize_params_int8_packed(quantize_params_int4_packed(p, mlp_only=True))``.
+    Block-sparse kernels are kept, as the int8 packer keeps them."""
 
     def pk(w, path):
-        if mlp_only and "mlp" not in path:
+        if (mlp_only and "mlp" not in path) or _is_block_sparse(w):
             return w
         return quantize_int4(w, group=group, halfsplit=halfsplit, **_quant_args_for(path))
 

@@ -12,6 +12,8 @@ import torch
 from dia_tts_prune_tpu_torch.models.dia import quantize_kv
 from dia_tts_prune_tpu_torch.ops import quant
 from dia_tts_prune_tpu_torch.ops.kernels import (
+    block_sparse_matmul,
+    block_sparse_matmul_plain,
     decode_attention,
     decode_attention_plain,
     flash_attention,
@@ -27,6 +29,7 @@ from dia_tts_prune_tpu_torch.ops.kernels import (
     int8_matmul,
     int8_matmul_plain,
 )
+from dia_tts_prune_tpu_torch.ops.kernels.sparse_matmul import listed_mask, plan_block_sparsity
 
 
 def _t(a):
@@ -257,3 +260,73 @@ def test_gemv_wrappers_raise_on_the_card(cuda_device):
     ends = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
         decode_attention(q, k8, k8, ends, ends)  # int8 caches without scales
+
+
+def _sparse_case(rng, K, N, bk, bn, device, dtype):
+    """A weight with about half its blocks zeroed and its first N-tile empty,
+    its plan, and the weight with NaN in every unlisted block."""
+    w = _normal(rng, (K, N)) / np.sqrt(K)
+    kept = rng.random((-(-K // bk), -(-N // bn))) < 0.5
+    kept[0, -1], kept[:, 0] = True, False
+    w = _t(w * np.repeat(np.repeat(kept, bk, 0), bn, 1)[:K, :N]).to(device, dtype)
+    plan = plan_block_sparsity(w, bk, bn)
+    idx, cnt = plan.indices.to(device), plan.counts.to(device)
+    poisoned = torch.where(listed_mask(idx, cnt, K, N, bk, bn), w, float("nan"))
+    return w, idx, cnt, poisoned
+
+
+# shapes with ragged K and N, small blocks, and a decode shape at 256 x 256
+SPARSE_SHAPES = [(100, 150, 32, 64), (40, 37, 8, 16), (2048, 9252, 256, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+@pytest.mark.parametrize("K,N,bk,bn", SPARSE_SHAPES)
+@pytest.mark.parametrize("M", [1, 2, 8, 70])
+def test_block_sparse_kernel_matches_plain_on_card(cuda_device, dtype, rtol, atol, K, N, bk, bn,
+                                                   M):
+    """Against the plain version in fp32 on the same values, within the GEMV
+    tolerance (sums of listed products in another order); NaN in every
+    unlisted block changes nothing; an empty tile gives exact zeros; the
+    result is bit-identical from run to run."""
+    rng = np.random.default_rng(24)
+    w, idx, cnt, poisoned = _sparse_case(rng, K, N, bk, bn, cuda_device, dtype)
+    x = _t(_normal(rng, (M, K))).to(cuda_device, dtype)
+    out = block_sparse_matmul(x, w, idx, cnt, bk, bn)
+    assert out.dtype == dtype and out.shape == (M, N)
+    ref = block_sparse_matmul_plain(x.float(), w.float(), idx, cnt, bk, bn)
+    _assert_gemv_close(out, ref, x, w.float(), rtol)
+    assert torch.all(out[:, :bn] == 0)
+    assert torch.equal(block_sparse_matmul(x, poisoned, idx, cnt, bk, bn), out)
+    assert torch.equal(block_sparse_matmul(x, w, idx, cnt, bk, bn), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_rows_do_not_depend_on_the_row_count(cuda_device, dtype):
+    """Row i of an M-row product equals the same row computed with 2, 8 or
+    64 rows: batched lanes repeat their single-stream runs."""
+    rng = np.random.default_rng(25)
+    w, idx, cnt, _ = _sparse_case(rng, 2048, 2048, 256, 256, cuda_device, dtype)
+    x = _t(_normal(rng, (64, 2048))).to(cuda_device, dtype)
+    full = block_sparse_matmul(x, w, idx, cnt, 256, 256)
+    for M in (2, 8):
+        for r0 in range(0, 64, M):
+            assert torch.equal(block_sparse_matmul(x[r0:r0 + M].contiguous(), w, idx, cnt, 256,
+                                                   256), full[r0:r0 + M])
+
+
+@pytest.mark.gpu
+def test_block_sparse_wrapper_raises_on_the_card(cuda_device):
+    x = torch.zeros(3, 64, device=cuda_device)
+    w = torch.zeros(64, 128, device=cuda_device)
+    idx = torch.zeros(2, 1, dtype=torch.int32, device=cuda_device)
+    cnt = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(block_sparse_matmul(x, w, idx, cnt, 32, 64), torch.zeros_like(x[:, :1])
+                       .expand(3, 128))
+    with pytest.raises(TypeError):
+        block_sparse_matmul(x.bfloat16(), w, idx, cnt, 32, 64)
+    with pytest.raises(ValueError, match="one device"):
+        block_sparse_matmul(x, w, idx.cpu(), cnt, 32, 64)
+    with pytest.raises(ValueError, match="plan"):
+        block_sparse_matmul(x, w, idx, cnt, 32, 32)

@@ -105,7 +105,8 @@ import dia_tts_prune_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 for name in ("ops.quant", "ops.kernels.int8_matmul", "ops.kernels.int4_gemv", "train", "lora",
-             "finetune", "data", "utils.audio_io", "utils.prefetch", "checkpoint"):
+             "finetune", "data", "utils.audio_io", "utils.prefetch", "checkpoint", "prune",
+             "offline_prune", "ops.sparse", "ops.kernels.sparse_matmul"):
     assert pkg.__name__ + "." + name in sys.modules, name
 dia = pkg.Dia.from_pretrained("tests/fixtures/trained_small", device="cpu")
 from dia_tts_prune_tpu_torch.train import TrainConfig, Trainer, build_train_batch
@@ -116,6 +117,10 @@ for tc in (TrainConfig(adapter_mode="lora"), TrainConfig(qat_mode="int8")):
     assert np.isfinite(Trainer(dia.params, dia.config, tc, 2).step(batch)["loss"])
 dia.quantize_int8()
 assert dia.generate_codes("[S1] Hi.", max_tokens=20, temperature=0.0).shape[1] == 9
+sparse = pkg.Dia.from_pretrained("tests/fixtures/trained_small", device="cpu")
+assert min(sparse.prune_block_sparse(0.5, (32, 64)).values()) < 1.0
+assert all(c.shape[1] == 9 for c in sparse.generator.generate_tokens_batch(
+    ["[S1] Hi.", "[S2] Yo."], max_tokens=20, temperature=0.0))
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "dia_tts_prune_tpu"))
 print(bad)
 """

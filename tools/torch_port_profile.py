@@ -6,7 +6,11 @@ two-speaker text, then runs decode steps of ``models.dia.decode_step`` as the
 generation loop does, including the per-step read-back of the sampled codes.
 ``--quant int8|int4`` packs the decoder first (``ops/quant.py``) and keeps both
 KV caches int8, as ``Dia.quantize_int8()`` / ``quantize_int4()`` then
-``generate`` do.  Prints one JSON line:
+``generate`` do.  ``--prune module|global`` zeroes half of the 256 x 256
+weight blocks (``prune.block_masks`` with that ranking) and packs the
+decoder as ``BlockSparseKernel``s, as ``Dia.prune_block_sparse(0.5,
+scope=...)`` does.  ``--streams N`` runs N streams' 2N CFG rows per step, as
+``generate_tokens_batch`` does.  Prints one JSON line:
 
 * ``host_ms_per_step``  — wall time per step (host clock, synchronised);
 * ``device_ms_per_step`` — summed CUDA kernel time per step (torch.profiler);
@@ -14,7 +18,8 @@ KV caches int8, as ``Dia.quantize_int8()`` / ``quantize_int4()`` then
 * ``top_kernels``       — kernel names by device time per step;
 * the card's name and power limit.
 
-Run on the card: ``python3 tools/torch_port_profile.py [--steps 64] [--quant int8]``.
+Run on the card: ``python3 tools/torch_port_profile.py [--steps 64] [--quant int8]
+[--prune module] [--streams 4]``.
 ``--tiny --device cpu`` rehearses the script on the CPU (no device numbers).
 """
 
@@ -37,6 +42,10 @@ def main(argv=None) -> int:
     p.add_argument("--tiny", action="store_true", help="tiny_test_config (rehearsal)")
     p.add_argument("--quant", choices=("none", "int8", "int4"), default="none",
                    help="pack the decoder's kernels and keep the KV caches int8")
+    p.add_argument("--prune", choices=("none", "module", "global"), default="none",
+                   help="block-prune half the 256 x 256 blocks with this ranking, then "
+                        "serve the decoder block-sparse")
+    p.add_argument("--streams", type=int, default=1, help="streams decoded together")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -44,7 +53,7 @@ def main(argv=None) -> int:
 
     from dia_tts_prune_tpu_torch.api import resolve_device
     from dia_tts_prune_tpu_torch.config import dia_1_6b_config, tiny_test_config
-    from dia_tts_prune_tpu_torch.generate import CFG_BATCH, _cross_window_for, conditioning
+    from dia_tts_prune_tpu_torch.generate import _cross_window_for, conditioning
     from dia_tts_prune_tpu_torch.models.dia import (
         decode_step,
         init_params,
@@ -55,7 +64,8 @@ def main(argv=None) -> int:
         quantize_params_int4_packed,
         quantize_params_int8_packed,
     )
-    from dia_tts_prune_tpu_torch.ops.sampling import apply_constraints, cfg_combine
+    from dia_tts_prune_tpu_torch.ops.sparse import sparsify_params_block, sparsity_summary
+    from dia_tts_prune_tpu_torch.prune import apply_masks, block_masks
     from dia_tts_prune_tpu_torch.tokenizer import encode_cfg_batch
 
     dev = resolve_device(args.device)
@@ -69,22 +79,31 @@ def main(argv=None) -> int:
         params = quantize_params_int8_packed(params)
     elif args.quant == "int4":
         params = quantize_params_int4_packed(params, halfsplit=True)
+    if args.prune != "none":
+        blocks = (32, 64) if args.tiny else (256, 256)
+        params = apply_masks(params, block_masks(params, 0.5, blocks, scope=args.prune))
+        params = sparsify_params_block(params, block_k=blocks[0], block_n=blocks[1])
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    N = args.streams
+    rows = 2 * N  # [uncond x N; cond x N]
     enc = encode_cfg_batch("[S1] Dia is an open weights text to dialogue model. [S2] Wow.",
                            d.text_length, d.text_pad_value)
+    enc = np.concatenate([enc[:1]] * N + [enc[1:]] * N)
     with torch.no_grad():
         cross, _, ends = conditioning(params, cfg, torch.from_numpy(enc).to(dev), dtype,
                                       _cross_window_for(enc, cfg))
     if quant:
         cross = quantize_cache(cross)
-    cache = new_self_cache(cfg, CFG_BATCH, min(1024, d.audio_length), dtype, dev, quant=quant)
+    cache = new_self_cache(cfg, rows, min(1024, d.audio_length), dtype, dev, quant=quant)
     tok = np.full((d.channels,), d.audio_bos_value, np.int32)
 
     def step(t):
-        tgt = torch.from_numpy(tok).to(dev)[None, None].expand(CFG_BATCH, 1, -1)
-        pos = torch.full((CFG_BATCH, 1), t, dtype=torch.int64, device=dev)
-        logits = decode_step(params, cfg, tgt, pos, t - 1, cache, cross, ends, dtype)
-        guided = apply_constraints(cfg_combine(logits[:, -1], 3.0), d.audio_eos_value,
-                                   d.audio_pad_value, d.audio_bos_value)
+        tgt = torch.from_numpy(tok).to(dev)[None, None].expand(rows, 1, -1)
+        pos = torch.full((rows, 1), t, dtype=torch.int64, device=dev)
+        logits = decode_step(params, cfg, tgt, pos, t - 1, cache, cross, ends, dtype)[:, 0]
+        guided = logits[N:] + 3.0 * (logits[N:] - logits[:N])  # cfg_combine per stream
         return torch.argmax(guided, dim=-1).cpu().numpy()  # the loop's one read-back
 
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -98,7 +117,7 @@ def main(argv=None) -> int:
         sync()
         host_ms = 1e3 * (time.perf_counter() - t0) / args.steps
         result = {"tool": "torch_port_profile", "config": "tiny" if args.tiny else "dia_1_6b bf16",
-                  "quant": args.quant,
+                  "quant": args.quant, "prune": args.prune, "streams": N,
                   "cache_len": cache.k.shape[2], "steps": args.steps,
                   "host_ms_per_step": host_ms}
         if cuda:
@@ -122,6 +141,7 @@ def main(argv=None) -> int:
             rows.sort(key=lambda r: -r[1])
             device_ms = sum(r[1] for r in rows)
             result.update({
+                "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
                 "device_ms_per_step": device_ms,
                 "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
                 "launches_per_step": sum(r[2] for r in rows),
@@ -131,6 +151,8 @@ def main(argv=None) -> int:
                     ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                     capture_output=True, text=True, check=True).stdout.strip(),
             })
+    if args.prune != "none":
+        result["block_density"] = sparsity_summary(params)
     print(json.dumps(result), flush=True)
     return 0
 
