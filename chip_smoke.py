@@ -7,7 +7,8 @@ build and only those, for work on one of them, and prints no result line.  Phase
 script exits non-zero:
 
 1. build     — compile every CUDA kernel from ``dia_tts_prune_tpu_torch/csrc``
-               (one nvcc per source, all at once);
+               and the planted-fault copies of the fused step (one nvcc per
+               source, all at once);
 2. kernels   — each kernel against its plain PyTorch version at the main
                paths' shapes, fp32 and bf16: max abs error beside the stated
                tolerance, kernel and library times (device time: calls
@@ -23,6 +24,12 @@ script exits non-zero:
                five decode shapes at block density 0.5 (per-module 256 x 256
                ranking) and 1.0, fp32, 8, 64 and 512 rows, NaN in every
                unlisted block, bit-identical runs, rows independent of M;
+               the fused decode step at Dia-1.6B widths (int8 and int4-MLP
+               packs, bf16 and int8 caches, B = 2 and 8, and 20), rows of
+               B = 20 equal to B = 2 and 8 runs, NaN where nothing may be
+               read, the plain version's own spread (host against card, 2
+               rows against 8) and four planted faults, built from edited
+               copies of the source, each of which the gate must reject;
 3. fixtures  — the trained fixtures through ``Dia.from_pretrained(...,
                device="cuda")`` in fp32: greedy tokens equal ``golden.npz``,
                waveform length and head as recorded; then packed int8 and
@@ -32,7 +39,11 @@ script exits non-zero:
                ``shrink_heads`` / ``shrink_ffn`` (``trained_small``): greedy
                tokens on the card equal the CPU's; two batched streams with
                voice prompts of different lengths equal their
-               single-stream runs; then a few
+               single-stream runs; ``quantize_int8(fused=True)`` (int8 and
+               int4 MLP): teacher-forced fused steps card vs CPU, greedy
+               tokens equal up to a near tie, and a greedy run on the card
+               driven by the CPU's logits, the card's logits held to them
+               at every step; then a few
                full, LoRA and QAT-int8 optimizer steps on ``trained_small``,
                the loss after each step on the card against the CPU run;
 4. full_width — Dia-1.6B shapes in bf16 and the 44.1 kHz DAC with weights
@@ -48,9 +59,11 @@ script exits non-zero:
                ``batched``: four greedy streams on it against their
                single-stream runs; (f) ``prune_cli``: ``offline_prune
                --prune-mode block`` at 2 + 2 layers, ``from_pretrained``,
-               ``sparsify_block``, generate.  Every kernel of a path must
-               have launched, the GEMV and block-sparse kernels once per
-               contraction of every step;
+               ``sparsify_block``, generate; (g) ``fused_int8``,
+               ``fused_int4``, ``fused_batched`` (four streams): one fused
+               launch and no decode-attention launch per step.  Every kernel
+               of a path must have launched, the GEMV and block-sparse
+               kernels once per contraction of every step;
 5. training  — teacher-forced fine-tuning at the same full width (bf16
                compute, ``audio_length`` 3072, batch 2, every layer
                rematerialized): three LoRA steps, two full fine-tune steps
@@ -71,6 +84,7 @@ CUDA is unavailable or the package is not beside this file.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -179,13 +193,32 @@ def check(torch, what, dtype, out, plain, args) -> dict:
     return rec
 
 
-def phase_build():
+def phase_build() -> dict:
+    """Every kernel, and the planted-fault copies of the fused step (``FUSED_FAULTS``),
+    one nvcc each, all at once; returns {fault: library path}."""
     from dia_tts_prune_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
+    faults_dir = _build.BUILD_DIR / "faults"
+    faults_dir.mkdir(parents=True, exist_ok=True)
+    source = (_build.CSRC_DIR / "fused_step.cu").read_text()
+    running = {}
+    for name, (old, new) in FUSED_FAULTS.items():
+        if source.count(old) != 1:
+            raise RuntimeError(f"fault {name}: its line is not in fused_step.cu once")
+        src, lib = faults_dir / f"{name}.cu", faults_dir / f"lib{name}.so"
+        src.write_text(source.replace(old, new))
+        running[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                                           str(src)], stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT), lib)
     libs = _build.build_all()
+    for name, (proc, lib) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"fault {name}: nvcc failed\n{log.decode(errors='replace')}")
     emit({"phase": "build", "ok": True, "seconds": round(time.perf_counter() - t0, 3),
-          "nvcc": _build.nvcc_path(), "libs": libs})
+          "nvcc": _build.nvcc_path(), "libs": libs, "planted_faults": sorted(running)})
+    return {name: lib for name, (_, lib) in running.items()}
 
 
 def flash_case(torch, name, dtype, B, T, Nq, Nkv, H, causal, real_len):
@@ -640,7 +673,309 @@ def phase_sparse_kernels(torch) -> dict:
     return picked
 
 
-def phase_kernels(torch) -> dict:
+# Fused decode step, kernel against plain version: |out - ref| <= FUSED_TOL *
+# (max |ref| + |ref|), the JAX package's kernel gate (rtol = atol = 2e-2) with
+# atol taken relative to the output's size (the JAX test's outputs are O(1)).
+# Both round xn, sa, ca and h (and the RoPE partner) to bf16 before their
+# dots, so fp32 sums taken in another order put some values on the other side
+# of a bf16 step, and 18 layers carry those flips on: the plain version run on
+# the host, or on fewer rows, is as far from itself (``fused_spread_case``).
+# ``fused_fault_cases`` plants faults in the kernel that the gate must reject.
+FUSED_TOL = 2e-2
+# One-line edits of csrc/fused_step.cu, each built beside the real kernel: the
+# last K slice of every GEMV left out of its sum; o_proj reading 64 of its
+# 2048 K rows fewer (half a head); the last 32-slot chunk of every attention
+# left out of the combine; the int4 MLP's low- and high-nibble scales swapped.
+FUSED_FAULTS = {
+    "k_slice_dropped": (
+        "for (int s = 0; s < nsl; ++s) v += __ldcg(part + s * stride + off);",
+        "for (int s = 0; s < nsl - 1; ++s) v += __ldcg(part + s * stride + off);"),
+    "o_proj_64_rows_short": (
+        "make_job(p, 1, l, NqH, D, 0, D)", "make_job(p, 1, l, NqH - 64, D, 0, D)"),
+    "attention_chunk_dropped": (
+        "for (int k = 0; k < nch; ++k) {\n        const float f",
+        "for (int k = 0; k < nch - 1; ++k) {\n        const float f"),
+    "int4_scales_swapped": (
+        "j.s[(size_t)(tile * 2) * j.n + col + c] +\n                v2 * j.s[(size_t)(tile * 2 + 1)",
+        "j.s[(size_t)(tile * 2 + 1) * j.n + col + c] +\n                v2 * j.s[(size_t)(tile * 2)"),
+}
+# Fused fixtures, card against CPU: teacher-forced logits within 2e-2 (the JAX
+# package's kernel gate) as a share of the
+# largest |logit| (the flips above, through 4 or 18 layers and int8 K/V codes),
+# and greedy tokens equal, or equal up to the first step whose two picks are a
+# near tie: a guided-logit margin below FUSED_NEAR_TIE on the card's logits.
+FUSED_LOGIT_TOL = 2e-2
+FUSED_NEAR_TIE = 0.1
+FUSED_DIMS = dict(L=18, D=2048, F=8192, Nq=16, Nkv=4, Ncq=16, H=128)  # dia_1_6b_config()
+
+
+def fused_pack(torch, int4, dims=FUSED_DIMS, device="cuda", seed=11):
+    """A fused-step pack at the given widths, repacked on the device
+    (``repack_decoder_fused``) from decoder weights drawn as ``init_params``
+    draws them (normal / sqrt(fan_in), unit norm gains), from a torch seed."""
+    from dia_tts_prune_tpu_torch.ops.kernels.fused_step import repack_decoder_fused
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    L, D, F, Nq, Nkv, Ncq, H = (dims[k] for k in ("L", "D", "F", "Nq", "Nkv", "Ncq", "H"))
+
+    def dense(*shape, fan_in):
+        return {"kernel": torch.randn(L, *shape, generator=g, device=device) / fan_in ** 0.5}
+
+    ones = {"scale": torch.ones(L, D, device=device)}
+    params = {"decoder": {"layers": {
+        "pre_sa_norm": ones, "pre_ca_norm": ones, "pre_mlp_norm": ones,
+        "self_attention": {"q_proj": dense(D, Nq, H, fan_in=D), "k_proj": dense(D, Nkv, H, fan_in=D),
+                           "v_proj": dense(D, Nkv, H, fan_in=D),
+                           "o_proj": dense(Nq, H, D, fan_in=Nq * H)},
+        "cross_attention": {"q_proj": dense(D, Ncq, H, fan_in=D),
+                            "o_proj": dense(Ncq, H, D, fan_in=Ncq * H)},
+        "mlp": {"wi_fused": dense(D, 2, F, fan_in=D), "wo": dense(F, D, fan_in=F)}}}}
+    return repack_decoder_fused(params, mlp_int4=int4)
+
+
+def fused_inputs(torch, B, kind, dims=FUSED_DIMS, T=1024, S=128, write_slot=512, device="cuda",
+                 seed=12):
+    """One decode step's inputs: caches of ``kind`` (bfloat16 / int8), CFG row
+    pairs (uncond rows first, ``cross_ends == 0``), per-row positions and
+    first valid slots when B > 2 (left-padded voice prompts)."""
+    from dia_tts_prune_tpu_torch.models.dia import quantize_kv
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    L, D, Nkv, Ncq, H = (dims[k] for k in ("L", "D", "Nkv", "Ncq", "H"))
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    caches = [r(L, B, T, Nkv, H), r(L, B, T, Nkv, H), r(L, B, S, Ncq, H), r(L, B, S, Ncq, H)]
+    scales = [None] * 4
+    if kind == "int8":
+        q = [quantize_kv(c) for c in caches]
+        caches, scales = [c for c, _ in q], [s for _, s in q]
+    else:
+        caches = [c.to(getattr(torch, kind)) for c in caches]
+    n = B // 2
+    off = [0 if B == 2 else (7 * i) % 40 for i in range(n)] * 2
+    ends = [0] * n + [S - 67 + (13 * i) % 67 for i in range(n)]
+    i32 = dict(dtype=torch.int32, device=device)
+    return dict(x_emb=0.02 * r(B, D), position=torch.tensor([write_slot + 1 - o for o in off], **i32),
+                write_slot=write_slot, self_k=caches[0], self_v=caches[1], cross_k=caches[2],
+                cross_v=caches[3], cross_ends=torch.tensor(ends, **i32),
+                valid_from=torch.tensor(off, **i32), self_ks=scales[0], self_vs=scales[1],
+                cross_ks=scales[2], cross_vs=scales[3])
+
+
+def fused_bytes(pack, inp) -> int:
+    """Bytes one step must move: the pack's weights and scales, the cache
+    slots and text keys each row reads (K and V, with their scales), x in,
+    x and this token's K/V out."""
+    L, B, T, Nkv, H = inp["self_k"].shape
+    Ncq = inp["cross_k"].shape[3]
+    per = inp["self_k"].element_size() + (4 / H if inp["self_ks"] is not None else 0)
+    slots = sum(max(0, inp["write_slot"] - int(v)) for v in inp["valid_from"])
+    keys = int(inp["cross_ends"].sum())
+    return int(pack.weight_bytes() + 2 * L * H * per * (slots * Nkv + keys * Ncq)
+               + inp["x_emb"].numel() * 4 * 2 + 2 * L * B * Nkv * H * 4)
+
+
+def fused_gate(out, ref) -> dict:
+    """The FUSED_TOL comparison of (x, k, v) against the plain version's:
+    each output's max |error| and max |ref|, and ``err_over_tol``, the
+    largest |out - ref| / (FUSED_TOL * (max|ref| + |ref|)): the gate passes
+    at <= 1."""
+    errs, tops, ratio = [], [], 0.0
+    for o, r in zip(out, ref):
+        o, r = o.float().cpu(), r.float().cpu()
+        top = float(r.abs().max())
+        errs.append(float((o - r).abs().max()))
+        tops.append(top)
+        ratio = max(ratio, float(((o - r).abs() / (FUSED_TOL * (top + r.abs()))).max())
+                    if bool(o.isfinite().all()) else float("inf"))
+    return {"max_abs_err_x_k_v": errs, "max_abs_x_k_v": tops, "err_over_tol": ratio}
+
+
+def fused_case(torch, int4, kind, B, pack=None, time_it=True) -> dict:
+    """The fused step at Dia-1.6B widths against its plain version (FUSED_TOL
+    of each output's largest |value|), repeated bit for bit; timed with CUDA
+    events around back-to-back launches (a launch is a few ms of device work,
+    so the host's enqueue hides behind it)."""
+    from dia_tts_prune_tpu_torch.ops.kernels import fused_decode_step, fused_decode_step_plain
+
+    pack = pack if pack is not None else fused_pack(torch, int4)
+    inp = fused_inputs(torch, B, kind)
+    out = fused_decode_step(pack, **inp)
+    again = fused_decode_step(pack, **inp)
+    ref = fused_decode_step_plain(pack, **inp)
+    torch.cuda.synchronize()
+    gate = fused_gate(out, ref)
+    rec = {"phase": "kernels", "kernel": "fused_decode_step", "dtype": kind,
+           "case": f"{'int4-MLP' if int4 else 'int8'} pack, {kind} caches",
+           "shape": {"B": B, **FUSED_DIMS, "T": inp["self_k"].shape[2],
+                     "S": inp["cross_k"].shape[2], "write_slot": inp["write_slot"]},
+           "max_abs_err": max(gate["max_abs_err_x_k_v"]), **gate,
+           "tol": f"{FUSED_TOL} * (max|ref| + |ref|)",
+           "repeat_bit_identical": all(torch.equal(a, b) for a, b in zip(out, again))}
+    if not rec["repeat_bit_identical"] or not gate["err_over_tol"] <= 1:
+        raise RuntimeError(f"fused_decode_step: kernel disagrees with its plain version: {rec}")
+    if time_it:
+        nbytes = fused_bytes(pack, inp)
+        flops = 2 * B * sum(t.numel() * (2 if int4 and i >= 4 else 1)
+                            for i, t in enumerate(pack[:14:2]))  # int4: 2 weights a byte
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        rec.update({"ms": cuda_ms(torch, lambda: fused_decode_step(pack, **inp), iters=20),
+                    "timing": "CUDA events around 20 back-to-back launches",
+                    "plain_ms": cuda_ms(torch, lambda: fused_decode_step_plain(pack, **inp),
+                                        iters=3, warmup=1),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "library_ms": None,
+                    "library": "none: no single PyTorch call computes a decoder step"})
+    emit(rec)
+    return rec
+
+
+def fused_rows(torch, inp, rows) -> dict:
+    """The step inputs of the listed rows only."""
+    idx = torch.tensor(rows, device=inp["self_k"].device)
+    per_row = ("x_emb", "position", "cross_ends", "valid_from")
+    return {k: (v.index_select(0, idx).contiguous() if k in per_row else
+                v.index_select(1, idx).contiguous() if isinstance(v, torch.Tensor) else v)
+            for k, v in inp.items()}
+
+
+def fused_rows_and_poison_case(torch, pack, kind) -> None:
+    """Rows of a 20-row step (ten streams: two groups of the kernel's 16
+    staged rows) equal the same rows run 2 and 8 at a time, bit for bit; NaN
+    in every self slot outside [valid_from, write_slot), in the text keys
+    past each row's end and in the unconditional rows' whole cross cache
+    leaves every output bit-identical (int8 caches: NaN in their scales)."""
+    from dia_tts_prune_tpu_torch.ops.kernels import fused_decode_step
+
+    B = 20
+    inp = fused_inputs(torch, B, kind, device=pack.wo.device)
+    dev = inp["self_k"].device
+    full = fused_decode_step(pack, **inp)
+    same = True
+    for rows in ([0, 10], [9, 19], [5, 16], [0, 1, 2, 3, 10, 11, 12, 13], [4, 6, 8, 9, 14, 16, 17, 19]):
+        idx = torch.tensor(rows, device=dev)
+        part = fused_decode_step(pack, **fused_rows(torch, inp, rows))
+        same &= torch.equal(part[0], full[0][idx]) and all(
+            torch.equal(p, f[:, idx]) for p, f in zip(part[1:], full[1:]))
+    poisoned = dict(inp)
+    T, S = inp["self_k"].shape[2], inp["cross_k"].shape[2]
+    slot, key = torch.arange(T, device=dev), torch.arange(S, device=dev)
+    names = ("self_ks", "self_vs", "cross_ks", "cross_vs") if kind == "int8" else (
+        "self_k", "self_v", "cross_k", "cross_v")
+    for n in names:
+        t = poisoned[n].clone()
+        for b in range(B):
+            if n.startswith("self"):
+                bad = (slot < int(inp["valid_from"][b])) | (slot >= inp["write_slot"])
+            else:
+                bad = key >= int(inp["cross_ends"][b])
+            t[:, b, bad] = float("nan")
+        poisoned[n] = t
+    harmless = all(torch.equal(a, b) for a, b in zip(fused_decode_step(pack, **poisoned), full))
+    rec = {"phase": "kernels", "kernel": "fused_decode_step", "dtype": kind,
+           "case": "rows of B = 20 equal B = 2 and B = 8 runs; NaN where nothing may be read",
+           "rows_bit_identical_across_B": bool(same), "nan_poison_harmless": bool(harmless)}
+    emit(rec)
+    if not (same and harmless):
+        raise RuntimeError(f"fused_decode_step: a row depends on the others or reads poison: {rec}")
+
+
+def fused_spread_case(torch, pack, int4) -> dict:
+    """How far the plain version is from itself at B = 8 (bf16 caches): the
+    same function and rounding points run on the host (other fp32 summation
+    orders) and on the rows two at a time, beside the kernel's distance from
+    it, each as ``err_over_tol`` and per row as a share of max |x|."""
+    from dia_tts_prune_tpu_torch.ops.kernels import fused_decode_step, fused_decode_step_plain
+
+    inp = fused_inputs(torch, 8, "bfloat16")
+    out, ref = fused_decode_step(pack, **inp), fused_decode_step_plain(pack, **inp)
+    host = fused_decode_step_plain(pack.to("cpu"), **{
+        k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in inp.items()})
+    pairs = [fused_decode_step_plain(pack, **fused_rows(torch, inp, [i, i + 4])) for i in range(4)]
+    order = [0, 4, 1, 5, 2, 6, 3, 7]
+    paired = [torch.cat([p[0] for p in pairs])[torch.tensor(order).argsort()]]
+    paired += [torch.cat([p[j] for p in pairs], dim=1)[:, torch.tensor(order).argsort()]
+               for j in (1, 2)]
+    top = float(ref[0].abs().max())
+    rec = {"phase": "kernels", "kernel": "fused_decode_step", "dtype": "bfloat16",
+           "case": f"{'int4-MLP' if int4 else 'int8'} pack, B = 8: the plain version's own spread",
+           "kernel_vs_plain": fused_gate(out, ref)["err_over_tol"],
+           "plain_host_vs_card": fused_gate(host, ref)["err_over_tol"],
+           "plain_2_rows_vs_8_rows": fused_gate(paired, ref)["err_over_tol"],
+           "per_row_share_of_max_x": {
+               "kernel_vs_plain": [float((out[0][b] - ref[0][b]).abs().max()) / top for b in range(8)],
+               "plain_host_vs_card": [float((host[0][b] - ref[0][b].cpu()).abs().max()) / top
+                                      for b in range(8)]},
+           "valid_from": inp["valid_from"].tolist(), "cross_ends": inp["cross_ends"].tolist()}
+    emit(rec)
+    return rec
+
+
+def fused_fault_cases(torch, pack, int4, faults: dict) -> list:
+    """Each planted fault (``FUSED_FAULTS``) run through the wrapper at B = 2
+    (int8 pack, or the int4 pack for the swapped scales), bf16 caches,
+    against the plain version: the gate must reject it.  Returns each
+    fault's ``err_over_tol``."""
+    from dia_tts_prune_tpu_torch.ops.kernels import _build, fused_decode_step, fused_decode_step_plain
+    from dia_tts_prune_tpu_torch.ops.kernels.fused_step import _ARGTYPES
+
+    inp = fused_inputs(torch, 2, "bfloat16")
+    ref = fused_decode_step_plain(pack, **inp)
+    real = {k: _build._functions.get(k) for k in (("fused_step", "fused_step_fwd"),
+                                                   ("fused_step", "fused_step_workspace_bytes"))}
+    ratios = []
+    for name, lib in faults.items():
+        if (name == "int4_scales_swapped") != int4:
+            continue
+        cdll = ctypes.CDLL(str(lib))
+        fwd, size = cdll.fused_step_fwd, cdll.fused_step_workspace_bytes
+        fwd.argtypes, size.argtypes = _ARGTYPES, [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fwd.restype = size.restype = ctypes.c_int
+        _build._functions[("fused_step", "fused_step_fwd")] = fwd
+        _build._functions[("fused_step", "fused_step_workspace_bytes")] = size
+        try:
+            gate = fused_gate(fused_decode_step(pack, **inp), ref)
+        finally:
+            for k, fn in real.items():
+                _build._functions[k] = fn
+        rec = {"phase": "kernels", "kernel": "fused_decode_step", "dtype": "bfloat16",
+               "case": f"planted fault {name}", "rejected": gate["err_over_tol"] > 1, **gate}
+        emit(rec)
+        if not rec["rejected"]:
+            raise RuntimeError(f"fused_decode_step: the gate lets a planted fault pass: {rec}")
+        ratios.append(gate["err_over_tol"])
+    return ratios
+
+
+def phase_fused_kernels(torch, faults: dict) -> dict:
+    """The fused step with int8 and int4-MLP packs, bf16 and int8 caches, at
+    B = 2 and B = 8 (and 20 rows for the int8 pack and caches), rows across
+    B, NaN poison, the plain version's own spread and the planted faults;
+    returns the int8-pack, int8-cache, B = 2 record (the main path's) for the
+    kernels line."""
+    sound, spread, caught = [], [], []
+    for int4 in (False, True):
+        pack = fused_pack(torch, int4)
+        for kind in ("bfloat16", "int8"):
+            for B in (2, 8) if int4 or kind == "bfloat16" else (2, 8, 20):
+                rec = fused_case(torch, int4, kind, B, pack)
+                sound.append(rec["err_over_tol"])
+                if not int4 and kind == "int8" and B == 2:
+                    picked = rec
+            fused_rows_and_poison_case(torch, pack, kind)
+        sp = fused_spread_case(torch, pack, int4)
+        spread += [sp["plain_host_vs_card"], sp["plain_2_rows_vs_8_rows"]]
+        caught += fused_fault_cases(torch, pack, int4, faults)
+        del pack
+    emit({"phase": "kernels", "kernel": "fused_decode_step",
+          "case": "the gate's margins, as err_over_tol (the gate passes at <= 1)",
+          "sound_runs_max": max(sound), "plain_own_spread_max": max(spread),
+          "planted_faults_min": min(caught), "planted_faults": len(caught)})
+    return picked
+
+
+def phase_kernels(torch, faults: dict) -> dict:
     """Every kernel at the main paths' shapes; returns the bf16 record of
     each kernel's heaviest use for the final ``kernels`` line."""
     picked = {}
@@ -682,6 +1017,7 @@ def phase_kernels(torch) -> dict:
         picked = {"flash_attention": enc, "decode_attention": rec, "decode_attention_int8": rec8,
                   "int8_matmul": mlp8, "int4_gemv": mlp4, **train}
     picked["block_sparse_matmul"] = phase_sparse_kernels(torch)
+    picked["fused_decode_step"] = phase_fused_kernels(torch, faults)
     return picked
 
 
@@ -709,6 +1045,7 @@ def phase_fixtures(torch, repo: Path) -> None:
             raise RuntimeError(f"fixture {name} disagrees with golden.npz: {rec}")
         for mode in ("int8", "int4"):
             packed_fixture(torch, d, name, mode, golden["tokens"], meta)
+        fused_fixture(torch, d, name, meta, golden["tokens"])
         pruned_fixture(torch, d, name, meta)
     batched_fixture(torch, repo / "tests" / "fixtures" / "trained_small")
 
@@ -857,6 +1194,177 @@ def packed_fixture(torch, d, name, mode, tokens, meta, steps=96) -> None:
     emit(rec)
 
 
+def greedy_until_near_tie(torch, dias, text, **kw) -> tuple:
+    """Greedy generation on each of ``dias`` (card first), keeping the loop's
+    raw token rows and the guided logits of every step.  Equal rows, or rows
+    equal up to the first step where the runs' picks part, with the card's
+    margin between the two picks under FUSED_NEAR_TIE there: the runs had the
+    same tokens so far, so only summation-order noise can part them, and
+    only at a near tie.  Returns (record, the second run's codes)."""
+    import numpy as np
+
+    import dia_tts_prune_tpu_torch.generate as gen
+    from dia_tts_prune_tpu_torch.ops.sampling import apply_constraints, cfg_combine
+
+    real_step, real_loop = gen.step_function, gen.decode_loop
+    runs = []
+    for dia in dias:
+        logs, bufs = [], []
+        d = dia.config.data
+
+        def step(params, config, *args, **kwargs):
+            logits = real_step(params)(params, config, *args, **kwargs)
+            logs.append(apply_constraints(cfg_combine(logits[:, -1].float().cpu(), 3.0),
+                                          d.audio_eos_value, d.audio_pad_value, d.audio_bos_value))
+            return logits
+
+        def loop(params, config, tokens_buf, *args):
+            out = real_loop(params, config, tokens_buf, *args)
+            bufs.append((tokens_buf.copy(), args[3]))  # rows, first loop row (prefill_step)
+            return out
+
+        gen.step_function, gen.decode_loop = (lambda params: step), loop
+        try:
+            codes = dia.generate_codes(text, temperature=0.0, **kw)
+        finally:
+            gen.step_function, gen.decode_loop = real_step, real_loop
+        runs.append((codes, bufs[0][0], bufs[0][1], logs))
+    (card, rows_c, first, logs_c), (host, rows_h, _, _) = runs
+    differ = np.argwhere(rows_c != rows_h)
+    rec = {"frames": int(card.shape[0]), "tokens_equal": bool(np.array_equal(card, host)),
+           "steps": len(logs_c)}
+    if len(differ):
+        row = int(differ[0, 0])
+        g = logs_c[row - first]
+        margins = [float(g[c, int(rows_c[row, c])] - g[c, int(rows_h[row, c])])
+                   for c in np.flatnonzero(rows_c[row] != rows_h[row])]
+        rec.update({"first_differing_step": row - first, "margins": margins,
+                    "near_tie": FUSED_NEAR_TIE})
+        if row - first >= len(logs_c) or max(margins) >= FUSED_NEAR_TIE:
+            raise RuntimeError(f"greedy runs part at more than a near tie: {rec}")
+    return rec, host
+
+
+def cpu_driven_greedy(torch, gpu, cpu, text, cpu_codes, **kw) -> dict:
+    """The card's greedy run with the CPU model's beside it: conditioning,
+    self cache, prefill and every decode step also run on the CPU, on its own
+    caches and the same tokens, and the loop goes on with the CPU's logits.
+    At every step of the whole run the card's logits lie within
+    FUSED_LOGIT_TOL of the largest |CPU logit|, and the codes are the CPU's
+    own greedy codes."""
+    import numpy as np
+
+    import dia_tts_prune_tpu_torch.generate as gen
+
+    names = ("conditioning", "new_self_cache", "run_prefill", "quantize_cache", "step_function")
+    real = {n: getattr(gen, n) for n in names}
+    host, shares = {}, []
+
+    def conditioning(params, config, enc_input, dtype, window):
+        host["cross"], host["pad"], host["ends"] = real["conditioning"](
+            cpu.params, config, enc_input.cpu(), dtype, window)
+        return real["conditioning"](params, config, enc_input, dtype, window)
+
+    def new_self_cache(config, batch, max_len, dtype, device, quant):
+        host["self"] = real["new_self_cache"](config, batch, max_len, dtype, "cpu", quant=quant)
+        return real["new_self_cache"](config, batch, max_len, dtype, device, quant=quant)
+
+    def run_prefill(params, config, buf, window, offsets, steps, cross, pad, cache, dtype):
+        real["run_prefill"](cpu.params, config, buf, window, offsets, steps, host["cross"],
+                            host["pad"], host["self"], dtype)
+        return real["run_prefill"](params, config, buf, window, offsets, steps, cross, pad, cache,
+                                   dtype)
+
+    def quantize_cache(cache):
+        host["cross"] = real["quantize_cache"](host["cross"])
+        return real["quantize_cache"](cache)
+
+    def step(params, config, tgt, position, ws, self_cache, cross_cache, ends, dtype,
+             valid_from=None):
+        mine = real["step_function"](params)(params, config, tgt, position, ws, self_cache,
+                                             cross_cache, ends, dtype, valid_from=valid_from)
+        ref = real["step_function"](cpu.params)(
+            cpu.params, config, tgt.cpu(), position.cpu(), ws, host["self"], host["cross"],
+            host["ends"], dtype, valid_from=None if valid_from is None else valid_from.cpu())
+        shares.append(float((mine.cpu() - ref).abs().max()) / float(ref.abs().max()))
+        return ref.to(mine.device)
+
+    for n, fn in (("conditioning", conditioning), ("new_self_cache", new_self_cache),
+                  ("run_prefill", run_prefill), ("quantize_cache", quantize_cache),
+                  ("step_function", lambda params: step)):
+        setattr(gen, n, fn)
+    try:
+        codes = gpu.generate_codes(text, temperature=0.0, **kw)
+    finally:
+        for n in names:
+            setattr(gen, n, real[n])
+    rec = {"steps": len(shares), "max_logit_diff_share_of_max": max(shares),
+           "tol": FUSED_LOGIT_TOL, "codes_equal_cpu_greedy": bool(np.array_equal(codes, cpu_codes))}
+    if not (rec["max_logit_diff_share_of_max"] <= FUSED_LOGIT_TOL and rec["codes_equal_cpu_greedy"]):
+        raise RuntimeError(f"CPU-driven card run: logits or codes disagree: {rec}")
+    return rec
+
+
+def fused_fixture(torch, d, name, meta, tokens, steps=64) -> None:
+    """``quantize_int8(fused=True)`` and ``fused_mlp_int4=True`` on the CPU;
+    the same bytes on the card: teacher-forced decode steps (the fused kernel
+    against the plain version, each on its own caches, int8 and float) within
+    FUSED_LOGIT_TOL of the largest |logit|, one kernel launch a step and no
+    decode-attention launch, then greedy tokens card = CPU up to a near tie,
+    and the card's logits at every step of a CPU-driven greedy run."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia
+    from dia_tts_prune_tpu_torch.generate import CFG_BATCH, conditioning
+    from dia_tts_prune_tpu_torch.models import dia as model
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts
+    from dia_tts_prune_tpu_torch.tokenizer import encode_cfg_batch
+
+    for int4 in (False, True):
+        cpu = Dia.from_pretrained(d, compute_dtype="float32", device="cpu")
+        cpu.quantize_int8(fused=True, fused_mlp_int4=int4)
+        gpu = Dia(cpu.config, params_to(cpu.params, "cuda"), "float32", device="cuda")
+        cfg, dd = cpu.config, cpu.config.data
+        enc = encode_cfg_batch(meta["prompt"], dd.text_length, dd.text_pad_value)
+        frames = np.ascontiguousarray(tokens[:steps]).astype(np.int64)
+        rec = {"phase": "fixtures", "fixture": name, "packed": "fused int4-MLP" if int4
+               else "fused int8", "teacher_forced_steps": steps - 1,
+               "tol_share_of_max_logit": FUSED_LOGIT_TOL}
+
+        def run(dia, kv_int8):
+            dev = dia.device
+            with torch.no_grad():
+                cross, _, ends = conditioning(dia.params, cfg, torch.from_numpy(enc).to(dev),
+                                              torch.float32, None)
+                tgt = torch.from_numpy(frames).to(dev)[None].expand(CFG_BATCH, -1, -1)
+                pos = torch.arange(steps, device=dev)[None].expand(CFG_BATCH, -1)
+                cache = model.new_self_cache(cfg, CFG_BATCH, 128, torch.float32, dev,
+                                             quant=kv_int8)
+                if kv_int8:
+                    cross = model.quantize_cache(cross)
+                out = [model.decode_step_fused(dia.params, cfg, tgt[:, t - 1:t], pos[:, t:t + 1],
+                                               t - 1, cache, cross, ends)
+                       for t in range(1, steps)]
+            return torch.cat(out, dim=1).cpu()
+
+        for kv_int8 in (False, True):
+            n0 = launch_counts()
+            dec_g = run(gpu, kv_int8)
+            launched = {k: v - n0[k] for k, v in launch_counts().items() if v != n0[k]}
+            dec_c = run(cpu, kv_int8)
+            key = "kv_int8" if kv_int8 else "kv_float"
+            top = float(dec_c.abs().max())
+            rec[key] = {"decode_max_abs_diff": float((dec_g - dec_c).abs().max()),
+                        "max_abs_logit": top, "launches_on_card": launched}
+            if not rec[key]["decode_max_abs_diff"] <= FUSED_LOGIT_TOL * top or launched.get(
+                    "fused_decode_step") != steps - 1 or launched.get("decode_attention", 0):
+                raise RuntimeError(f"fused fixture {name}: card and CPU disagree: {rec}")
+        kw = dict(max_tokens=128, seed=meta["seed"])
+        rec["greedy"], cpu_codes = greedy_until_near_tie(torch, [gpu, cpu], meta["prompt"], **kw)
+        rec["cpu_driven"] = cpu_driven_greedy(torch, gpu, cpu, meta["prompt"], cpu_codes, **kw)
+        emit(rec)
+
+
 _SEED_WEIGHTS = {}
 
 
@@ -914,13 +1422,17 @@ def phase_full_width(torch) -> dict:
 
     def timed(fn):
         """(result, seconds, decode steps run): every step launches the decode
-        kernel twice per decoder layer."""
+        kernel twice per decoder layer, or the fused step kernel once."""
+        def steps_so_far():
+            n = launch_counts()
+            return (n["decode_attention"] // (2 * cfg.model.decoder.n_layer)
+                    + n["fused_decode_step"])
+
         torch.cuda.synchronize()
-        n0, t = launch_counts()["decode_attention"], time.perf_counter()
+        n0, t = steps_so_far(), time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        steps = (launch_counts()["decode_attention"] - n0) // (2 * cfg.model.decoder.n_layer)
-        return out, time.perf_counter() - t, steps
+        return out, time.perf_counter() - t, steps_so_far() - n0
 
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -968,19 +1480,67 @@ def phase_full_width(torch) -> dict:
     del dia
     quantized_path("int4", new_model(), lambda d: d.quantize_int4(), "int4_gemv")
     paths.update(pruned_paths(torch, new_model(), text, timed, describe))
+    paths.update(fused_paths(torch, new_model, text, timed, describe))
 
     rec = {"phase": "full_width", "config": "dia_1_6b_config() bf16, DACConfig(), seed weights",
            "init_s": init_s, "paths": paths}
     emit(rec)
     kernel_of = {"int8": "int8_matmul", "int4": "int4_gemv", "pruned": "block_sparse_matmul",
-                 "batched": "block_sparse_matmul", "prune_cli": "block_sparse_matmul"}
+                 "batched": "block_sparse_matmul", "prune_cli": "block_sparse_matmul",
+                 "fused_int8": "fused_decode_step", "fused_int4": "fused_decode_step",
+                 "fused_batched": "fused_decode_step"}
     for name, path in paths.items():
-        ran = ("flash_attention", "decode_attention", *([kernel_of[name]] if name in kernel_of
-                                                        else []))
+        attention = () if name.startswith("fused") else ("decode_attention",)
+        ran = ("flash_attention", *attention, *([kernel_of[name]] if name in kernel_of else []))
         missing = [k for k in ran if path["launches"][k] <= 0]
         if missing:
             raise RuntimeError(f"the {name} path never launched {missing}: {path['launches']}")
     return rec
+
+
+def fused_paths(torch, new_model, text, timed, describe) -> dict:
+    """The fused decode step at full width, each path on a fresh model:
+    ``fused_int8`` (``quantize_int8(fused=True)``, int8 caches),
+    ``fused_int4`` (``fused_mlp_int4=True``), ``fused_batched`` (the int8
+    pack, four greedy streams in one batched run).  Each is a greedy
+    512-token run whose every decode step launches the fused kernel once and
+    the decode-attention kernel never (counts zeroed just before the run)."""
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    out = {}
+    for name, int4, streams in (("fused_int8", False, 1), ("fused_int4", True, 1),
+                                ("fused_batched", False, 4)):
+        dia = new_model()
+        t = time.perf_counter()
+        dia.quantize_int8(fused=True, fused_mlp_int4=int4)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t
+        pack = dia.params["decoder"]["fused_pack"]
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        if streams == 1:
+            codes, gen_s, steps = timed(
+                lambda: dia.generate_codes(text, max_tokens=512, temperature=0.0, seed=0))
+            wav, dec_s, _ = timed(lambda: dia._decode_waveform(codes))
+            runs = describe([("greedy", codes.shape[0], steps, gen_s, dec_s, wav)])
+        else:
+            texts = [text, "[S2] A second voice. [S1] Yes.", "[S1] Third.", "[S2] And a fourth."]
+            batch, gen_s, steps = timed(lambda: dia.generator.generate_tokens_batch(
+                texts, max_tokens=512, temperature=0.0))
+            runs = describe([(f"greedy {streams} streams", sum(b.shape[0] for b in batch), steps,
+                              gen_s, None, None)])
+            runs[0]["tokens_per_s"] = streams * steps / gen_s
+        counts = launch_counts()
+        out[name] = {"runs": runs, "launches": counts, "quantize_s": quantize_s,
+                     "pack_weight_bytes": pack.weight_bytes(),
+                     "port_kernel_launches_per_step": sum(counts.values()) / max(steps, 1),
+                     "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+                     "memory_allocated_bytes": int(torch.cuda.memory_allocated())}
+        if steps <= 0 or counts["fused_decode_step"] != steps or counts["decode_attention"]:
+            raise RuntimeError(f"full-width {name}: expected one fused launch in each of {steps} "
+                               f"steps and no decode-attention launch: {counts}")
+        del dia, pack
+    return out
 
 
 def pruned_paths(torch, dia, text, timed, describe) -> dict:
@@ -1388,8 +1948,8 @@ def main() -> int:
     wanted = lambda name: not only or name in only  # noqa: E731
 
     t0 = time.perf_counter()
-    phase_build()
-    picked = phase_kernels(torch) if wanted("kernels") else None
+    faults = phase_build()
+    picked = phase_kernels(torch, faults) if wanted("kernels") else None
     if wanted("fixtures"):
         phase_fixtures(torch, repo)
         phase_train_fixture(torch, repo)
@@ -1406,7 +1966,8 @@ def main() -> int:
     csrc, jax_kernels = "dia_tts_prune_tpu_torch/csrc/", "dia_tts_prune_tpu/ops/kernels/"
     SOURCES = {"flash_attention_lse": "flash_attention",
                "flash_attention_bwd_kv": "flash_attention_bwd",
-               "flash_attention_bwd_q": "flash_attention_bwd"}
+               "flash_attention_bwd_q": "flash_attention_bwd",
+               "fused_decode_step": "fused_step"}
     # (kernel, its record of the kernels phase, the path whose launches it reports, replaces)
     lines = [("flash_attention", "flash_attention", "bf16", "flash_attention.py:157"),
              ("flash_attention_lse", "flash_attention_lse", "train_lora", "flash_attention.py:359"),
@@ -1418,7 +1979,8 @@ def main() -> int:
              ("decode_attention", "decode_attention_int8", "int8", "decode_attention.py:133"),
              ("int8_matmul", "int8_matmul", "int8", "int8_matmul.py:53"),
              ("int4_gemv", "int4_gemv", "int4", "int4_gemv.py:129"),
-             ("block_sparse_matmul", "block_sparse_matmul", "pruned", "sparse_matmul.py:121")]
+             ("block_sparse_matmul", "block_sparse_matmul", "pruned", "sparse_matmul.py:121"),
+             ("fused_decode_step", "fused_decode_step", "fused_int8", "fused_step.py:1018")]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"{csrc}{SOURCES.get(name, name)}.cu",
          "replaces": jax_kernels + replaces,

@@ -224,12 +224,21 @@ class Dia:
         self.params = params
         self.generator = DiaGenerator(params, self.config, self.compute_dtype, self.device)
 
-    def quantize_int8(self) -> None:
+    def quantize_int8(self, fused: bool = False, fused_mlp_int4: bool = False) -> None:
         """Swap the decoder's dense kernels to packed int8 (values +
         per-column scales) and free the float ones.  Decode steps then stream
         int8 weights through the int8-matmul kernel, and generation keeps its
-        KV caches int8 (``generate_tokens(kv_int8=...)``)."""
-        self._set_params(quantize_params_int8_packed(self.params))
+        KV caches int8 (``generate_tokens(kv_int8=...)``).
+
+        ``fused`` also builds the fused-step weight pack, and every decode
+        step then runs the whole decoder stack as one kernel launch
+        (``ops/kernels/fused_step.py``); ``fused_mlp_int4`` stores that
+        pack's MLP matrices nibble-int4.  They replace the JAX package's
+        ``DIA_FUSED=1`` and ``DIA_FUSED_INT4=1`` environment variables.  The
+        prompt prefill keeps using the packed tree, so a fused model holds
+        both (a pruned, block-sparse decoder gets no pack)."""
+        self._set_params(quantize_params_int8_packed(self.params, fused=fused,
+                                                     fused_mlp_int4=fused_mlp_int4))
 
     def quantize_int4(self, group: int | None = 128, mlp_only: bool = False,
                       halfsplit: bool = True) -> None:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .config import DiaConfig
+from .ops.kernels.fused_step import FusedPack
 from .ops.quant import Quantized4Kernel, QuantizedKernel
 from .ops.sparse import BlockSparseKernel
 
@@ -202,10 +203,24 @@ def params_from_jax(numpy_tree: Any, dtype=torch.float32,
                                 scale, src.in_shape, src.out_shape, src.group, src.nibble,
                                 src.halfsplit)
     if isinstance(numpy_tree, dict):
-        return {k: params_from_jax(v, dtype, device) for k, v in numpy_tree.items()}
+        return {k: _fused_pack_from_jax(v, device) if k == "fused_pack"
+                else params_from_jax(v, dtype, device) for k, v in numpy_tree.items()}
     if isinstance(numpy_tree, (list, tuple)):
         return [params_from_jax(v, dtype, device) for v in numpy_tree]
     # a float32 copy: bfloat16 arrives as an ml_dtypes type torch cannot
     # read, and arrays exported from JAX are read-only
     a = np.array(numpy_tree, dtype=np.float32)
     return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _fused_pack_from_jax(pack, device) -> FusedPack:
+    """A JAX ``FusedPack`` (fields in its order) as the port's: int8 weights
+    and fp32 scales; its RoPE swap matrices (``jq``, ``jk``) are dropped, as
+    the port's kernel does not read them."""
+    fields = list(pack)
+    if len(fields) != len(FusedPack._fields):
+        raise ValueError(f"fused_pack has {len(fields)} fields, expected "
+                         f"{len(FusedPack._fields)}")
+    return FusedPack(*(torch.from_numpy(np.array(a, dtype=np.int8 if name[0] == "w" else
+                                                 np.float32)).to(device)
+                       for name, a in zip(FusedPack._fields[:14], fields)))

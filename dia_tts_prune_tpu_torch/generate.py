@@ -21,7 +21,11 @@ With a packed decoder (``Dia.quantize_int8`` / ``quantize_int4``) the loop
 also keeps both caches int8 (``models.dia.QuantKVCache``), as the JAX package
 does on its accelerator: the self cache from the start, the cross cache once
 the prefill has used its float form.  ``generate_tokens(kv_int8=...)`` takes
-the place of the JAX package's ``DIA_KV_INT8`` environment variable.
+the place of the JAX package's ``DIA_KV_INT8`` environment variable.  A
+decoder that also carries a ``fused_pack`` (``Dia.quantize_int8(fused=True)``)
+runs every decode step, single-stream and batched, as one fused-step kernel
+launch (``models.dia.decode_step_fused``; the JAX package's ``DIA_FUSED=1``);
+the prompt prefill stays on the packed tree, as in the JAX package.
 
 Sampling draws Gumbel noise from a ``torch.Generator`` seeded per call, so a
 seeded run repeats itself; it cannot repeat the JAX package's ``jax.random``
@@ -44,6 +48,7 @@ import torch
 from .config import DiaConfig
 from .models.dia import (
     decode_step,
+    decode_step_fused,
     decoder_prefill,
     encoder_forward,
     new_self_cache,
@@ -75,6 +80,13 @@ def decoder_is_packed(params) -> bool:
     except (KeyError, TypeError):
         return False
     return isinstance(kernel, PACKED_TYPES)
+
+
+def step_function(params):
+    """The decode step for these params: the fused whole-decoder-step kernel
+    when the decoder carries a ``fused_pack`` (``Dia.quantize_int8(fused=
+    True)``), else ``decode_step``."""
+    return decode_step_fused if "fused_pack" in params["decoder"] else decode_step
 
 
 def _bucket(n: int, mult: int, cap: int) -> int:
@@ -150,6 +162,7 @@ def decode_loop(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, c
     delay = np.asarray(d.delay_pattern, np.int32)
     max_delay, eos, pad = d.max_delay, d.audio_eos_value, d.audio_pad_value
     T = tokens_buf.shape[0]
+    step = step_function(params)
 
     dec_step = prefill_step - 1
     prev_tok = tokens_buf[dec_step].copy()
@@ -160,8 +173,8 @@ def decode_loop(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, c
         t = dec_step + 1
         tgt = torch.from_numpy(prev_tok).to(dev)[None, None].expand(CFG_BATCH, 1, -1)
         position = torch.full((CFG_BATCH, 1), t, dtype=torch.int64, device=dev)
-        logits = decode_step(params, config, tgt, position, t - 1, self_cache, cross_cache,
-                             cross_ends, compute_dtype)  # [2, 1, C, V]
+        logits = step(params, config, tgt, position, t - 1, self_cache, cross_cache,
+                      cross_ends, compute_dtype)  # [2, 1, C, V]
         guided = apply_constraints(cfg_combine(logits[:, -1], cfg_scale), eos, pad,
                                    d.audio_bos_value)
         pred = sample_next_token(guided, temperature, top_p, cfg_filter_top_k,
@@ -218,6 +231,7 @@ def decode_loop_batch(params, config: DiaConfig, tokens_buf: np.ndarray, self_ca
     max_delay, eos, pad = d.max_delay, d.audio_eos_value, d.audio_pad_value
     off2 = np.concatenate([offsets, offsets]).astype(np.int64)
     valid_from = torch.from_numpy(off2.astype(np.int32)).to(dev)
+    step = step_function(params)
 
     prev_tok = tokens_buf[:, start - 1].copy()  # [N, C]
     bos_rows = tokens_buf[:, start:start + max_delay].copy()  # [N, max_delay, C]
@@ -230,8 +244,8 @@ def decode_loop_batch(params, config: DiaConfig, tokens_buf: np.ndarray, self_ca
         t += 1
         tgt = torch.from_numpy(np.concatenate([prev_tok, prev_tok])).to(dev)[:, None]
         position = torch.from_numpy(t - off2[:, None]).to(dev)
-        logits = decode_step(params, config, tgt, position, t - 1, self_cache, cross_cache,
-                             cross_ends, compute_dtype, valid_from=valid_from)  # [2N, 1, C, V]
+        logits = step(params, config, tgt, position, t - 1, self_cache, cross_cache,
+                      cross_ends, compute_dtype, valid_from=valid_from)  # [2N, 1, C, V]
         pred = prev_tok.copy()  # a stopped stream is neither sampled nor written
         live = np.flatnonzero(~stopped)
         picks = [sample_next_token(

@@ -29,6 +29,11 @@ the JAX package's ``decode_step_scan`` (:661-745), which the port needs no
 separate function for (it has no ``lax.scan``; ``decode_step`` is the one
 step for float and packed trees alike).
 
+A decoder packed with ``quantize_params_int8_packed(fused=True)`` carries a
+``fused_pack``, and ``decode_step_fused`` then runs each step's whole stack
+as one kernel (``ops/kernels/fused_step.py``); prefill stays on the packed
+tree.
+
 Training runs ``encoder_forward(remat=...)`` and ``decoder_forward``: the
 same layer bodies, no cache and no in-place write, each layer optionally
 rematerialized in the backward pass; every attention goes through the
@@ -454,3 +459,47 @@ def decode_step(
 
     x = rms_norm(x, params["decoder"]["norm"]["scale"], eps)
     return dense_general(x, params["decoder"]["logits_dense"]["kernel"]).float()
+
+
+def decode_step_fused(
+    params: Params,
+    config: DiaConfig,
+    tgt_Bx1xC: torch.Tensor,  # [B, 1, C]
+    position: torch.Tensor,  # [B, 1] RoPE position of this token
+    write_slot: int,  # cache slot to write (== #valid slots - 1)
+    self_cache: KVCache | QuantKVCache,
+    cross_cache: KVCache | QuantKVCache,
+    cross_ends: torch.Tensor,  # int32 [B]: text keys per row (0 = fully masked)
+    compute_dtype=torch.float32,
+    valid_from: torch.Tensor | None = None,  # int32 [B]: first valid self-cache slot
+) -> torch.Tensor:
+    """``decode_step`` through the fused whole-decoder-step kernel (the JAX
+    ``decode_step_fused``, :868): channel embeddings → the kernel over
+    ``params["decoder"]["fused_pack"]`` (``ops.quant.quantize_params_int8_packed(
+    fused=True)``) → this token's K/V committed into slot ``write_slot`` of
+    every layer, in place, quantized for an int8 cache (the kernel attends
+    them unquantized, as ``decode_step`` does) → the final norm and the
+    logits head.  Same arguments and results as ``decode_step``."""
+    from ..ops.kernels.fused_step import fused_decode_step
+
+    m = config.model
+    eps = m.normalization_layer_epsilon
+    dev = tgt_Bx1xC.device
+    quant = isinstance(self_cache, QuantKVCache)
+    if quant != isinstance(cross_cache, QuantKVCache):
+        raise ValueError("decode_step_fused: the self and cross caches must both be int8 "
+                         "or both float")
+    x = _embed_channels(params, tgt_Bx1xC, compute_dtype)[:, 0]  # [B, D]
+    vf = None if valid_from is None else valid_from.to(device=dev, dtype=torch.int32)
+    x_out, k_new, v_new = fused_decode_step(
+        params["decoder"]["fused_pack"], x, position[:, 0], write_slot, self_cache.k,
+        self_cache.v, cross_cache.k, cross_cache.v, cross_ends, eps, m.rope_min_timescale,
+        m.rope_max_timescale, vf, *self_cache[2:], *cross_cache[2:])
+    if quant:
+        self_cache.k[:, :, write_slot], self_cache.ks[:, :, write_slot] = quantize_kv(k_new)
+        self_cache.v[:, :, write_slot], self_cache.vs[:, :, write_slot] = quantize_kv(v_new)
+    else:
+        self_cache.k[:, :, write_slot] = k_new
+        self_cache.v[:, :, write_slot] = v_new
+    h = rms_norm(x_out[:, None].to(compute_dtype), params["decoder"]["norm"]["scale"], eps)
+    return dense_general(h, params["decoder"]["logits_dense"]["kernel"]).float()

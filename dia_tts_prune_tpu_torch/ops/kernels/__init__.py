@@ -13,6 +13,7 @@ from .flash_attention import (
     flash_attention_plain,
     flash_attention_trainable,
 )
+from .fused_step import fused_decode_step, fused_decode_step_plain
 from .int4_gemv import int4_gemv, int4_gemv_plain
 from .int8_matmul import int8_matmul, int8_matmul_plain
 from .sparse_matmul import block_sparse_matmul, block_sparse_matmul_plain
@@ -22,7 +23,8 @@ KERNEL_WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decod
                    "flash_attention_lse": flash_attention_lse,
                    "flash_attention_bwd_kv": flash_attention_bwd_kv,
                    "flash_attention_bwd_q": flash_attention_bwd_q,
-                   "block_sparse_matmul": block_sparse_matmul}
+                   "block_sparse_matmul": block_sparse_matmul,
+                   "fused_decode_step": fused_decode_step}
 
 
 def reset_launch_counts() -> None:
@@ -35,9 +37,10 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = [
-    "KERNEL_WRAPPERS", "block_sparse_matmul", "block_sparse_matmul_plain", "decode_attention", "decode_attention_plain", "flash_attention",
-    "flash_attention_bwd_kv", "flash_attention_bwd_plain", "flash_attention_bwd_q",
-    "flash_attention_lse", "flash_attention_lse_plain", "flash_attention_plain",
-    "flash_attention_trainable", "int4_gemv", "int4_gemv_plain", "int8_matmul",
-    "int8_matmul_plain", "launch_counts", "reset_launch_counts",
+    "KERNEL_WRAPPERS", "block_sparse_matmul", "block_sparse_matmul_plain", "decode_attention",
+    "decode_attention_plain", "flash_attention", "flash_attention_bwd_kv",
+    "flash_attention_bwd_plain", "flash_attention_bwd_q", "flash_attention_lse",
+    "flash_attention_lse_plain", "flash_attention_plain", "flash_attention_trainable",
+    "fused_decode_step", "fused_decode_step_plain", "int4_gemv", "int4_gemv_plain",
+    "int8_matmul", "int8_matmul_plain", "launch_counts", "reset_launch_counts",
 ]

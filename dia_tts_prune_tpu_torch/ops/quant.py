@@ -19,8 +19,8 @@ the logical kernel dims kept as metadata.
 
 Not here: the JAX package's ``unpack_to_s4`` / ``unpack_params_s4`` and its
 ``kng`` layout serve XLA's 4-bit dtype, which PyTorch lacks — int4 values stay
-nibble bytes; the fused-step weight pack (``repack_decoder_fused``) belongs
-to the fused decode-step kernel.
+nibble bytes.  The fused-step weight pack (``repack_decoder_fused``, built
+here on request) lives beside its kernel in ``ops/kernels/fused_step.py``.
 
 Quantization-aware training (``fake_quant_ste``, ``fake_quant_params_ste``)
 is built on the same packers, so its forward sees exactly the weights a
@@ -231,7 +231,9 @@ def fake_quant_params_ste(params: Params, mode: str, scope: str | None = "decode
     return _map_scope(params, scope, fq)
 
 
-def quantize_params_int8_packed(params: Params, scope: str | None = "decoder") -> Params:
+def quantize_params_int8_packed(params: Params, scope: str | None = "decoder",
+                                fused: bool = False, fused_mlp_int4: bool = False,
+                                mlp_tiles: int = 4) -> Params:
     """Pack dense kernels as ``QuantizedKernel``s (int8 + scales).
 
     ``scope`` limits packing to one top-level subtree — default ``"decoder"``:
@@ -240,16 +242,46 @@ def quantize_params_int8_packed(params: Params, scope: str | None = "decoder") -
     whole tree.  Kernels already packed (the int4-MLP hybrid) and
     block-sparse kernels (``ops/sparse.py``) are kept.
 
-    The JAX function's ``fused`` argument builds the fused decode-step
-    kernel's weight pack; the port has neither that kernel nor the argument
-    yet."""
+    ``fused`` also builds ``params["decoder"]["fused_pack"]``
+    (``ops/kernels/fused_step.py``) from the float weights before they are
+    packed, and the decode loop then runs the fused whole-decoder-step kernel;
+    ``fused_mlp_int4`` stores its MLP matrices nibble-int4, paired within
+    ``mlp_tiles`` K-tiles for wm (the JAX package's ``DIA_FUSED_INT4`` and
+    ``DIA_FUSED_MT``).  The JAX packer builds the pack by default and uses it
+    only under ``DIA_FUSED=1``; here asking for the pack is the opt-in, so the
+    default costs no memory beside the packed tree.  A decoder whose kernels
+    are not all float tensors (block-sparse after pruning, or already packed)
+    gets no pack: the pack is quantized from float weights with the norm
+    gains folded in, which such kernels no longer hold (the JAX packer's
+    ``except`` at :209 skips the same trees)."""
 
     def pk(w, path):
         if isinstance(w, PACKED_TYPES) or _is_block_sparse(w):
             return w
         return quantize_int8(w, **_quant_args_for(path))
 
-    return _map_scope(params, scope, pk)
+    pack = None
+    if fused and "decoder" in params and all(
+            isinstance(w, torch.Tensor) for _, w in _decoder_layer_kernels(params)):
+        from .kernels.fused_step import repack_decoder_fused
+
+        pack = repack_decoder_fused(params, mlp_int4=fused_mlp_int4, mlp_tiles=mlp_tiles)
+    out = _map_scope(params, scope, pk)
+    if pack is not None:
+        out["decoder"] = dict(out["decoder"], fused_pack=pack)
+    return out
+
+
+def _decoder_layer_kernels(params: Params):
+    """(path, kernel) of every dense kernel in the decoder's layers."""
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, path + (k,))
+            elif k == "kernel":
+                yield path, v
+
+    return walk(params["decoder"]["layers"], ())
 
 
 def _pack_nibble_rows(q: torch.Tensor) -> torch.Tensor:

@@ -330,3 +330,152 @@ def test_block_sparse_wrapper_raises_on_the_card(cuda_device):
         block_sparse_matmul(x, w, idx.cpu(), cnt, 32, 64)
     with pytest.raises(ValueError, match="plan"):
         block_sparse_matmul(x, w, idx, cnt, 32, 32)
+
+
+# ---------------------------------------------------------------------------
+# the fused decode step
+# ---------------------------------------------------------------------------
+
+FUSED_DIMS = dict(L=3, D=256, F=1024, Nq=4, Nkv=2, Ncq=4, H=64)  # trained_small's widths
+# both sides round xn, sa, ca and h (and the RoPE partner) to bf16: fp32 sums
+# in another order flip some of those roundings, which later layers carry on;
+# 2e-2 of each output's largest magnitude (the JAX package's kernel gate)
+FUSED_TOL = 2e-2
+
+
+def _fused_pack(device, int4, seed=0):
+    from dia_tts_prune_tpu_torch.ops.kernels.fused_step import repack_decoder_fused
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    L, D, F, Nq, Nkv, Ncq, H = FUSED_DIMS.values()
+
+    def dense(*shape, fan_in):
+        return {"kernel": torch.randn(L, *shape, generator=g) / fan_in ** 0.5}
+
+    ones = {"scale": torch.ones(L, D)}
+    params = {"decoder": {"layers": {
+        "pre_sa_norm": ones, "pre_ca_norm": ones, "pre_mlp_norm": ones,
+        "self_attention": {"q_proj": dense(D, Nq, H, fan_in=D), "k_proj": dense(D, Nkv, H, fan_in=D),
+                           "v_proj": dense(D, Nkv, H, fan_in=D),
+                           "o_proj": dense(Nq, H, D, fan_in=Nq * H)},
+        "cross_attention": {"q_proj": dense(D, Ncq, H, fan_in=D),
+                            "o_proj": dense(Ncq, H, D, fan_in=Ncq * H)},
+        "mlp": {"wi_fused": dense(D, 2, F, fan_in=D), "wo": dense(F, D, fan_in=F)}}}}
+    return repack_decoder_fused(params, mlp_int4=int4).to(device)
+
+
+def _fused_inputs(device, B, kind, T=96, S=40, write_slot=70, seed=1):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    L, D, F, Nq, Nkv, Ncq, H = FUSED_DIMS.values()
+    caches = [torch.randn(L, B, n, h, H, generator=g) for n, h in ((T, Nkv), (T, Nkv),
+                                                                  (S, Ncq), (S, Ncq))]
+    scales = [None] * 4
+    if kind == torch.int8:
+        q = [quantize_kv(c) for c in caches]
+        caches, scales = [c for c, _ in q], [s for _, s in q]
+    else:
+        caches = [c.to(kind) for c in caches]
+    n = B // 2
+    off = [(5 * i) % 30 for i in range(n)] * 2
+    i32 = dict(dtype=torch.int32, device=device)
+    dev = lambda t: None if t is None else t.to(device)  # noqa: E731
+    return dict(x_emb=(0.1 * torch.randn(B, D, generator=g)).to(device),
+                position=torch.tensor([write_slot + 1 - o for o in off], **i32),
+                write_slot=write_slot, self_k=dev(caches[0]), self_v=dev(caches[1]),
+                cross_k=dev(caches[2]), cross_v=dev(caches[3]),
+                cross_ends=torch.tensor([0] * n + [S - 3 * i for i in range(n)], **i32),
+                valid_from=torch.tensor(off, **i32), self_ks=dev(scales[0]),
+                self_vs=dev(scales[1]), cross_ks=dev(scales[2]), cross_vs=dev(scales[3]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("B", [2, 6, 36])  # 36: three groups of staged rows
+def test_fused_kernel_matches_plain_on_card(cuda_device, kind, int4, B):
+    from dia_tts_prune_tpu_torch.ops.kernels import fused_decode_step, fused_decode_step_plain
+
+    pack = _fused_pack(cuda_device, int4)
+    inp = _fused_inputs(cuda_device, B, kind)
+    n0 = fused_decode_step.launches
+    out = fused_decode_step(pack, **inp)
+    assert fused_decode_step.launches == n0 + 1
+    ref = fused_decode_step_plain(pack, **inp)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= FUSED_TOL * r.float().abs().max().item(), err
+    again = fused_decode_step(pack, **inp)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", [torch.bfloat16, torch.int8])
+def test_fused_rows_do_not_depend_on_the_batch_or_poison(cuda_device, kind):
+    """Rows of a 36-row step (three groups of 16 staged rows) equal the same
+    rows run 2 or 6 at a time, bit for bit; NaN wherever a row may not read
+    leaves every output as it was."""
+    from dia_tts_prune_tpu_torch.ops.kernels import fused_decode_step
+
+    pack = _fused_pack(cuda_device, False)
+    B = 36
+    inp = _fused_inputs(cuda_device, B, kind)
+    full = fused_decode_step(pack, **inp)
+    rows = ("x_emb", "position", "cross_ends", "valid_from")
+    for pair in ([0, 18], [17, 35], [2, 15, 16, 20, 33, 34]):
+        idx = torch.tensor(pair, device=cuda_device)
+        sub = {k: v.index_select(0, idx) if k in rows else
+               v.index_select(1, idx).contiguous() if isinstance(v, torch.Tensor) else v
+               for k, v in inp.items()}
+        part = fused_decode_step(pack, **sub)
+        assert torch.equal(part[0], full[0][idx])
+        assert all(torch.equal(p, f[:, idx]) for p, f in zip(part[1:], full[1:]))
+    poisoned = dict(inp)
+    names = ("self_ks", "self_vs", "cross_ks", "cross_vs") if kind == torch.int8 else (
+        "self_k", "self_v", "cross_k", "cross_v")
+    for n in names:
+        t = poisoned[n].clone()
+        size = t.shape[2]
+        for b in range(B):
+            at = torch.arange(size, device=cuda_device)
+            if n.startswith("self"):
+                bad = (at < int(inp["valid_from"][b])) | (at >= inp["write_slot"])
+            else:
+                bad = at >= int(inp["cross_ends"][b])
+            t[:, b, bad] = float("nan")
+        poisoned[n] = t
+    assert all(torch.equal(a, b) for a, b in zip(fused_decode_step(pack, **poisoned), full))
+
+
+@pytest.mark.gpu
+def test_fused_wrapper_raises_on_the_card(cuda_device):
+    from dia_tts_prune_tpu_torch.ops.kernels import fused_decode_step
+
+    pack = _fused_pack(cuda_device, False)
+    inp = _fused_inputs(cuda_device, 2, torch.bfloat16)
+    for change in (dict(write_slot=96), dict(self_k=inp["self_k"].half()),
+                   dict(cross_ends=inp["cross_ends"].long()), dict(self_ks=inp["cross_ends"])):
+        with pytest.raises((TypeError, ValueError)):
+            fused_decode_step(pack, **dict(inp, **change))
+
+
+@pytest.mark.gpu
+def test_fused_batch_of_nine_streams_on_card(cuda_device):
+    """Nine streams (18 rows, more than the kernel stages at once) through
+    ``quantize_int8(fused=True)``: one fused launch a decode step, no
+    decode-attention launch, and every stream's codes."""
+    from pathlib import Path
+
+    from dia_tts_prune_tpu_torch import Dia
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    dia = Dia.from_pretrained(Path(__file__).parent / "fixtures" / "trained_small",
+                              device=cuda_device)
+    dia.quantize_int8(fused=True)
+    texts = [f"[S1] Stream number {i} speaks. [S2]" for i in range(9)]
+    reset_launch_counts()
+    outs = dia.generator.generate_tokens_batch(texts, max_tokens=24, temperature=0.0)
+    counts = launch_counts()
+    assert len(outs) == 9 and all(o.ndim == 2 and o.shape[1] == dia.config.data.channels
+                                  for o in outs)
+    assert counts["fused_decode_step"] > 0 and counts["decode_attention"] == 0
