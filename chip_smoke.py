@@ -8,7 +8,8 @@ script exits non-zero:
 
 1. build     — compile every CUDA kernel from ``dia_tts_prune_tpu_torch/csrc``
                and the planted-fault copies of the fused step (one nvcc per
-               source, all at once);
+               source, all at once), and report the flash kernels' registers
+               and spills (``nvcc -Xptxas -v``);
 2. kernels   — each kernel against its plain PyTorch version at the main
                paths' shapes, fp32 and bf16: max abs error beside the stated
                tolerance, kernel and library times (device time: calls
@@ -19,8 +20,12 @@ script exits non-zero:
                int4-GEMV kernels at the five weight shapes of a decode step
                and a few odd ones, and the three training kernels (flash
                forward with log-sum-exp, dK/dV, dQ) at the three attention
-               shapes of a Dia-1.6B training step and an odd one, dK/dV
-               bit-identical over two runs; the block-sparse matmul at the
+               shapes of a Dia-1.6B training step and odd ones (ragged
+               lengths, head dims 32/64, segment ids t % 3 that no tile
+               skip may drop), dK/dV bit-identical over two runs, each flash
+               record with its route (``mma_bf16`` tensor cores or
+               ``fma_fp32`` CUDA cores), whether P enters as hi + lo bf16
+               pairs and the share of tiles skipped; the block-sparse matmul at the
                five decode shapes at block density 0.5 (per-module 256 x 256
                ranking) and 1.0, fp32, 8, 64 and 512 rows, NaN in every
                unlisted block, bit-identical runs, rows independent of M;
@@ -193,6 +198,52 @@ def check(torch, what, dtype, out, plain, args) -> dict:
     return rec
 
 
+def flash_route(kernel: str, dtype: str) -> str:
+    """The forward and dK/dV run bf16 on the tensor cores; fp32, and dQ in both
+    dtypes, on the CUDA cores."""
+    return "mma_bf16" if dtype == "bfloat16" and kernel != "flash_attention_bwd_q" else "fma_fp32"
+
+
+def flash_tiles(torch, route, q_seg, kv_seg, causal) -> dict:
+    """A flash kernel's route, whether its fp32 P (and dS) enter the MMAs as
+    hi + lo bf16 pairs, and the share of its (query tile, key tile) pairs that
+    it skips whole: 64 x 64 tiles by ``tile_visits`` on the tensor-core route,
+    32 x 32 tiles above the causal diagonal on the CUDA cores."""
+    from dia_tts_prune_tpu_torch.ops.kernels import tile_visits
+
+    if route == "mma_bf16":
+        skipped = 1.0 - tile_visits(q_seg, kv_seg, causal).float().mean().item()
+    elif causal:
+        n_q, n_k = -(-q_seg.shape[1] // 32), -(-kv_seg.shape[1] // 32)
+        skipped = 1.0 - torch.ones(n_q, n_k).tril().mean().item()
+    else:
+        skipped = 0.0
+    return {"route": route, "p_split": route == "mma_bf16", "tiles_skipped": skipped}
+
+
+PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd")  # registers and spills reported
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel<args>: {"registers", "spill_stores", "spill_loads"}} from
+    ``nvcc -Xptxas -v`` output."""
+    import re
+
+    report, name = {}, None
+    entry = re.compile(r"Function properties for \S*?\d(flash_[a-z_]+?_kernel)I(\w*?)Li(\d+)E")
+    for line in log.splitlines():
+        if m := entry.search(line):
+            kind = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m.group(2), "")
+            name = f"{m.group(1)}<{kind}{m.group(3)}>"
+            report[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            report[name]["registers"] = int(m.group(1))
+            name = None
+    return report
+
+
 def phase_build() -> dict:
     """Every kernel, and the planted-fault copies of the fused step (``FUSED_FAULTS``),
     one nvcc each, all at once; returns {fault: library path}."""
@@ -211,13 +262,25 @@ def phase_build() -> dict:
         running[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
                                            str(src)], stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT), lib)
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    verbose = {name: subprocess.Popen(
+        [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+         str(faults_dir / f"{name}.cubin"), str(_build.CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for name in PTXAS_SOURCES}
     libs = _build.build_all()
     for name, (proc, lib) in running.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"fault {name}: nvcc failed\n{log.decode(errors='replace')}")
+    ptxas = {}
+    for name, proc in verbose.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc -Xptxas -v failed\n{log.decode(errors='replace')}")
+        ptxas.update(ptxas_report(log.decode(errors="replace")))
     emit({"phase": "build", "ok": True, "seconds": round(time.perf_counter() - t0, 3),
-          "nvcc": _build.nvcc_path(), "libs": libs, "planted_faults": sorted(running)})
+          "nvcc": _build.nvcc_path(), "libs": libs, "planted_faults": sorted(running),
+          "ptxas": ptxas})
     return {name: lib for name, (_, lib) in running.items()}
 
 
@@ -254,6 +317,7 @@ def flash_case(torch, name, dtype, B, T, Nq, Nkv, H, causal, real_len):
     rec = {"phase": "kernels", "kernel": "flash_attention", "case": name, "dtype": dtype,
            "shape": {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "H": H, "causal": causal,
                      "real_len": real_len},
+           **flash_tiles(torch, flash_route("flash_attention", dtype), seg, seg, causal),
            **errs, "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "launches": launches}
@@ -262,12 +326,14 @@ def flash_case(torch, name, dtype, B, T, Nq, Nkv, H, causal, real_len):
 
 
 def flash_train_case(torch, name_, dtype, B, Tq, Tk, Nq, Nkv, H, causal, q_real, kv_real,
-                     time_it=True):
+                     time_it=True, interleaved=False):
     """The three training kernels at one attention site: forward with LSE
     against ``flash_attention_lse_plain``, dK/dV and dQ against
     ``flash_attention_bwd_plain`` on the kernel forward's own out and lse.
     ``q_real`` / ``kv_real``: real lengths per batch row (None = all real);
-    query row 5 of batch row 0 is fully masked.  Returns one record per kernel."""
+    ``interleaved``: ids t % 3 instead, every id in every tile, so that no tile
+    may be skipped by its segment range; query row 5 of batch row 0 is fully
+    masked.  Returns one record per kernel."""
     import torch.nn.functional as F
 
     from dia_tts_prune_tpu_torch.ops.kernels import (
@@ -280,6 +346,8 @@ def flash_train_case(torch, name_, dtype, B, Tq, Tk, Nq, Nkv, H, causal, q_real,
         (B, Tq, Nq, H), (B, Tk, Nkv, H), (B, Tk, Nkv, H), (B, Tq, Nq, H)))
 
     def seg_of(T, real):
+        if interleaved:
+            return (torch.arange(T, device="cuda") % 3).to(torch.int32)[None].repeat(B, 1)
         if real is None:
             return torch.ones(B, T, dtype=torch.int32, device="cuda")
         return (torch.arange(T, device="cuda")[None]
@@ -365,7 +433,9 @@ def flash_train_case(torch, name_, dtype, B, Tq, Tk, Nq, Nkv, H, causal, q_real,
         bound_ms, bound_by = bound(nbytes, products * 2.0 * H * Nq * pairs, dtype)
         rec = {"phase": "kernels", "kernel": name, "case": name_, "dtype": dtype,
                "shape": {"B": B, "Tq": Tq, "Tk": Tk, "Nq": Nq, "Nkv": Nkv, "H": H,
-                         "causal": causal, "q_real": q_real, "kv_real": kv_real},
+                         "causal": causal, "q_real": q_real, "kv_real": kv_real,
+                         "ids": "t % 3" if interleaved else "prefix"},
+               **flash_tiles(torch, flash_route(name, dtype), q_seg, kv_seg, causal),
                **errs[name], "fully_masked_row_exact_zero": masked_ok, **times[name],
                "bound_ms": bound_ms, "bound_by": bound_by, "tile_products": products,
                "launches": launched}
@@ -1014,6 +1084,12 @@ def phase_kernels(torch, faults: dict) -> dict:
         for causal in (False, True):
             flash_train_case(torch, "odd", dtype, 2, 320, 320, 4, 2, 64, causal, [320, 250],
                              [320, 250], time_it=False)
+            flash_train_case(torch, "interleaved", dtype, 2, 1000, 1000, 8, 2, 128, causal,
+                             None, None, time_it=False, interleaved=True)
+        flash_train_case(torch, "h32", dtype, 2, 320, 250, 4, 1, 32, False, [320, 200],
+                         [250, 100], time_it=False)
+        flash_train_case(torch, "h64", dtype, 2, 77, 77, 8, 2, 64, True, [77, 50], [77, 50],
+                         time_it=False)
         picked = {"flash_attention": enc, "decode_attention": rec, "decode_attention_int8": rec8,
                   "int8_matmul": mlp8, "int4_gemv": mlp4, **train}
     picked["block_sparse_matmul"] = phase_sparse_kernels(torch)
@@ -1748,8 +1824,9 @@ def phase_train_fixture(torch, repo: Path) -> None:
             raise RuntimeError(f"fixture training {mode}: the loss did not fall: {rec}")
 
 
-KERNEL_KINDS = (("attention_forward", ("flash_fwd_kernel",)),
-                ("attention_backward", ("flash_bwd_kv_kernel", "flash_bwd_q_kernel")),
+KERNEL_KINDS = (("attention_forward", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
+                ("attention_bwd_kv", ("flash_bwd_kv_kernel", "flash_bwd_kv_mma_kernel")),
+                ("attention_bwd_q", ("flash_bwd_q_kernel",)),
                 ("gemm", ("gemm", "cutlass", "cublas", "nvjet", "xmma", "wgmma", "gemv")))
 
 

@@ -13,33 +13,60 @@
 // nothing to dk/dv.  Accumulation is fp32 whatever the input dtype; results
 // are rounded once to the input dtype.
 //
-// What bounds them on the H100: operations — five tile products against the
-// forward's two, at hundreds of FLOP per byte of q/k/v/dO.  Like the forward
-// this first version runs every product as fp32 FMAs on the CUDA cores (bf16
-// inputs are widened on load, fp32 stays true fp32), so its ceiling is the
-// 67 TFLOP/s fp32 rate; tensor-core tiles are later work.
+// What bounds them on the H100: operations -- five tile products against the
+// forward's two, at hundreds of FLOP per byte of q/k/v/dO.
 //
-// Design.  The Pallas dK/dV kernel writes one fp32 buffer per *query* head
-// and leaves the sum over the GQA group to XLA; its grid carries the
-// accumulator across sequential query blocks.  Here one block owns a (key
-// tile of 32, kv head, batch row) and loops over the group's query heads and
-// over the query tiles inside, with dk/dv for its 32 keys in registers the
-// whole time: they come out already reduced over the group, with no atomics,
-// in a fixed order of summation (bit-identical from run to run).  The dQ
-// kernel mirrors the forward: one block per (query tile of 32, query head,
-// batch row) looping over key tiles.  Causal blocks skip the tiles wholly
-// above the diagonal.  Time and head dims are bounds-checked, never padded:
-// any Tq/Tk, head_dim 32/64/128.
+// dK/dV, bf16: tensor cores (flash_bwd_kv_mma_kernel).  One block owns a
+// (key tile of 64, kv head, batch row), 4 warps of 16 keys, and loops over the
+// group's query heads and the 64-query tiles inside (the Pallas kernel writes
+// one buffer per query head and leaves the sum over the group to XLA; its grid
+// carries the accumulator across sequential query blocks).  The products are
+// key-major so that everything dK/dV needs stays in registers: per 32-query
+// sub-chunk, S^T = K.Q^T and dP^T = V.dO^T (mma.sync m16n8k16 bf16 -> fp32,
+// K and V as A fragments, Q and dO through ldmatrix), then
+// P^T = mask ? exp(S^T * scale - lse) : 0 (as exp2 of log2-scaled values)
+// and dS^T = P^T (dP^T - dd) scale on the accumulator fragments, then
+// dV += P^T.dO and dK += dS^T.Q with P^T and dS^T repacked as A fragments and
+// dO and Q through ldmatrix.trans.  The JAX backward is fp32 throughout, so
+// P^T and dS^T (fp32 values) enter their MMAs as hi + lo bf16 pairs (two MMAs
+// each), which keeps fp32-grade gradients.  Q/dO tiles with their lse, dd and
+// segment ids stream through a two-stage cp.async ring.  dK/dV for the
+// block's 64 keys (2 x 64 x H fp32) stay in registers for the whole loop:
+// they come out already reduced over the GQA group, with no atomics, in a
+// fixed order of summation (bit-identical from run to run).  Query tiles are
+// skipped whole when they lie above the diagonal (causal blocks start at it)
+// or when their segment-id range does not meet the key tile's; the
+// per-element mask (a column window per key row and one id compare) runs only
+// on tiles that are not one segment on both sides, cross the diagonal or are
+// ragged.  Under causality the grid starts the key tiles with the most query
+// tiles first.  What holds it back on the H100 (700 W,
+// tools/torch_flash_variants.py): the hi + lo pairs cost 13-20% of its time
+// (dropping the lo MMAs misses the gradient gate 14-115 times over); at
+// H = 128 it uses all 255 registers and spills 80 bytes a thread, yet
+// 16-query sub-chunks, which spill 16, run 0-11% slower; and 2 x 4 warps a SM
+// leave little to hide each warp's ldmatrix -> mma chains.  wgmma with TMA is
+// the next step.
 //
-// Both kernels: 4 warps.  A warp owns 8 rows of the block's own tile (keys
-// for dK/dV, queries for dQ), whose operands it reads from shared memory as
-// broadcast float4s; lane j scores tile-mate j of the other side, whose
+// dK/dV in fp32, and dQ in both dtypes: CUDA cores, the first port's kernels,
+// unchanged: every product is an fp32 FMA (bf16 inputs are widened on load,
+// fp32 stays true fp32, no TF32), ceiling 67 TFLOP/s.  dK/dV: the same block
+// plan with 32-key tiles; dQ mirrors the fp32 forward: one block per (query
+// tile of 32, query head, batch row) looping over key tiles.  Causal blocks
+// skip the tiles wholly above the diagonal.  Time and head dims are
+// bounds-checked, never padded: any Tq/Tk, head_dim 32/64/128.
+//
+// The CUDA-core kernels: 4 warps.  A warp owns 8 rows of the block's own tile
+// (keys for dK/dV, queries for dQ), whose operands it reads from shared memory
+// as broadcast float4s; lane j scores tile-mate j of the other side, whose
 // operand rows are padded to H + 4 floats so that float4 reads down a column
 // of lanes are bank-conflict free.  The second stage (p^T.dO, ds^T.q, ds.k)
 // broadcasts each p/ds with a shuffle and accumulates H/32 dims per lane.
+#include <algorithm>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -315,6 +342,284 @@ struct Args {
   cudaStream_t stream;
 };
 
+// ---------------------------------------------------------------------------
+// dK, dV in bf16: tensor-core tiles.  Block = (key tile of 64, kv head, batch
+// row); loops over the group's query heads and their 64-query tiles.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace mma_tiles;
+using bf16 = __nv_bfloat16;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int BN = WARPS * 16;  // keys per block, 16 per warp
+constexpr int BM = 64;          // queries per tile
+constexpr int QS = 32;          // queries per sub-chunk (S^T and dP^T live in registers)
+// query tiles whose segment range a block keeps in shared memory; later tiles
+// (beyond 32768 queries) are never skipped, only masked
+constexpr int MAX_TABLE = 512;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int H>
+__host__ __device__ constexpr int tile_elems() { return 64 * (H + PAD); }
+
+template <int H>
+size_t smem_bytes(int n_table) {
+  // K and V tiles, two stages of Q and dO tiles, two stages of lse, dd and
+  // query segment ids, the range table
+  return sizeof(bf16) * 6 * tile_elems<H>() + sizeof(float) * 3 * 2 * BM +
+         sizeof(SegRange) * n_table;
+}
+
+// One 64-query tile for the warp's 16 keys.  This thread holds keys key0
+// (accumulator elements 0, 1) and key0 + 8 (elements 2, 3), query columns
+// 2t, 2t+1 of each 8-query n-tile.  P^T = exp2(S^T * scale * log2(e) -
+// lse * log2(e)).  MASK: run the per-element test, as "lo[r] <= column <=
+// hi" (the causal diagonal and the tile's ragged end, tile-relative, less 2t)
+// and "segment ids equal".
+template <int H, bool MASK>
+__device__ __forceinline__ void kv_tile(const bf16* k_w, const bf16* v_w, const bf16* q_t,
+                                        const bf16* do_t, const float* lse_t, const float* dd_t,
+                                        const int* seg_t, const int (&lo)[2], int hi,
+                                        const int (&kseg)[2], float scale,
+                                        float (&dk)[H / 8][4], float (&dv)[H / 8][4], int lane) {
+  const int t = lane & 3;
+#pragma unroll 1
+  for (int c = 0; c < BM / QS; ++c) {
+    float st[QS / 8][4], dpt[QS / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < QS / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      load_a<H>(ka, k_w + kk * 16, lane);
+      load_a<H>(va, v_w + kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < QS / 16; ++np) {
+        uint32_t b[4];
+        const int off = (c * QS + np * 16) * (H + PAD) + kk * 16;
+        load_b_nk<H>(b, q_t + off, lane);
+        mma_bf16(st[2 * np], ka, b[0], b[1]);
+        mma_bf16(st[2 * np + 1], ka, b[2], b[3]);
+        load_b_nk<H>(b, do_t + off, lane);
+        mma_bf16(dpt[2 * np], va, b[0], b[1]);
+        mma_bf16(dpt[2 * np + 1], va, b[2], b[3]);
+      }
+    }
+    const float scale_log2 = scale * LOG2E;
+#pragma unroll
+    for (int nt = 0; nt < QS / 8; ++nt) {
+      const int col = c * QS + nt * 8 + 2 * t;  // query within the tile (and col + 1)
+      const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + col);
+      const float2 dd2 = *reinterpret_cast<const float2*>(dd_t + col);
+      int2 qseg = make_int2(0, 0);
+      if (MASK) qseg = *reinterpret_cast<const int2*>(seg_t + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, cc = c * QS + nt * 8 + (e & 1);  // column cc + 2t
+        const bool ok = !MASK || (lo[r] <= cc && cc <= hi &&
+                                  ((e & 1) ? qseg.y : qseg.x) == kseg[r]);
+        // an unmasked pad<->real pair would overflow: its weight is exactly 0
+        const float lse_q = ((e & 1) ? lse2.y : lse2.x) * LOG2E;
+        const float p = ok ? exp2f(st[nt][e] * scale_log2 - lse_q) : 0.f;
+        st[nt][e] = p;
+        dpt[nt][e] = p * (dpt[nt][e] - ((e & 1) ? dd2.y : dd2.x)) * scale;
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < QS / 16; ++ks) {
+      uint32_t p_hi[4], p_lo[4], s_hi[4], s_lo[4];
+      c_to_a_split(st[2 * ks], st[2 * ks + 1], p_hi, p_lo);
+      c_to_a_split(dpt[2 * ks], dpt[2 * ks + 1], s_hi, s_lo);
+#pragma unroll
+      for (int dp = 0; dp < H / 16; ++dp) {
+        uint32_t b[4];
+        const int off = (c * QS + ks * 16) * (H + PAD) + dp * 16;
+        load_b_kn<H>(b, do_t + off, lane);
+        mma_bf16(dv[2 * dp], p_hi, b[0], b[1]);
+        mma_bf16(dv[2 * dp], p_lo, b[0], b[1]);
+        mma_bf16(dv[2 * dp + 1], p_hi, b[2], b[3]);
+        mma_bf16(dv[2 * dp + 1], p_lo, b[2], b[3]);
+        load_b_kn<H>(b, q_t + off, lane);
+        mma_bf16(dk[2 * dp], s_hi, b[0], b[1]);
+        mma_bf16(dk[2 * dp], s_lo, b[0], b[1]);
+        mma_bf16(dk[2 * dp + 1], s_hi, b[2], b[3]);
+        mma_bf16(dk[2 * dp + 1], s_lo, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// grid (B * Nkv, key tiles); blockIdx.x = nk + Nkv * b.
+template <int H>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_bwd_kv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ dd,
+                        const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk, int Nq,
+                        int Nkv, int causal, float scale, int n_table) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [BN][H + PAD]
+  bf16* v_s = k_s + tile_elems<H>();               // [BN][H + PAD]
+  bf16* q_s = v_s + tile_elems<H>();               // [2 stages][BM][H + PAD]
+  bf16* do_s = q_s + 2 * tile_elems<H>();          // [2 stages][BM][H + PAD]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * tile_elems<H>());  // [2][BM]
+  float* dd_s = lse_s + 2 * BM;                                          // [2][BM]
+  int* seg_s = reinterpret_cast<int*>(dd_s + 2 * BM);                    // [2][BM]
+  SegRange* table = reinterpret_cast<SegRange*>(seg_s + 2 * BM);        // [n_table]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nk = blockIdx.x % Nkv, b = blockIdx.x / Nkv;
+  // causal: early key tiles meet the most query tiles, and start first
+  const int kt = blockIdx.y, k0 = kt * BN, k_rows = min(BN, Tk - k0);
+  const int group = Nq / Nkv;
+  const size_t kv_stride = (size_t)Nkv * H, q_stride = (size_t)Nq * H;
+  const size_t kv_off = ((size_t)b * Tk + k0) * kv_stride + (size_t)nk * H;
+  const int* qseg_b = q_seg + (size_t)b * Tq;
+
+  load_tile_async<H, BN, THREADS>(k_s, k + kv_off, kv_stride, k_rows, tid);
+  load_tile_async<H, BN, THREADS>(v_s, v + kv_off, kv_stride, k_rows, tid);
+
+  const int n_qt = (Tq + BM - 1) / BM, n_tab = min(n_qt, n_table);
+  seg_range_table(table, n_tab, qseg_b, Tq, warp, WARPS, lane);
+  const SegRange kr = warp_seg_range(kv_seg + (size_t)b * Tk, k0, Tk, lane);
+  // causal: query tiles wholly above the diagonal (last row < first key) add nothing
+  const int qt_first = causal ? kt : 0;  // BM == BN
+  const int total = group * n_qt;        // (query head of the group, query tile) pairs
+  __syncthreads();  // the range table
+
+  auto visits = [&](int i) {
+    return i >= qt_first && (i >= n_tab || ranges_meet(table[i], kr));
+  };
+  auto next = [&](int it) {
+    do { ++it; } while (it < total && !visits(it % n_qt));
+    return it;
+  };
+  auto load_q = [&](int it, int stage) {
+    const int n = nk * group + it / n_qt, q0 = (it % n_qt) * BM, rows = min(BM, Tq - q0);
+    const size_t q_off = ((size_t)b * Tq + q0) * q_stride + (size_t)n * H;
+    const size_t row_off = ((size_t)b * Nq + n) * Tq + q0;
+    load_tile_async<H, BM, THREADS>(q_s + stage * tile_elems<H>(), q + q_off, q_stride, rows,
+                                    tid);
+    load_tile_async<H, BM, THREADS>(do_s + stage * tile_elems<H>(), dout + q_off, q_stride,
+                                    rows, tid);
+    load_row_async(lse_s + stage * BM, lse + row_off, BM, rows, tid);
+    load_row_async(dd_s + stage * BM, dd + row_off, BM, rows, tid);
+    load_row_async(seg_s + stage * BM, qseg_b + q0, BM, rows, tid);
+  };
+
+  const int key0 = k0 + warp * 16 + (lane >> 2), key1 = key0 + 8;
+  const int* kseg_b = kv_seg + (size_t)b * Tk;
+  const int kseg[2] = {key0 < Tk ? kseg_b[key0] : 0, key1 < Tk ? kseg_b[key1] : 0};
+  float dk_acc[H / 8][4], dv_acc[H / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < H / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+
+  int it = next(-1);
+  if (it < total) load_q(it, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // K, V and the first query tile
+  const bf16* k_w = k_s + warp * 16 * (H + PAD);
+  const bf16* v_w = v_s + warp * 16 * (H + PAD);
+
+  for (int stage = 0; it < total; stage ^= 1) {
+    const int in = next(it);
+    if (in < total) load_q(in, stage ^ 1);  // lands while this tile is computed
+    cp_async_commit();
+    const int i = it % n_qt, q0 = i * BM;
+    const SegRange qr = i < n_tab ? table[i] : SegRange{-0x7fffffff - 1, 0x7fffffff};
+    const bool whole = q0 + BM <= Tq && k_rows == BN && one_segment(qr, kr) &&
+                       (!causal || i > kt);
+    const bf16* q_t = q_s + stage * tile_elems<H>();
+    const bf16* do_t = do_s + stage * tile_elems<H>();
+    const float* lse_t = lse_s + stage * BM;
+    const float* dd_t = dd_s + stage * BM;
+    const int* seg_t = seg_s + stage * BM;
+    if (whole) {
+      kv_tile<H, false>(k_w, v_w, q_t, do_t, lse_t, dd_t, seg_t, {0, 0}, 0, kseg, scale,
+                        dk_acc, dv_acc, lane);
+    } else {
+      // query columns (tile-relative, less 2t) each key may see: from its own
+      // position if causal, up to the tile's ragged end
+      const int t2 = 2 * (lane & 3);
+      const int lo[2] = {causal ? key0 - q0 - t2 : -BM, causal ? key1 - q0 - t2 : -BM};
+      kv_tile<H, true>(k_w, v_w, q_t, do_t, lse_t, dd_t, seg_t, lo, Tq - 1 - q0 - t2, kseg,
+                       scale, dk_acc, dv_acc, lane);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next tile landed; everyone is done with this stage
+    it = in;
+  }
+
+  // epilogue: each warp stages its own 16 keys in its rows of the K and V
+  // tiles (nobody else reads them), then writes 16 bytes a lane
+  const int t = lane & 3, g = lane >> 2;
+  bf16* dk_s = k_s + warp * 16 * (H + PAD);
+  bf16* dv_s = v_s + warp * 16 * (H + PAD);
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < H / 8; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(dk_s + g * (H + PAD) + col) =
+        __floats2bfloat162_rn(dk_acc[nt][0], dk_acc[nt][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dk_s + (g + 8) * (H + PAD) + col) =
+        __floats2bfloat162_rn(dk_acc[nt][2], dk_acc[nt][3]);
+    *reinterpret_cast<__nv_bfloat162*>(dv_s + g * (H + PAD) + col) =
+        __floats2bfloat162_rn(dv_acc[nt][0], dv_acc[nt][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dv_s + (g + 8) * (H + PAD) + col) =
+        __floats2bfloat162_rn(dv_acc[nt][2], dv_acc[nt][3]);
+  }
+  __syncwarp();
+  constexpr int CPR = H / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR, c = i % CPR, key = k0 + warp * 16 + r;
+    if (key >= Tk) continue;
+    const size_t off = (((size_t)b * Tk + key) * Nkv + nk) * H + c * 8;
+    *reinterpret_cast<uint4*>(dk + off) =
+        *reinterpret_cast<const uint4*>(dk_s + r * (H + PAD) + c * 8);
+    *reinterpret_cast<uint4*>(dv + off) =
+        *reinterpret_cast<const uint4*>(dv_s + r * (H + PAD) + c * 8);
+  }
+}
+
+template <int H>
+cudaError_t launch_kv(const Args& a) {
+  const int n_table = std::min((a.Tq + BM - 1) / BM, MAX_TABLE);
+  const size_t smem = smem_bytes<H>(n_table);
+  auto kernel = flash_bwd_kv_mma_kernel<H>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.Nkv, (a.Tk + BN - 1) / BN);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.dd),
+      static_cast<const int*>(a.q_seg), static_cast<const int*>(a.kv_seg),
+      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.Tq, a.Tk, a.Nq, a.Nkv,
+      a.causal, 1.0f / sqrtf((float)H), n_table);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_kv(int H, const Args& a) {
+  switch (H) {
+    case 32: return launch_kv<32>(a);
+    case 64: return launch_kv<64>(a);
+    case 128: return launch_kv<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 template <typename T, int H>
 cudaError_t launch_kv(const Args& a) {
   constexpr size_t smem = smem_bytes<H>();
@@ -350,11 +655,20 @@ cudaError_t launch_q(const Args& a) {
 }
 
 template <typename T>
-cudaError_t dispatch_h(int H, bool kv, const Args& a) {
+cudaError_t dispatch_q(int H, const Args& a) {
   switch (H) {
-    case 32: return kv ? launch_kv<T, 32>(a) : launch_q<T, 32>(a);
-    case 64: return kv ? launch_kv<T, 64>(a) : launch_q<T, 64>(a);
-    case 128: return kv ? launch_kv<T, 128>(a) : launch_q<T, 128>(a);
+    case 32: return launch_q<T, 32>(a);
+    case 64: return launch_q<T, 64>(a);
+    case 128: return launch_q<T, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_kv_fp32(int H, const Args& a) {
+  switch (H) {
+    case 32: return launch_kv<float, 32>(a);
+    case 64: return launch_kv<float, 64>(a);
+    case 128: return launch_kv<float, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -362,8 +676,9 @@ cudaError_t dispatch_h(int H, bool kv, const Args& a) {
 cudaError_t dispatch(int H, int dtype, bool kv, const Args& a) {
   if (a.B <= 0 || a.Tq <= 0 || a.Tk <= 0 || a.Nkv <= 0 || a.Nq % a.Nkv != 0)
     return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch_h<float>(H, kv, a);
-  if (dtype == 1) return dispatch_h<__nv_bfloat16>(H, kv, a);
+  if (dtype == 0) return kv ? dispatch_kv_fp32(H, a) : dispatch_q<float>(H, a);
+  // bf16: dK/dV on the tensor cores; dQ keeps the CUDA-core kernel
+  if (dtype == 1) return kv ? tc::dispatch_kv(H, a) : dispatch_q<__nv_bfloat16>(H, a);
   return cudaErrorInvalidValue;
 }
 

@@ -12,6 +12,7 @@ from .flash_attention import (
     flash_attention_lse_plain,
     flash_attention_plain,
     flash_attention_trainable,
+    tile_visits,
 )
 from .fused_step import fused_decode_step, fused_decode_step_plain
 from .int4_gemv import int4_gemv, int4_gemv_plain
@@ -42,5 +43,5 @@ __all__ = [
     "flash_attention_bwd_plain", "flash_attention_bwd_q", "flash_attention_lse",
     "flash_attention_lse_plain", "flash_attention_plain", "flash_attention_trainable",
     "fused_decode_step", "fused_decode_step_plain", "int4_gemv", "int4_gemv_plain",
-    "int8_matmul", "int8_matmul_plain", "launch_counts", "reset_launch_counts",
+    "int8_matmul", "int8_matmul_plain", "launch_counts", "reset_launch_counts", "tile_visits",
 ]

@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface and loaded with ``ctypes``; nothing
 includes PyTorch's headers, so a build takes seconds.  Libraries land in
 ``dia_tts_prune_tpu_torch/_build/`` (git-ignored), named by a hash of their
-source and flags, so an edited source rebuilds and an unchanged one is reused.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited source
+or header rebuilds and an unchanged one is reused.
 
 Nothing here runs at import time: a kernel is built at its first CUDA use
 (``kernel_function``), or all at once, in parallel, by ``build_all``.
@@ -52,7 +53,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers count too: a source that includes an edited one rebuilds
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / f"{name}.cu",
+                                            *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

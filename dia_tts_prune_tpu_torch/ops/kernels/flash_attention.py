@@ -23,6 +23,11 @@ and how the designs answer that.
 * ``flash_attention_lse``, ``flash_attention_bwd_kv``, ``flash_attention_bwd_q``
   — the three kernels' wrappers, each with its launch count; on CPU tensors
   they compute ``flash_attention_lse_plain`` / ``flash_attention_bwd_plain``.
+* ``tile_visits`` — which 64 x 64 (query, key) tiles the bf16 forward and
+  dK/dV kernels compute; they skip the others whole.
+
+bf16 q/k/v run the forward and dK/dV on the tensor cores, fp32 on the CUDA
+cores (true fp32); dQ runs on the CUDA cores in both dtypes.
 """
 
 from __future__ import annotations
@@ -142,6 +147,39 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     Nkv = k.shape[2]
     qg = q.reshape(B, Tq, Nkv, Nq // Nkv, H).float()
     return torch.einsum("btngh,bsnh->bngts", qg, k.float()) * (1.0 / math.sqrt(H))
+
+
+TILE = 64  # query rows and keys per tile of the bf16 forward and dK/dV kernels
+
+
+def _tile_ranges(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Smallest and largest segment id of each 64-position tile, [B, n_tiles]
+    each (a ragged last tile counts only its positions)."""
+    B, T = seg.shape
+    n = -(-T // TILE)
+    big = torch.iinfo(torch.int64).max
+
+    def padded(fill):
+        pad = torch.full((B, n * TILE - T), fill, dtype=torch.int64, device=seg.device)
+        return torch.cat([seg.to(torch.int64), pad], dim=1).reshape(B, n, TILE)
+
+    return padded(big).amin(-1), padded(-big).amax(-1)
+
+
+def tile_visits(q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,
+                causal: bool = False) -> torch.Tensor:
+    """bool [B, query tiles, key tiles]: the 64 x 64 tile pairs that the bf16
+    forward and dK/dV kernels compute.  A pair is skipped whole when the key
+    tile lies above the causal diagonal, or when the segment-id ranges of the
+    two tiles do not meet, so that no pair of positions in it can have equal
+    ids.  (Tiles past 32768 positions are never skipped by range; no shape the
+    model runs has them.)"""
+    q_lo, q_hi = _tile_ranges(q_segment_ids)
+    k_lo, k_hi = _tile_ranges(kv_segment_ids)
+    visits = (q_hi[:, :, None] >= k_lo[:, None, :]) & (k_hi[:, None, :] >= q_lo[:, :, None])
+    if causal:
+        visits &= torch.ones(visits.shape[1:], dtype=torch.bool, device=visits.device).tril()
+    return visits
 
 
 def flash_attention_lse_plain(q, k, v, q_segment_ids, kv_segment_ids, causal: bool = False):

@@ -118,6 +118,59 @@ def test_flash_training_kernels_match_plain_on_card(cuda_device, dtype, rtol, at
     assert torch.all(dq[0, 5] == 0)  # a fully masked row gets exactly no gradient
 
 
+# The bf16 forward and dK/dV run on the tensor cores in 64 x 64 tiles: head dims
+# 32/64/128, GQA groups 1/2/4, lengths that are not multiples of 64, and ids
+# t % 3, which put every id in every tile, so that no tile may be skipped by
+# its segment range.  Gates as above.
+TC_CASES = [  # B, Tq, Tk, Nq, Nkv, H, causal, ids
+    (2, 77, 77, 4, 4, 32, True, "prefix"),
+    (2, 320, 250, 4, 2, 64, False, "prefix"),
+    (2, 1000, 1000, 8, 2, 128, True, "prefix"),
+    (2, 320, 320, 8, 2, 32, False, "interleaved"),
+    (1, 1000, 1000, 8, 8, 64, True, "interleaved"),
+    (2, 250, 320, 4, 1, 128, False, "interleaved"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "x".join(map(str, c[:6])) + (
+    "_causal" if c[6] else "") + "_" + c[7])
+def test_flash_bf16_tensor_core_kernels_match_plain_on_card(cuda_device, case):
+    B, Tq, Tk, Nq, Nkv, H, causal, ids = case
+    rng = np.random.default_rng(23)
+    q, k, v, dout = (_t(_normal(rng, s)).to(cuda_device, torch.bfloat16) for s in (
+        (B, Tq, Nq, H), (B, Tk, Nkv, H), (B, Tk, Nkv, H), (B, Tq, Nq, H)))
+
+    def seg(T):
+        t = torch.arange(T, device=cuda_device)
+        if ids == "interleaved":
+            return (t % 3).to(torch.int32)[None].repeat(B, 1).contiguous()
+        real = torch.tensor([T, T * 3 // 10][:B], device=cuda_device)
+        return (t[None] < real[:, None]).to(torch.int32).contiguous()
+
+    q_seg, kv_seg = seg(Tq), seg(Tk)
+    q_seg[0, 5] = 7  # one fully masked query row
+    counts = lambda: (flash_attention_lse.launches, flash_attention_bwd_kv.launches)  # noqa: E731
+    n0 = counts()
+    out, lse = flash_attention_lse(q, k, v, q_seg, kv_seg, causal)
+    dk, dv = flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal)
+    assert counts() == (n0[0] + 1, n0[1] + 1)
+    again = flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])  # no atomics: repeatable
+
+    ref_out, ref_lse = flash_attention_lse_plain(*_wide(q, k, v, q_seg, kv_seg), causal)
+    fwd_rtol, fwd_atol = dict((t[0], t[1:]) for t in TOLS)[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out, rtol=fwd_rtol, atol=fwd_atol)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=2e-5)
+    assert torch.all(out[0, 5] == 0)  # a fully masked row comes out as exact zeros
+    _, ref_dk, ref_dv = flash_attention_bwd_plain(
+        *_wide(q, k, v, q_seg, kv_seg, out, lse, dout), causal)
+    rtol, atol = dict((t[0], t[1:]) for t in GRAD_TOLS)[torch.bfloat16]
+    for got, ref in ((dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=atol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_trainable_gradients_on_card(cuda_device, causal):
