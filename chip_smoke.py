@@ -8,8 +8,8 @@ script exits non-zero:
 
 1. build     — compile every CUDA kernel from ``dia_tts_prune_tpu_torch/csrc``
                and the planted-fault copies of the fused step (one nvcc per
-               source, all at once), and report the flash kernels' registers
-               and spills (``nvcc -Xptxas -v``);
+               source, all at once), and report the registers and spills of
+               the flash and block-sparse kernels (``nvcc -Xptxas -v``);
 2. kernels   — each kernel against its plain PyTorch version at the main
                paths' shapes, fp32 and bf16: max abs error beside the stated
                tolerance, kernel and library times (device time: calls
@@ -22,13 +22,15 @@ script exits non-zero:
                forward with log-sum-exp, dK/dV, dQ) at the three attention
                shapes of a Dia-1.6B training step and odd ones (ragged
                lengths, head dims 32/64, segment ids t % 3 that no tile
-               skip may drop), dK/dV bit-identical over two runs, each flash
-               record with its route (``mma_bf16`` tensor cores or
+               skip may drop), dK/dV and dQ bit-identical over two runs, each
+               flash record with its route (``mma_bf16`` tensor cores or
                ``fma_fp32`` CUDA cores), whether P enters as hi + lo bf16
                pairs and the share of tiles skipped; the block-sparse matmul at the
                five decode shapes at block density 0.5 (per-module 256 x 256
-               ranking) and 1.0, fp32, 8, 64 and 512 rows, NaN in every
-               unlisted block, bit-identical runs, rows independent of M;
+               ranking) and 1.0, fp32, 8, 64 and 512 rows, each record with
+               its route and plan, NaN in every unlisted block, bit-identical
+               runs, rows independent of M (2, 8, 16 against 64; 2 against a
+               512-row product whose blocks each run every slice);
                the fused decode step at Dia-1.6B widths (int8 and int4-MLP
                packs, bf16 and int8 caches, B = 2 and 8, and 20), rows of
                B = 20 equal to B = 2 and 8 runs, NaN where nothing may be
@@ -198,10 +200,10 @@ def check(torch, what, dtype, out, plain, args) -> dict:
     return rec
 
 
-def flash_route(kernel: str, dtype: str) -> str:
-    """The forward and dK/dV run bf16 on the tensor cores; fp32, and dQ in both
-    dtypes, on the CUDA cores."""
-    return "mma_bf16" if dtype == "bfloat16" and kernel != "flash_attention_bwd_q" else "fma_fp32"
+def core_route(dtype: str) -> str:
+    """The flash and block-sparse kernels run bf16 on the tensor cores
+    (``mma.sync``), fp32 on the CUDA cores (true fp32 FMAs)."""
+    return "mma_bf16" if dtype == "bfloat16" else "fma_fp32"
 
 
 def flash_tiles(torch, route, q_seg, kv_seg, causal) -> dict:
@@ -221,20 +223,28 @@ def flash_tiles(torch, route, q_seg, kv_seg, causal) -> dict:
     return {"route": route, "p_split": route == "mma_bf16", "tiles_skipped": skipped}
 
 
-PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd")  # registers and spills reported
+# registers and spills reported
+PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "block_sparse_matmul")
 
 
 def ptxas_report(log: str) -> dict:
     """{kernel<args>: {"registers", "spill_stores", "spill_loads"}} from
-    ``nvcc -Xptxas -v`` output."""
+    ``nvcc -Xptxas -v`` output: the flash kernels by head dim, the bf16
+    block-sparse kernel by tile (rows x columns), load width and slice map."""
     import re
 
     report, name = {}, None
     entry = re.compile(r"Function properties for \S*?\d(flash_[a-z_]+?_kernel)I(\w*?)Li(\d+)E")
+    bsm = re.compile(r"Function properties for \S*?bsm_mma_kernelI\w*?CfgI" + r"Li(\d+)E" * 6
+                     + r"EELi(\d+)ELb([01])E")
     for line in log.splitlines():
         if m := entry.search(line):
             kind = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m.group(2), "")
             name = f"{m.group(1)}<{kind}{m.group(3)}>"
+            report[name] = {}
+        elif m := bsm.search(line):
+            wr, wc, tm, tn, _, _, vec, fused = (int(g) for g in m.groups())
+            name = f"bsm_mma_kernel<{wr * tm * 16}x{wc * tn * 8}, vec {vec}, fused {fused}>"
             report[name] = {}
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
@@ -317,7 +327,7 @@ def flash_case(torch, name, dtype, B, T, Nq, Nkv, H, causal, real_len):
     rec = {"phase": "kernels", "kernel": "flash_attention", "case": name, "dtype": dtype,
            "shape": {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "H": H, "causal": causal,
                      "real_len": real_len},
-           **flash_tiles(torch, flash_route("flash_attention", dtype), seg, seg, causal),
+           **flash_tiles(torch, core_route(dtype), seg, seg, causal),
            **errs, "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "launches": launches}
@@ -366,8 +376,10 @@ def flash_train_case(torch, name_, dtype, B, Tq, Tk, Nq, Nkv, H, causal, q_real,
     dq = flash_attention_bwd_q(q, k, v, q_seg, kv_seg, out, lse, dout, causal, dd)
     launches = [b - a for a, b in zip(n0, counts())]
     dk2, dv2 = flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal, dd)
+    dq2 = flash_attention_bwd_q(q, k, v, q_seg, kv_seg, out, lse, dout, causal, dd)
     torch.cuda.synchronize()
     repeatable = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+    repeatable_q = bool(torch.equal(dq, dq2))
 
     ref_out, ref_lse = flash_attention_lse_plain(*wide(q, k, v), q_seg, kv_seg, causal)
     ref_dq, ref_dk, ref_dv = flash_attention_bwd_plain(
@@ -385,8 +397,9 @@ def flash_train_case(torch, name_, dtype, B, Tq, Tk, Nq, Nkv, H, causal, q_real,
             "flash_attention_bwd_q": err(dq, ref_dq, GRAD_TOL[dtype])}
     errs["flash_attention_lse"]["lse_max_abs_err"] = (lse - ref_lse).abs().max().item()
     errs["flash_attention_bwd_kv"]["bit_identical_over_two_runs"] = repeatable
+    errs["flash_attention_bwd_q"]["bit_identical_over_two_runs"] = repeatable_q
     masked_ok = bool((out[0, 5] == 0).all() and (dq[0, 5] == 0).all())
-    del ref_out, ref_lse, ref_dq, ref_dk, ref_dv, dk2, dv2
+    del ref_out, ref_lse, ref_dq, ref_dk, ref_dv, dk2, dv2, dq2
 
     mask = q_seg[:, :, None] == kv_seg[:, None, :]
     if causal:
@@ -435,7 +448,7 @@ def flash_train_case(torch, name_, dtype, B, Tq, Tk, Nq, Nkv, H, causal, q_real,
                "shape": {"B": B, "Tq": Tq, "Tk": Tk, "Nq": Nq, "Nkv": Nkv, "H": H,
                          "causal": causal, "q_real": q_real, "kv_real": kv_real,
                          "ids": "t % 3" if interleaved else "prefix"},
-               **flash_tiles(torch, flash_route(name, dtype), q_seg, kv_seg, causal),
+               **flash_tiles(torch, core_route(dtype), q_seg, kv_seg, causal),
                **errs[name], "fully_masked_row_exact_zero": masked_ok, **times[name],
                "bound_ms": bound_ms, "bound_by": bound_by, "tile_products": products,
                "launches": launched}
@@ -445,7 +458,7 @@ def flash_train_case(torch, name_, dtype, B, Tq, Tk, Nq, Nkv, H, causal, q_real,
                                f"version: {rec}")
         recs[name] = rec
     if not (errs["flash_attention_lse"]["lse_max_abs_err"] <= LSE_ATOL and repeatable
-            and masked_ok and launches == [1, 1, 1]):
+            and repeatable_q and masked_ok and launches == [1, 1, 1]):
         raise RuntimeError(f"training flash kernels {name_} {dtype}: lse, repeatability, the "
                            f"masked row or the launch counts are off: {recs}")
     return recs
@@ -638,6 +651,24 @@ def listed_elements(torch, sk) -> int:
     return sum(int(listed_mask(i, c, K, N, sk.block_k, sk.block_n).sum()) for i, c in zip(idx, cnt))
 
 
+def sparse_plan(torch, x, sk) -> dict:
+    """The wrapper's plan for ``x @ sk``: the route, and in bf16 the tile
+    (rows x columns), whether each block runs every slice, the load width
+    and the slices."""
+    from dia_tts_prune_tpu_torch.ops.kernels import sparse_matmul as tsm
+
+    dtype = str(x.dtype).removeprefix("torch.")
+    plan = {"route": core_route(dtype)}
+    if dtype == "bfloat16":
+        (M, K), N = x.shape, sk.values.shape[1]
+        vec = tsm.vector_width(x.dtype, K, N, *SPARSE_BLOCK, x.data_ptr(), sk.values.data_ptr())
+        n_split = tsm.bf16_split(N, *SPARSE_BLOCK, sk.indices.shape[-1])
+        tile, fused = tsm.mma_plan(M, N, SPARSE_BLOCK[1], vec, n_split)
+        plan.update(tile="%dx%d" % tsm.MMA_TILES[tile], every_slice_in_one_block=fused, vec=vec,
+                    slices=n_split)
+    return plan
+
+
 def sparse_case(torch, dtype, M, K, N, density, time_it=True, poison=False):
     """``block_sparse_matmul`` against its plain version (fp32, same values),
     within the GEMV tolerance; bit-identical over two runs; with ``poison``
@@ -665,7 +696,7 @@ def sparse_case(torch, dtype, M, K, N, density, time_it=True, poison=False):
     tol = GEMV_SUM_TOL * sum_abs + TOL[dtype]["rtol"] * ref.abs()
     rec = {"phase": "kernels", "kernel": "block_sparse_matmul", "dtype": dtype,
            "shape": {"M": M, "K": K, "N": N, "block": list(SPARSE_BLOCK)},
-           "density": sk.density, "max_abs_err": diff.max().item(),
+           **sparse_plan(torch, x, sk), "density": sk.density, "max_abs_err": diff.max().item(),
            "max_err_over_tol": torch.where(diff > 0, diff / tol, 0.0).max().item(),
            "tol": {"sum_abs": GEMV_SUM_TOL, "rtol": TOL[dtype]["rtol"]},
            "bit_identical_over_two_runs": bool(torch.equal(out, again)), "launches": launches,
@@ -705,23 +736,30 @@ def sparse_case(torch, dtype, M, K, N, density, time_it=True, poison=False):
 
 
 def sparse_rows_case(torch) -> None:
-    """Each row of a 64-row product equals the same row computed 2 and 8
-    rows at a time: the split never depends on the row count."""
+    """Each row of a 64-row product equals the same row computed 2, 8 and 16
+    rows at a time, and each row of a 512-row product at the MLP input
+    projection (bf16: 128-row tiles whose blocks run every slice) its 2-row
+    result: the slices never depend on the row count, and no tile shape
+    changes a row's sum."""
     from dia_tts_prune_tpu_torch.ops.kernels import block_sparse_matmul
 
     for dtype in ("float32", "bfloat16"):
-        sk = sparse_weight(torch, 2048, 2048, 0.5, getattr(torch, dtype))
-        x = torch.randn(64, 2048, generator=torch.Generator(device="cuda").manual_seed(8),
-                        device="cuda").to(sk.values.dtype)
-        plan = (sk.indices, sk.counts, *SPARSE_BLOCK)
-        full = block_sparse_matmul(x, sk.values, *plan)
-        same = {M: all(torch.equal(block_sparse_matmul(x[r:r + M].contiguous(), sk.values, *plan),
-                                   full[r:r + M]) for r in range(0, 64, M)) for M in (2, 8)}
-        emit({"phase": "kernels", "kernel": "block_sparse_matmul", "dtype": dtype,
-              "case": "rows independent of M", "shape": {"M": 64, "K": 2048, "N": 2048},
-              "rows_equal_at_M": same})
-        if not all(same.values()):
-            raise RuntimeError(f"block_sparse_matmul {dtype}: a row depends on the row count")
+        for M, N, parts in ((64, 2048, (2, 8, 16)), (512, 16384, (2,))):
+            sk = sparse_weight(torch, 2048, N, 0.5, getattr(torch, dtype))
+            x = torch.randn(M, 2048, generator=torch.Generator(device="cuda").manual_seed(8),
+                            device="cuda").to(sk.values.dtype)
+            plan = (sk.indices, sk.counts, *SPARSE_BLOCK)
+            full = block_sparse_matmul(x, sk.values, *plan)
+            same = {m: all(torch.equal(block_sparse_matmul(x[r:r + m].contiguous(), sk.values,
+                                                           *plan), full[r:r + m])
+                           for r in range(0, M, m)) for m in parts}
+            emit({"phase": "kernels", "kernel": "block_sparse_matmul", "dtype": dtype,
+                  "case": "rows independent of M", "shape": {"M": M, "K": 2048, "N": N},
+                  "plan": sparse_plan(torch, x, sk),
+                  "plans_of_parts": {m: sparse_plan(torch, x[:m], sk) for m in parts},
+                  "rows_equal_at_M": same})
+            if not all(same.values()):
+                raise RuntimeError(f"block_sparse_matmul {dtype}: a row depends on the row count")
 
 
 def phase_sparse_kernels(torch) -> dict:
@@ -1826,7 +1864,7 @@ def phase_train_fixture(torch, repo: Path) -> None:
 
 KERNEL_KINDS = (("attention_forward", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
                 ("attention_bwd_kv", ("flash_bwd_kv_kernel", "flash_bwd_kv_mma_kernel")),
-                ("attention_bwd_q", ("flash_bwd_q_kernel",)),
+                ("attention_bwd_q", ("flash_bwd_q_kernel", "flash_bwd_q_mma_kernel")),
                 ("gemm", ("gemm", "cutlass", "cublas", "nvjet", "xmma", "wgmma", "gemv")))
 
 
@@ -2060,7 +2098,7 @@ def main() -> int:
              ("fused_decode_step", "fused_decode_step", "fused_int8", "fused_step.py:1018")]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"{csrc}{SOURCES.get(name, name)}.cu",
-         "replaces": jax_kernels + replaces,
+         "core_route": rec.get("route"), "replaces": jax_kernels + replaces,
          "launches": paths[path]["launches"][name], "max_abs_err": rec["max_abs_err"],
          "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
          "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -47,13 +47,28 @@
 // leave little to hide each warp's ldmatrix -> mma chains.  wgmma with TMA is
 // the next step.
 //
-// dK/dV in fp32, and dQ in both dtypes: CUDA cores, the first port's kernels,
-// unchanged: every product is an fp32 FMA (bf16 inputs are widened on load,
-// fp32 stays true fp32, no TF32), ceiling 67 TFLOP/s.  dK/dV: the same block
-// plan with 32-key tiles; dQ mirrors the fp32 forward: one block per (query
-// tile of 32, query head, batch row) looping over key tiles.  Causal blocks
-// skip the tiles wholly above the diagonal.  Time and head dims are
-// bounds-checked, never padded: any Tq/Tk, head_dim 32/64/128.
+// dQ, bf16: tensor cores (flash_bwd_q_mma_kernel), on the forward's tile plan.
+// One block owns (64 query rows, query head, batch row), 4 warps of 16 rows,
+// and loops over its kv head's 64-key tiles (K, V and the key segment ids
+// through a two-stage cp.async ring; causal blocks start with the query tiles
+// that have the most key tiles).  Per 32-key sub-chunk, S = Q.K^T and
+// dP = dO.V^T on mma.sync (Q and dO as A fragments held in registers for the
+// whole loop, K and V through ldmatrix from their n-major tiles), then
+// P = mask ? exp2(S * scale * log2(e) - lse * log2(e)) : 0 and
+// dS / scale = P (dP - dd) on the accumulator fragments, then dQ += dS.K
+// with dS repacked as hi + lo A fragments and K through ldmatrix.trans.  The
+// scale multiplies the fp32 accumulator once, which is rounded once.  Key
+// tiles above the diagonal or whose segment range does not meet the query
+// tile's are skipped whole (the forward's rule, `tile_visits` in the
+// wrapper); the per-element mask runs only on mixed, diagonal or ragged
+// tiles.  Each block owns its rows: no atomics, bit-identical from run to run.
+//
+// dK/dV and dQ in fp32: CUDA cores, the first port's kernels, unchanged: every
+// product is an fp32 FMA (fp32 stays true fp32, no TF32), ceiling 67 TFLOP/s.
+// dK/dV: the same block plan with 32-key tiles; dQ mirrors the fp32 forward:
+// one block per (query tile of 32, query head, batch row) looping over key
+// tiles.  Causal blocks skip the tiles wholly above the diagonal.  Time and
+// head dims are bounds-checked, never padded: any Tq/Tk, head_dim 32/64/128.
 //
 // The CUDA-core kernels: 4 warps.  A warp owns 8 rows of the block's own tile
 // (keys for dK/dV, queries for dQ), whose operands it reads from shared memory
@@ -76,12 +91,8 @@ constexpr int BT = NWARPS * ROWS;   // tile size on both sides: 32 queries x 32 
 constexpr int NTHREADS = NWARPS * 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // [BT][stride] fp32 tile of rows t0.. of head `head` from x [*, T, N, H]
 // (batch offset already applied); rows beyond T are zero.
@@ -618,6 +629,242 @@ cudaError_t dispatch_kv(int H, const Args& a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// dQ in bf16: tensor-core tiles.  Block = (64 query rows, query head, batch
+// row); loops over its kv head's 64-key tiles, KS keys at a time.
+// ---------------------------------------------------------------------------
+constexpr int KS = 32;  // keys per sub-chunk of dQ (S and dP live in registers)
+
+template <int H>
+size_t q_smem_bytes(int n_table) {
+  // Q and dO tiles, two stages of K and V tiles and of key segment ids, the range table
+  return sizeof(bf16) * 6 * tile_elems<H>() + sizeof(int) * 2 * BN +
+         sizeof(SegRange) * n_table;
+}
+
+// One 64-key tile for the warp's 16 query rows.  This thread holds rows row0
+// (accumulator elements 0, 1) and row0 + 8 (elements 2, 3), key columns 2t,
+// 2t+1 of each 8-key n-tile.  P = exp2(S * scale * log2(e) - lse * log2(e)),
+// dS / scale = P (dP - dd); dQ += (dS / scale).K, the scale applied once at
+// the end.  MASK: run the per-element test, as "column <= lim[r]" (the causal
+// diagonal and the tile's ragged end, folded into one limit per row) and
+// "segment ids equal".
+template <int H, bool MASK>
+__device__ __forceinline__ void dq_tile(const uint32_t (&qf)[H / 16][4],
+                                        const uint32_t (&dof)[H / 16][4], const bf16* k_t,
+                                        const bf16* v_t, const int* seg_t, const int (&lim)[2],
+                                        const int (&rseg)[2], const float (&lse2)[2],
+                                        const float (&ddr)[2], float scale_log2,
+                                        float (&dq)[H / 8][4], int lane) {
+  const int t = lane & 3;
+#pragma unroll 1
+  for (int c = 0; c < BN / KS; ++c) {
+    float s[KS / 8][4], dp[KS / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < KS / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < H / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < KS / 16; ++np) {
+        uint32_t b[4];
+        const int off = (c * KS + np * 16) * (H + PAD) + kk * 16;
+        load_b_nk<H>(b, k_t + off, lane);
+        mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+        load_b_nk<H>(b, v_t + off, lane);
+        mma_bf16(dp[2 * np], dof[kk], b[0], b[1]);
+        mma_bf16(dp[2 * np + 1], dof[kk], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < KS / 8; ++nt) {
+      int2 kseg = make_int2(0, 0);
+      if (MASK) kseg = *reinterpret_cast<const int2*>(seg_t + c * KS + nt * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, cc = c * KS + nt * 8 + (e & 1);  // column cc + 2t
+        const bool ok = !MASK || (cc <= lim[r] && ((e & 1) ? kseg.y : kseg.x) == rseg[r]);
+        // an unmasked pad<->real pair would overflow: its weight is exactly 0
+        const float p = ok ? exp2f(s[nt][e] * scale_log2 - lse2[r]) : 0.f;
+        dp[nt][e] = p * (dp[nt][e] - ddr[r]);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS / 16; ++ks) {
+      uint32_t hi[4], lo[4];
+      c_to_a_split(dp[2 * ks], dp[2 * ks + 1], hi, lo);
+#pragma unroll
+      for (int hp = 0; hp < H / 16; ++hp) {
+        uint32_t b[4];
+        load_b_kn<H>(b, k_t + (c * KS + ks * 16) * (H + PAD) + hp * 16, lane);
+        mma_bf16(dq[2 * hp], hi, b[0], b[1]);
+        mma_bf16(dq[2 * hp], lo, b[0], b[1]);
+        mma_bf16(dq[2 * hp + 1], hi, b[2], b[3]);
+        mma_bf16(dq[2 * hp + 1], lo, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// grid (B * Nq, query tiles); blockIdx.x = n + Nq * b.
+template <int H>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_bwd_q_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ dd,
+                       const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+                       bf16* __restrict__ dq, int Tq, int Tk, int Nq, int Nkv, int causal,
+                       float scale, int n_table) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BM][H + PAD]
+  bf16* do_s = q_s + tile_elems<H>();              // [BM][H + PAD]
+  bf16* k_s = do_s + tile_elems<H>();              // [2 stages][BN][H + PAD]
+  bf16* v_s = k_s + 2 * tile_elems<H>();           // [2 stages][BN][H + PAD]
+  int* seg_s = reinterpret_cast<int*>(v_s + 2 * tile_elems<H>());  // [2 stages][BN]
+  SegRange* table = reinterpret_cast<SegRange*>(seg_s + 2 * BN);   // [n_table]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n = blockIdx.x % Nq, b = blockIdx.x / Nq;
+  // causal: the last query tiles have the most key tiles; start them first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BM, q_rows = min(BM, Tq - q0);
+  const int nk = n / (Nq / Nkv);
+  const size_t kv_stride = (size_t)Nkv * H, q_stride = (size_t)Nq * H;
+  const bf16* k_b = k + (size_t)b * Tk * kv_stride + (size_t)nk * H;
+  const bf16* v_b = v + (size_t)b * Tk * kv_stride + (size_t)nk * H;
+  const int* kseg_b = kv_seg + (size_t)b * Tk;
+  const int* qseg_b = q_seg + (size_t)b * Tq;
+  const size_t q_off = (((size_t)b * Tq + q0) * Nq + n) * H;
+
+  load_tile_async<H, BM, THREADS>(q_s, q + q_off, q_stride, q_rows, tid);
+  load_tile_async<H, BM, THREADS>(do_s, dout + q_off, q_stride, q_rows, tid);
+
+  const int n_kt = (Tk + BN - 1) / BN, n_tab = min(n_kt, n_table);
+  seg_range_table(table, n_tab, kseg_b, Tk, warp, WARPS, lane);
+  const SegRange qr = warp_seg_range(qseg_b, q0, Tq, lane);
+  // causal: no key beyond the block's last query row is ever needed
+  const int kt_end = causal ? min(n_kt, (q0 + q_rows - 1) / BN + 1) : n_kt;
+  __syncthreads();  // the range table
+
+  auto next = [&](int j) {
+    do { ++j; } while (j < kt_end && j < n_tab && !ranges_meet(qr, table[j]));
+    return j;
+  };
+  auto load_kv = [&](int j, int stage) {
+    const int k0 = j * BN, rows = min(BN, Tk - k0);
+    load_tile_async<H, BN, THREADS>(k_s + stage * tile_elems<H>(), k_b + k0 * kv_stride,
+                                    kv_stride, rows, tid);
+    load_tile_async<H, BN, THREADS>(v_s + stage * tile_elems<H>(), v_b + k0 * kv_stride,
+                                    kv_stride, rows, tid);
+    load_row_async(seg_s + stage * BN, kseg_b + k0, BN, rows, tid);
+  };
+
+  const int row0 = q0 + warp * 16 + (lane >> 2), row1 = row0 + 8;
+  const int rseg[2] = {row0 < Tq ? qseg_b[row0] : 0, row1 < Tq ? qseg_b[row1] : 0};
+  const float* lse_n = lse + ((size_t)b * Nq + n) * Tq;
+  const float* dd_n = dd + ((size_t)b * Nq + n) * Tq;
+  const float lse2[2] = {row0 < Tq ? lse_n[row0] * LOG2E : 0.f,
+                         row1 < Tq ? lse_n[row1] * LOG2E : 0.f};
+  const float ddr[2] = {row0 < Tq ? dd_n[row0] : 0.f, row1 < Tq ? dd_n[row1] : 0.f};
+  float acc[H / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < H / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  int j = next(-1);
+  if (j < kt_end) load_kv(j, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // Q, dO and the first K/V tile
+  uint32_t qf[H / 16][4], dof[H / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < H / 16; ++kk) {
+    load_a<H>(qf[kk], q_s + warp * 16 * (H + PAD) + kk * 16, lane);
+    load_a<H>(dof[kk], do_s + warp * 16 * (H + PAD) + kk * 16, lane);
+  }
+  const float scale_log2 = scale * LOG2E;
+
+  for (int stage = 0; j < kt_end; stage ^= 1) {
+    const int jn = next(j);
+    if (jn < kt_end) load_kv(jn, stage ^ 1);  // lands while tile j is computed
+    cp_async_commit();
+    const int k0 = j * BN;
+    const SegRange kr = j < n_tab ? table[j] : SegRange{-0x7fffffff - 1, 0x7fffffff};
+    const bool whole = q_rows == BM && k0 + BN <= Tk && one_segment(qr, kr) &&
+                       (!causal || k0 + BN <= q0);
+    const bf16* k_t = k_s + stage * tile_elems<H>();
+    const bf16* v_t = v_s + stage * tile_elems<H>();
+    const int* seg_t = seg_s + stage * BN;
+    if (whole) {
+      dq_tile<H, false>(qf, dof, k_t, v_t, seg_t, {0, 0}, rseg, lse2, ddr, scale_log2, acc,
+                        lane);
+    } else {
+      // the last key column (tile-relative, less 2t) that each row may see
+      const int last = Tk - 1 - k0 - 2 * (lane & 3);
+      const int lim[2] = {causal ? min(last, row0 - k0 - 2 * (lane & 3)) : last,
+                          causal ? min(last, row1 - k0 - 2 * (lane & 3)) : last};
+      dq_tile<H, true>(qf, dof, k_t, v_t, seg_t, lim, rseg, lse2, ddr, scale_log2, acc, lane);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // tile jn landed; everyone is done with this stage
+    j = jn;
+  }
+
+  // epilogue: each warp stages its own 16 rows in its rows of the Q tile
+  // (nobody else reads them), then writes 16 bytes a lane
+  const int t = lane & 3, g = lane >> 2;
+  bf16* o_s = q_s + warp * 16 * (H + PAD);
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < H / 8; ++nt) {
+    const int col = nt * 8 + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(o_s + g * (H + PAD) + col) =
+        __floats2bfloat162_rn(acc[nt][0] * scale, acc[nt][1] * scale);
+    *reinterpret_cast<__nv_bfloat162*>(o_s + (g + 8) * (H + PAD) + col) =
+        __floats2bfloat162_rn(acc[nt][2] * scale, acc[nt][3] * scale);
+  }
+  __syncwarp();
+  constexpr int CPR = H / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR, c = i % CPR, row = q0 + warp * 16 + r;
+    if (row < Tq)
+      *reinterpret_cast<uint4*>(dq + (((size_t)b * Tq + row) * Nq + n) * H + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + r * (H + PAD) + c * 8);
+  }
+}
+
+template <int H>
+cudaError_t launch_q(const Args& a) {
+  const int n_table = std::min((a.Tk + BN - 1) / BN, MAX_TABLE);
+  const size_t smem = q_smem_bytes<H>(n_table);
+  auto kernel = flash_bwd_q_mma_kernel<H>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.Nq, (a.Tq + BM - 1) / BM);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.dd),
+      static_cast<const int*>(a.q_seg), static_cast<const int*>(a.kv_seg),
+      static_cast<bf16*>(a.out0), a.Tq, a.Tk, a.Nq, a.Nkv, a.causal, 1.0f / sqrtf((float)H),
+      n_table);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_q(int H, const Args& a) {
+  switch (H) {
+    case 32: return launch_q<32>(a);
+    case 64: return launch_q<64>(a);
+    case 128: return launch_q<128>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace tc
 
 template <typename T, int H>
@@ -677,8 +924,8 @@ cudaError_t dispatch(int H, int dtype, bool kv, const Args& a) {
   if (a.B <= 0 || a.Tq <= 0 || a.Tk <= 0 || a.Nkv <= 0 || a.Nq % a.Nkv != 0)
     return cudaErrorInvalidValue;
   if (dtype == 0) return kv ? dispatch_kv_fp32(H, a) : dispatch_q<float>(H, a);
-  // bf16: dK/dV on the tensor cores; dQ keeps the CUDA-core kernel
-  if (dtype == 1) return kv ? tc::dispatch_kv(H, a) : dispatch_q<__nv_bfloat16>(H, a);
+  // bf16: both on the tensor cores
+  if (dtype == 1) return kv ? tc::dispatch_kv(H, a) : tc::dispatch_q(H, a);
   return cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,4 @@
-// Tile primitives for the bf16 tensor-core attention kernels (sm_90a):
+// Tile primitives for the bf16 tensor-core kernels (sm_90a):
 // cp.async copies into padded shared-memory tiles, ldmatrix fragment loads,
 // mma.sync m16n8k16 bf16 -> fp32, the hi + lo bf16 split of fp32 operands,
 // quad reductions over the lanes that share an accumulator row, and the

@@ -23,11 +23,11 @@ and how the designs answer that.
 * ``flash_attention_lse``, ``flash_attention_bwd_kv``, ``flash_attention_bwd_q``
   — the three kernels' wrappers, each with its launch count; on CPU tensors
   they compute ``flash_attention_lse_plain`` / ``flash_attention_bwd_plain``.
-* ``tile_visits`` — which 64 x 64 (query, key) tiles the bf16 forward and
-  dK/dV kernels compute; they skip the others whole.
+* ``tile_visits`` — which 64 x 64 (query, key) tiles the bf16 forward,
+  dK/dV and dQ kernels compute; they skip the others whole.
 
-bf16 q/k/v run the forward and dK/dV on the tensor cores, fp32 on the CUDA
-cores (true fp32); dQ runs on the CUDA cores in both dtypes.
+bf16 q/k/v run all three kernels on the tensor cores, fp32 on the CUDA cores
+(true fp32).
 """
 
 from __future__ import annotations
@@ -149,7 +149,7 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.einsum("btngh,bsnh->bngts", qg, k.float()) * (1.0 / math.sqrt(H))
 
 
-TILE = 64  # query rows and keys per tile of the bf16 forward and dK/dV kernels
+TILE = 64  # query rows and keys per tile of the bf16 forward, dK/dV and dQ kernels
 
 
 def _tile_ranges(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -169,7 +169,7 @@ def _tile_ranges(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def tile_visits(q_segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor,
                 causal: bool = False) -> torch.Tensor:
     """bool [B, query tiles, key tiles]: the 64 x 64 tile pairs that the bf16
-    forward and dK/dV kernels compute.  A pair is skipped whole when the key
+    forward, dK/dV and dQ kernels compute.  A pair is skipped whole when the key
     tile lies above the causal diagonal, or when the segment-id ranges of the
     two tiles do not meet, so that no pair of positions in it can have equal
     ids.  (Tiles past 32768 positions are never skipped by range; no shape the

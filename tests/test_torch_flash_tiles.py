@@ -1,15 +1,15 @@
 """The arithmetic of the bf16 tensor-core flash kernels, emulated on the CPU.
 
 ``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
-(dK/dV) cannot run here, so their design is checked as numpy/torch code that
-follows them tile by tile: 64 x 64 (query, key) tiles in the kernels' order,
+(dK/dV and dQ) cannot run here, so their design is checked as numpy/torch
+code that follows them tile by tile: 64 x 64 (query, key) tiles in the kernels' order,
 tiles skipped by ``tile_visits`` (causal diagonal, segment ranges that do not
 meet), products of bf16 values summed in fp32 (as ``mma.sync`` does), the
 online softmax, and the way an fp32 operand enters an MMA: one bf16 rounding
 of it, or the hi + lo pair the kernels use.  The emulation is held to the
 plain versions at the gates ``chip_smoke.py`` holds the kernels to on the card.
 It shows which precision design can meet them: hi + lo does, one bf16 rounding
-of P does not.  The kernels themselves are held to the plain versions on the
+of P or dS does not.  The kernels themselves are held to the plain versions on the
 card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``.
 """
 
@@ -31,6 +31,7 @@ torch.set_num_threads(1)
 
 NEG = -1e30
 QS = 32  # queries per sub-chunk of the dK/dV kernel
+KS = 32  # keys per sub-chunk of the dQ kernel
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -148,6 +149,42 @@ def emulate_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal, split):
     return _bf16(dk), _bf16(dv)
 
 
+def emulate_bwd_q(q, k, v, q_seg, kv_seg, out, lse, dout, causal, split):
+    """``flash_bwd_q_mma_kernel``: a block per (64 query rows, head, batch
+    row) looping over its kv head's visited 64-key tiles, 32 keys at a time;
+    dS / scale = P (dP - dd) enters dQ += dS.K as hi + lo (or rounded once),
+    and the fp32 accumulator is scaled once.  Returns dq in fp32, before the
+    kernel's one rounding to bf16."""
+    B, Tq, Nq, H = q.shape
+    Tk, Nkv = k.shape[1], k.shape[2]
+    G = Nq // Nkv
+    scale = 1.0 / math.sqrt(H)
+    mask = _mask(q_seg, kv_seg, causal)
+    visits = tile_visits(q_seg, kv_seg, causal)
+    dd = (dout * out).sum(-1)  # [B, Tq, Nq]
+    dq = torch.zeros(B, Tq, Nq, H)
+    for b in range(B):
+        for n in range(Nq):
+            nk = n // G
+            for i in range(visits.shape[1]):
+                rows = slice(i * TILE, min((i + 1) * TILE, Tq))
+                qt, dot = q[b, rows, n], dout[b, rows, n]
+                acc = torch.zeros(qt.shape[0], H)
+                for j in range(visits.shape[2]):
+                    if not visits[b, i, j]:
+                        continue
+                    for c0 in range(j * TILE, min((j + 1) * TILE, Tk), KS):
+                        keys = slice(c0, min(c0 + KS, Tk))
+                        kt = k[b, keys, nk]
+                        ok = mask[b, rows, keys]
+                        s = (qt @ kt.T) * scale
+                        p = torch.where(ok, torch.exp(s - lse[b, n, rows][:, None]), 0.0)
+                        ds = p * ((dot @ v[b, keys, nk].T) - dd[b, rows, n][:, None])
+                        acc = acc + _mma(_operand(ds, split), kt)
+                dq[b, rows, n] = acc * scale
+    return dq
+
+
 def _excess(got, ref, tol) -> float:
     """max(|got - ref| - rtol |ref|) over atol: the gate passes at <= 1."""
     return ((got - ref).abs() - tol["rtol"] * ref.abs()).max().item() / tol["atol"]
@@ -191,10 +228,26 @@ def test_emulated_dkdv_meets_the_chip_gate(shape, causal):
     assert _excess(dv, ref_dv, GRAD_TOL["bfloat16"]) <= 1
 
 
+@pytest.mark.parametrize("shape,causal", CASES, ids=CASE_IDS)
+def test_emulated_dq_meets_the_chip_gate(shape, causal):
+    """hi + lo dS meets the bf16 gate after the kernel's one rounding, and
+    the fp32 gate before it; a fully masked row's dq is exactly 0."""
+    B, Tq, Tk, Nq, Nkv, H, qk, kk = shape
+    q, k, v, do, q_seg, kv_seg = _inputs(4, B, Tq, Tk, Nq, Nkv, H, qk, kk)
+    out, lse = flash_attention_lse_plain(q, k, v, q_seg, kv_seg, causal)
+    out = _bf16(out)
+    dq = emulate_bwd_q(q, k, v, q_seg, kv_seg, out, lse, do, causal, split=True)
+    ref_dq, _, _ = flash_attention_bwd_plain(q, k, v, q_seg, kv_seg, out, lse, do, causal)
+    assert _excess(_bf16(dq), ref_dq, GRAD_TOL["bfloat16"]) <= 1
+    assert _excess(dq, ref_dq, GRAD_TOL["float32"]) <= 1
+    assert (dq[0, 5] == 0).all()
+
+
 @pytest.mark.parametrize("shape,causal", CASES + [(SQUARE, False)],
                          ids=CASE_IDS + ["2x256x256x4x4x64ones"])
 def test_one_bf16_rounding_of_p_misses_the_gate(shape, causal):
-    """Why the kernels split P and dS: rounded once to bf16 (2^-9 relative),
+    """Why the kernels split P and dS (dK/dV and dQ alike): rounded once to
+    bf16 (2^-9 relative),
     they move outputs and gradients several times past what the gates leave
     over the results' own rounding to bf16; the split brings them back to
     fp32 grade."""
@@ -209,8 +262,11 @@ def test_one_bf16_rounding_of_p_misses_the_gate(shape, causal):
     bwd = [max(_excess(dk, ref_dk, GRAD_TOL["bfloat16"]), _excess(dv, ref_dv, GRAD_TOL["bfloat16"]))
            for dk, dv in (emulate_bwd_kv(q, k, v, q_seg, kv_seg, out, ref_lse, do, causal, split)
                           for split in (False, True))]
-    assert fwd[0] > 10 and bwd[0] > 3, (fwd, bwd)
-    assert fwd[1] <= 0.5 and bwd[1] <= 0.5, (fwd, bwd)
+    ref_dq = flash_attention_bwd_plain(q, k, v, q_seg, kv_seg, out, ref_lse, do, causal)[0]
+    dq = [_excess(_bf16(emulate_bwd_q(q, k, v, q_seg, kv_seg, out, ref_lse, do, causal, split)),
+                  ref_dq, GRAD_TOL["bfloat16"]) for split in (False, True)]
+    assert fwd[0] > 10 and bwd[0] > 3 and dq[0] > 3, (fwd, bwd, dq)
+    assert fwd[1] <= 0.5 and bwd[1] <= 0.5 and dq[1] <= 0.5, (fwd, bwd, dq)
 
 
 @pytest.mark.parametrize("kind", ["ones", "prefix", "interleaved", "packed", "random"])

@@ -118,7 +118,7 @@ def test_flash_training_kernels_match_plain_on_card(cuda_device, dtype, rtol, at
     assert torch.all(dq[0, 5] == 0)  # a fully masked row gets exactly no gradient
 
 
-# The bf16 forward and dK/dV run on the tensor cores in 64 x 64 tiles: head dims
+# The bf16 forward, dK/dV and dQ run on the tensor cores in 64 x 64 tiles: head dims
 # 32/64/128, GQA groups 1/2/4, lengths that are not multiples of 64, and ids
 # t % 3, which put every id in every tile, so that no tile may be skipped by
 # its segment range.  Gates as above.
@@ -150,23 +150,27 @@ def test_flash_bf16_tensor_core_kernels_match_plain_on_card(cuda_device, case):
 
     q_seg, kv_seg = seg(Tq), seg(Tk)
     q_seg[0, 5] = 7  # one fully masked query row
-    counts = lambda: (flash_attention_lse.launches, flash_attention_bwd_kv.launches)  # noqa: E731
+    counts = lambda: (flash_attention_lse.launches, flash_attention_bwd_kv.launches,  # noqa: E731
+                      flash_attention_bwd_q.launches)
     n0 = counts()
     out, lse = flash_attention_lse(q, k, v, q_seg, kv_seg, causal)
     dk, dv = flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal)
-    assert counts() == (n0[0] + 1, n0[1] + 1)
+    dq = flash_attention_bwd_q(q, k, v, q_seg, kv_seg, out, lse, dout, causal)
+    assert counts() == tuple(n + 1 for n in n0)
     again = flash_attention_bwd_kv(q, k, v, q_seg, kv_seg, out, lse, dout, causal)
     assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])  # no atomics: repeatable
+    assert torch.equal(dq, flash_attention_bwd_q(q, k, v, q_seg, kv_seg, out, lse, dout, causal))
+    assert torch.all(dq[0, 5] == 0)  # a fully masked row gets exactly zero dq
 
     ref_out, ref_lse = flash_attention_lse_plain(*_wide(q, k, v, q_seg, kv_seg), causal)
     fwd_rtol, fwd_atol = dict((t[0], t[1:]) for t in TOLS)[torch.bfloat16]
     torch.testing.assert_close(out.float(), ref_out, rtol=fwd_rtol, atol=fwd_atol)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=2e-5)
     assert torch.all(out[0, 5] == 0)  # a fully masked row comes out as exact zeros
-    _, ref_dk, ref_dv = flash_attention_bwd_plain(
+    ref_dq, ref_dk, ref_dv = flash_attention_bwd_plain(
         *_wide(q, k, v, q_seg, kv_seg, out, lse, dout), causal)
     rtol, atol = dict((t[0], t[1:]) for t in GRAD_TOLS)[torch.bfloat16]
-    for got, ref in ((dk, ref_dk), (dv, ref_dv)):
+    for got, ref in ((dk, ref_dk), (dv, ref_dv), (dq, ref_dq)):
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got.float(), ref, rtol=rtol, atol=atol)
 
@@ -356,17 +360,43 @@ def test_block_sparse_kernel_matches_plain_on_card(cuda_device, dtype, rtol, ato
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_block_sparse_rows_do_not_depend_on_the_row_count(cuda_device, dtype):
+@pytest.mark.parametrize("M,N", [(64, 2048), (512, 16384)])
+def test_block_sparse_rows_do_not_depend_on_the_row_count(cuda_device, dtype, M, N):
     """Row i of an M-row product equals the same row computed with 2, 8 or
-    64 rows: batched lanes repeat their single-stream runs."""
+    16 rows: batched lanes repeat their single-stream runs.  In bf16 the 64
+    rows take 64-row tiles and the 512 rows 128-row tiles in which one block
+    runs every slice; 2-16 rows take 16-row tiles with a finish pass."""
     rng = np.random.default_rng(25)
-    w, idx, cnt, _ = _sparse_case(rng, 2048, 2048, 256, 256, cuda_device, dtype)
-    x = _t(_normal(rng, (64, 2048))).to(cuda_device, dtype)
+    w, idx, cnt, _ = _sparse_case(rng, 2048, N, 256, 256, cuda_device, dtype)
+    x = _t(_normal(rng, (M, 2048))).to(cuda_device, dtype)
     full = block_sparse_matmul(x, w, idx, cnt, 256, 256)
-    for M in (2, 8):
-        for r0 in range(0, 64, M):
-            assert torch.equal(block_sparse_matmul(x[r0:r0 + M].contiguous(), w, idx, cnt, 256,
-                                                   256), full[r0:r0 + M])
+    for rows in (2, 8, 16):
+        for r0 in range(0, M, rows if M <= 64 else 8 * rows):
+            assert torch.equal(block_sparse_matmul(x[r0:r0 + rows].contiguous(), w, idx, cnt,
+                                                   256, 256), full[r0:r0 + rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,bk,bn", [(70, 2048, 2048, 256, 256), (130, 1024, 9252, 256, 256),
+                                         (40, 320, 200, 32, 64)])
+def test_block_sparse_bf16_tiles_and_slice_maps_agree_on_card(cuda_device, M, K, N, bk, bn):
+    """Every bf16 tile (16, 64, 128 rows) and both slice maps (a block per
+    slice with the finish pass, or one block running every slice) give the
+    same bits: a row's sum does not depend on its place in a tile."""
+    from dia_tts_prune_tpu_torch.ops.kernels import sparse_matmul as tsm
+
+    rng = np.random.default_rng(26)
+    w, idx, cnt, poisoned = _sparse_case(rng, K, N, bk, bn, cuda_device, torch.bfloat16)
+    x = _t(_normal(rng, (M, K))).to(cuda_device, torch.bfloat16)
+    vec = tsm.vector_width(torch.bfloat16, K, N, bk, bn, x.data_ptr(), w.data_ptr())
+    n_split = tsm.bf16_split(N, bk, bn, idx.shape[1])
+    assert vec >= 4 and n_split > 1
+    ref = tsm.launch(x, w, idx, cnt, bk, bn, vec, n_split, 0, False)
+    for tile, fused in ((1, False), (1, True), (2, False), (2, True)):
+        assert torch.equal(tsm.launch(x, w, idx, cnt, bk, bn, vec, n_split, tile, fused), ref)
+        assert torch.equal(tsm.launch(x, poisoned, idx, cnt, bk, bn, vec, n_split, tile, fused),
+                           ref)
+    assert torch.equal(block_sparse_matmul(x, w, idx, cnt, bk, bn), ref)
 
 
 @pytest.mark.gpu

@@ -197,12 +197,14 @@ def test_launch_plan_ignores_row_count():
     assert "M" not in inspect.signature(tsm.split_plan).parameters
     for K, N in ((2048, 2048), (2048, 512), (2048, 16384), (8192, 2048), (2048, 9252)):
         for max_blocks in (K // 256 // 2, K // 256):
-            n = tsm.split_plan(N, 256, 256, max_blocks, 2)
+            n = tsm.split_plan(N, 256, 256, max_blocks, tsm.STRIP)
             assert -(-max_blocks * 256 // n) <= tsm.MAX_SLICE
             assert -(-N // 256) * 4 * n >= 132 or max_blocks * 256 // n <= tsm.MIN_SLICE * 2
-    assert tsm.vector_width(torch.bfloat16, 9252, 256, 0) == 2
-    assert tsm.vector_width(torch.bfloat16, 37, 16, 0) == 1
-    assert tsm.vector_width(torch.float32, 9252, 256, 0) == 1
+    assert tsm.vector_width(torch.bfloat16, 2048, 16384, 256, 256, 0, 256) == 8
+    assert tsm.vector_width(torch.bfloat16, 2048, 9252, 256, 256, 0, 256) == 4
+    assert tsm.vector_width(torch.bfloat16, 2048, 16384, 256, 256, 0, 6) == 1
+    assert tsm.vector_width(torch.bfloat16, 40, 37, 8, 16, 0, 0) == 1
+    assert tsm.vector_width(torch.float32, 2048, 9252, 256, 256, 0, 0) == 1
 
 
 def test_wrapper_input_checks():

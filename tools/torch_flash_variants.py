@@ -2,24 +2,27 @@
 """Time the bf16 tensor-core flash kernels against edited copies of themselves.
 
 Each variant is a list of (old, new) text edits of ``csrc/flash_attention.cu``
-(forward with log-sum-exp rows) or ``csrc/flash_attention_bwd.cu`` (dK/dV),
-built by nvcc into a library of its own and called through the same C entry
-points as the wrappers.  At the attention sites of a
+(forward with log-sum-exp rows) or ``csrc/flash_attention_bwd.cu`` (dK/dV and
+dQ), built by nvcc into a library of its own and called through the same C
+entry points as the wrappers.  At the attention sites of a
 Dia-1.6B training step (E, S, C) and of serving (encoder, prefill) it prints,
-per site and variant, the device time (CUDA-graph replay, the variants in
-turns a b b a) and the gate ratio ``max(|out - ref| - 2^-8 |ref|) / atol``
-against the plain version in fp32 (atol 1e-5 forward, 1e-4 dK/dV, as in
-``chip_smoke.py``; the gate passes at <= 1), the registers and spills ptxas
-reports, then the card's name and power limit.
+per site, kernel and variant, the device time (CUDA-graph replay, the
+variants in turns a b b a) and the gate ratio
+``max(|out - ref| - 2^-8 |ref|) / atol`` against the plain version in fp32
+(atol 1e-5 forward, 1e-4 dK/dV and dQ, as in ``chip_smoke.py``; the gate
+passes at <= 1), the registers and spills ptxas reports, then the card's name
+and power limit.
 
 Variants:
 
 * ``base`` — the sources as they are;
-* ``one_bf16_rounding`` — P (forward) and P^T, dS^T (dK/dV) enter their MMAs
-  once, rounded to bf16, instead of as hi + lo pairs: the time the split costs,
-  and the gate it would miss;
+* ``one_bf16_rounding`` — P (forward), P^T, dS^T (dK/dV) and dS (dQ) enter
+  their MMAs once, rounded to bf16, instead of as hi + lo pairs: the time the
+  split costs, and the gate it would miss;
 * ``qs16`` — dK/dV computes S^T and dP^T 16 queries at a time instead of 32
-  (fewer live registers, more reloads of the K/V fragments).
+  (fewer live registers, more reloads of the K/V fragments);
+* ``ks64`` — dQ computes S and dP for all 64 keys of a tile at once instead
+  of 32 at a time (more live registers, fewer passes).
 
 Run on the card: ``python3 tools/torch_flash_variants.py [variant ...]``.
 """
@@ -44,12 +47,15 @@ LO_FWD = ["      mma_bf16(acc[2 * dp], lo, b[0], b[1]);\n",
 LO_BWD = ["        mma_bf16(dv[2 * dp], p_lo, b[0], b[1]);\n",
           "        mma_bf16(dv[2 * dp + 1], p_lo, b[2], b[3]);\n",
           "        mma_bf16(dk[2 * dp], s_lo, b[0], b[1]);\n",
-          "        mma_bf16(dk[2 * dp + 1], s_lo, b[2], b[3]);\n"]
+          "        mma_bf16(dk[2 * dp + 1], s_lo, b[2], b[3]);\n",
+          "        mma_bf16(dq[2 * hp], lo, b[0], b[1]);\n",
+          "        mma_bf16(dq[2 * hp + 1], lo, b[2], b[3]);\n"]
 VARIANTS = {
     "base": {FWD: [], BWD: []},
     "one_bf16_rounding": {FWD: [(line, "") for line in LO_FWD],
                           BWD: [(line, "") for line in LO_BWD]},
     "qs16": {BWD: [("constexpr int QS = 32;", "constexpr int QS = 16;")]},
+    "ks64": {BWD: [("constexpr int KS = 32;", "constexpr int KS = 64;")]},
 }
 # B, Tq, Tk, Nq, Nkv, H, causal, real lengths of q and kv per batch row (None: all real)
 SITES = {
@@ -111,24 +117,28 @@ def main() -> int:
         for (name, source), (_, report) in built.items():
             print(json.dumps({"variant": name, "source": source, "ptxas": report}), flush=True)
 
-        def call(name, source, q, k, v, qs, ks, causal, lse=None, dout=None, dd=None):
-            lib = built[name, source][0]
+        def call(name, kernel, q, k, v, qs, ks, causal, lse=None, dout=None, dd=None):
+            lib = built[name, FWD if kernel == "forward_lse" else BWD][0]
             B, Tq, Nq, H = q.shape
             Tk, Nkv = k.shape[1], k.shape[2]
             stream = torch.cuda.current_stream().cuda_stream
-            if source == FWD:
+            if kernel == "forward_lse":
                 fn, argtypes = lib.flash_attention_fwd_lse, fa._LSE_ARGTYPES
                 out = (torch.empty_like(q), torch.empty(B, Nq, Tq, device="cuda"))
                 ptrs = (q, k, v, qs, ks, *out)
-            else:
+            elif kernel == "bwd_kv":
                 fn, argtypes = lib.flash_attention_bwd_kv, fa._BWD_KV_ARGTYPES
                 out = (torch.empty_like(k), torch.empty_like(v))
+                ptrs = (q, k, v, dout, lse, dd, qs, ks, *out)
+            else:
+                fn, argtypes = lib.flash_attention_bwd_q, fa._BWD_Q_ARGTYPES
+                out = (torch.empty_like(q),)
                 ptrs = (q, k, v, dout, lse, dd, qs, ks, *out)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             err = fn(*(t.data_ptr() for t in ptrs), B, Tq, Tk, Nq, Nkv, H, 1, int(causal),
                      stream)
             if err != 0:
-                raise RuntimeError(f"variant {name} {source}: launch failed ({err})")
+                raise RuntimeError(f"variant {name} {kernel}: launch failed ({err})")
             return out
 
         def gate(got, ref, atol):
@@ -150,21 +160,21 @@ def main() -> int:
             ref_out, lse = fa.flash_attention_lse_plain(*wide, qs, ks, causal)
             out = ref_out.bfloat16()
             dd = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-            _, ref_dk, ref_dv = fa.flash_attention_bwd_plain(*wide, qs, ks, out.float(), lse,
-                                                             dout.float(), causal)
-            for source in (FWD, BWD):
+            ref_dq, ref_dk, ref_dv = fa.flash_attention_bwd_plain(
+                *wide, qs, ks, out.float(), lse, dout.float(), causal)
+            refs = {"forward_lse": ((ref_out, 1e-5),), "bwd_kv": ((ref_dk, 1e-4), (ref_dv, 1e-4)),
+                    "bwd_q": ((ref_dq, 1e-4),)}
+            for kernel, source in (("forward_lse", FWD), ("bwd_kv", BWD), ("bwd_q", BWD)):
                 runs = [n for n in names if (n, source) in built]
                 times = {n: [] for n in runs}
                 for n in runs + runs[::-1]:  # in turns: a b b a
-                    args = (n, source, q, k, v, qs, ks, causal, lse, dout, dd)
+                    args = (n, kernel, q, k, v, qs, ks, causal, lse, dout, dd)
                     times[n].append(graph_ms(torch, lambda: call(*args), iters=8) * 1e3)
                 for n in runs:
-                    got = call(n, source, q, k, v, qs, ks, causal, lse, dout, dd)
-                    ratio = (gate(got[0], ref_out, 1e-5) if source == FWD else
-                             max(gate(got[0], ref_dk, 1e-4), gate(got[1], ref_dv, 1e-4)))
-                    print(json.dumps({"site": site, "kernel": "forward_lse" if source == FWD
-                                      else "bwd_kv", "variant": n, "us": times[n],
-                                      "gate_ratio": ratio}), flush=True)
+                    got = call(n, kernel, q, k, v, qs, ks, causal, lse, dout, dd)
+                    ratio = max(gate(g, ref, atol) for g, (ref, atol) in zip(got, refs[kernel]))
+                    print(json.dumps({"site": site, "kernel": kernel, "variant": n,
+                                      "us": times[n], "gate_ratio": ratio}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi.splitlines()[0] if smi else "nvidia-smi: no card listed", flush=True)
