@@ -224,21 +224,29 @@ def flash_tiles(torch, route, q_seg, kv_seg, causal) -> dict:
 
 
 # registers and spills reported
-PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "block_sparse_matmul")
+PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "block_sparse_matmul",
+                 "decode_attention")
 
 
 def ptxas_report(log: str) -> dict:
     """{kernel<args>: {"registers", "spill_stores", "spill_loads"}} from
     ``nvcc -Xptxas -v`` output: the flash kernels by head dim, the bf16
-    block-sparse kernel by tile (rows x columns), load width and slice map."""
+    block-sparse kernel by tile (rows x columns), load width and slice map,
+    the decode kernel at head dim 128 by q and cache type and query heads held."""
     import re
 
     report, name = {}, None
     entry = re.compile(r"Function properties for \S*?\d(flash_[a-z_]+?_kernel)I(\w*?)Li(\d+)E")
     bsm = re.compile(r"Function properties for \S*?bsm_mma_kernelI\w*?CfgI" + r"Li(\d+)E" * 6
                      + r"EELi(\d+)ELb([01])E")
+    dec = re.compile(r"Function properties for \S*?decode_attention_kernelI(\w*?)Li128ELi(\d)E")
+    types = {"13__nv_bfloat16S1_": "bf16, bf16", "13__nv_bfloat16a": "bf16, int8",
+             "ff": "float, float", "fa": "float, int8"}
     for line in log.splitlines():
-        if m := entry.search(line):
+        if m := dec.search(line):
+            name = f"decode_attention_kernel<{types.get(m.group(1), m.group(1))}, 128, G {m.group(2)}>"
+            report[name] = {}
+        elif m := entry.search(line):
             kind = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(m.group(2), "")
             name = f"{m.group(1)}<{kind}{m.group(3)}>"
             report[name] = {}
@@ -464,7 +472,29 @@ def flash_train_case(torch, name_, dtype, B, Tq, Tk, Nq, Nkv, H, causal, q_real,
     return recs
 
 
-def decode_case(torch, name, dtype, B, T, Nq, Nkv, H, ends):
+def decode_bits(torch, name, dtype, args, out, launches) -> dict:
+    """The decode kernel's bit-level gates: one launch per call, the same bits
+    on a second run, and every pair of rows (2b, 2b + 1) of a batch of more
+    than two equal to the same rows called as a batch of two."""
+    from dia_tts_prune_tpu_torch.ops.kernels import decode_attention
+    from dia_tts_prune_tpu_torch.ops.kernels.decode_attention import DESIGN
+
+    repeatable = torch.equal(decode_attention(*args), out)
+    B = out.shape[0]
+    pairs_equal = None
+    if B > 2:
+        pairs_equal = all(torch.equal(
+            decode_attention(*(a[i:i + 2].contiguous() for a in args)), out[i:i + 2])
+            for i in range(0, B - 1, 2))
+    rec = {"launches_per_call": launches, "design": DESIGN, "repeatable": repeatable,
+           "rows_equal_batch_of_2": pairs_equal}
+    if launches != 1 or not repeatable or pairs_equal is False:
+        raise RuntimeError(f"decode_attention {name} {dtype}: launches, repeatability or rows "
+                           f"against a batch of two are off: {rec}")
+    return rec
+
+
+def decode_case(torch, name, dtype, B, T, Nq, Nkv, H, ends, starts=None):
     import torch.nn.functional as F
 
     from dia_tts_prune_tpu_torch.ops.kernels import decode_attention, decode_attention_plain
@@ -474,7 +504,8 @@ def decode_case(torch, name, dtype, B, T, Nq, Nkv, H, ends):
     q = torch.randn(B, Nq, H, generator=g, device="cuda").to(dt)
     k = torch.randn(B, T, Nkv, H, generator=g, device="cuda").to(dt)
     v = torch.randn(B, T, Nkv, H, generator=g, device="cuda").to(dt)
-    start = torch.zeros(B, dtype=torch.int32, device="cuda")
+    starts = [0] * B if starts is None else starts
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
     end = torch.tensor(ends, dtype=torch.int32, device="cuda")
     before = decode_attention.launches
     out = decode_attention(q, k, v, start, end)
@@ -482,8 +513,9 @@ def decode_case(torch, name, dtype, B, T, Nq, Nkv, H, ends):
     errs = check(torch, f"decode_attention {name}", dtype, out, decode_attention_plain,
                  (q, k, v, start, end))
     for b, e_b in enumerate(ends):
-        if e_b == 0 and not bool((out[b] == 0).all()):
-            raise RuntimeError(f"decode_attention {name} {dtype}: end=0 row {b} is not exactly 0")
+        if e_b <= starts[b] and not bool((out[b] == 0).all()):
+            raise RuntimeError(f"decode_attention {name} {dtype}: empty row {b} is not exactly 0")
+    bits = decode_bits(torch, name, dtype, (q, k, v, start, end), out, launches)
     kernel_ms = graph_ms(torch, lambda: decode_attention(q, k, v, start, end))
     eager_ms = cuda_ms(torch, lambda: decode_attention(q, k, v, start, end), iters=100)
     plain_ms = cuda_ms(torch, lambda: decode_attention_plain(q, k, v, start, end))
@@ -493,13 +525,14 @@ def decode_case(torch, name, dtype, B, T, Nq, Nkv, H, ends):
     kh, vh = (x.transpose(1, 2).repeat_interleave(Nq // Nkv, dim=1) for x in (k, v))
     library_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask[:, None, None]))
-    valid = sum(ends)
+    valid = sum(max(e_b - s_b, 0) for s_b, e_b in zip(starts, ends))
     e = q.element_size()
     nbytes = e * (2 * B * Nq * H + 2 * valid * Nkv * H) + 4 * 2 * B
     bound_ms, bound_by = bound(nbytes, 4.0 * H * Nq * valid, dtype)
     rec = {"phase": "kernels", "kernel": "decode_attention", "case": name, "dtype": dtype,
-           "shape": {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "H": H, "ends": list(ends)},
-           **errs, "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+           "shape": {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "H": H, "ends": list(ends),
+                     **({"starts": list(starts)} if any(starts) else {})},
+           **errs, **bits, "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "launches": launches}
     emit(rec)
@@ -531,6 +564,7 @@ def decode_int8_case(torch, name, dtype, B, T, Nq, Nkv, H, ends, with_new):
     for b, e_b in enumerate(ends):
         if e_b == 0 and not with_new and not bool((out[b] == 0).all()):
             raise RuntimeError(f"decode_attention {name} {dtype}: end=0 row {b} is not exactly 0")
+    bits = decode_bits(torch, name, dtype, args, out, launches)
     kernel_ms = graph_ms(torch, lambda: decode_attention(*args))
     eager_ms = cuda_ms(torch, lambda: decode_attention(*args), iters=100)
     plain_ms = cuda_ms(torch, lambda: decode_attention_plain(*args))
@@ -554,7 +588,7 @@ def decode_int8_case(torch, name, dtype, B, T, Nq, Nkv, H, ends, with_new):
     rec = {"phase": "kernels", "kernel": "decode_attention", "case": name, "dtype": dtype,
            "cache": "int8", "current_token": with_new,
            "shape": {"B": B, "T": T, "Nq": Nq, "Nkv": Nkv, "H": H, "ends": list(ends)},
-           **errs, "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+           **errs, **bits, "ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "launches": launches}
     emit(rec)
@@ -1094,8 +1128,13 @@ def phase_kernels(torch, faults: dict) -> dict:
             rec = decode_case(torch, "self", dtype, 2, 3072, 16, 4, 128, ends)
         decode_case(torch, "cross_S1024", dtype, 2, 1024, 16, 16, 128, [0, 700])
         decode_case(torch, "cross_S128", dtype, 2, 128, 16, 16, 128, [0, 61])
+        # four CFG streams (each pair of rows against a batch of two), and start > 0
+        decode_case(torch, "self_B8", dtype, 8, 3072, 16, 4, 128, [1537] * 8)
+        decode_case(torch, "start_gt_0", dtype, 4, 1024, 16, 16, 128, [700, 1024, 61, 5],
+                    starts=[100, 1000, 0, 5])
         for ends in ([0, 3071], [1537, 1537]):
             rec8 = decode_int8_case(torch, "self_int8", dtype, 2, 3072, 16, 4, 128, ends, True)
+        decode_int8_case(torch, "self_int8_B8", dtype, 8, 3072, 16, 4, 128, [1537] * 8, True)
         decode_int8_case(torch, "cross_S1024_int8", dtype, 2, 1024, 16, 16, 128, [0, 700], False)
         decode_int8_case(torch, "cross_S128_int8", dtype, 2, 128, 16, 16, 128, [0, 61], False)
         for name, (K, N) in GEMV_SHAPES.items():

@@ -12,253 +12,480 @@
 // What bounds it on the H100: bytes.  Per step and layer it reads the valid
 // K/V slots once (2 * valid * Nkv * H elements) and does ~4 FLOP per element
 // read per query head in the group — about 1-2 FLOP/byte, two orders of
-// magnitude below the ridge point.  The design therefore reads only
-// [start_b, end_b) — slots past end are never loaded, so traffic follows the
-// generated length and not the cache capacity — and spreads that read over
-// many blocks: the range is cut into chunks of 128 slots (split-K, "flash
-// decoding"), one block per (chunk, kv head, batch row).  Blocks cannot carry
-// a running softmax to one another as the TPU's sequential grid does, so each
-// writes its partial (max, sum, fp32 accumulator) and a second small kernel
-// combines the chunks of every (row, query head).
+// magnitude below the ridge point.  At Dia's sizes that is 0.1-2 us of bytes,
+// so the launch, the latency of the first loads, each warp's chain of stages
+// and the combine of the splits decide the time.  The design:
+//
+// * One launch per call.  The splits of one (row, kv head) are the CLUSTER
+//   blocks of a thread-block cluster (grid (CLUSTER, Nkv, B)).  Block `rank`
+//   takes the equal share [lo + n*rank/CLUSTER, lo + n*(rank+1)/CLUSTER) of
+//   the row's own range [lo, lo + n), so no block sits past end, and a row's
+//   summation order depends only on its range and the constants below —
+//   never on B, the capacity Tc or the other rows.  Each block reduces its
+//   warps' partials (max m, sum l, fp32 accumulator) in shared memory in warp
+//   order; after cluster.sync() rank 0 reads the other blocks' partials
+//   through distributed shared memory in rank order, adds the current token
+//   (k_new, v_new) and writes the output.  No combine kernel, no scratch.
+// * Every warp works, whatever G is.  A block's share is cut into NWARPS
+//   equal slot ranges; each warp scores its slots against all G query heads
+//   of the kv head, with q in registers.
+// * Bytes in flight.  Each lane copies 16-byte units of K and V rows (8 bf16,
+//   16 int8 or 4 fp32) with cp.async into a STAGES-deep ring of its warp, and
+//   computes on exactly the units it copied itself, so the ring needs no
+//   barrier: cp.async.wait_group keeps STAGES - 1 stages in flight while one
+//   is computed.  Slots past the warp's range are zero-filled, never read.
+// * Dots as lane-partial FMAs over a unit, then a butterfly over the LPS
+//   lanes that share a slot (every lane ends with the same bits).  The
+//   probabilities weight the lane's own V units; the lanes of different slots
+//   are summed by a butterfly once, at the end of the warp's range.
+//
+// Numerics: fp32 products and sums, one rounding to the output dtype; scores
+// carry log2(e) in their scale so the softmax takes exp2f; fixed orders
+// everywhere, no atomics, so a call is bit-identical over runs.
 //
 // int8 caches (the JAX package's QuantKVCache, models/dia.py:57): K/V are int8
 // [B,T,Nkv,H] with one fp32 scale per (slot, kv head), ks and vs [B,T,Nkv].
-// The codes are widened in registers and the scales stay outside the dots, as
-// `_sdpa_quant` (:85) has them: slot t scores (q . k8[t]) * ks[t] / sqrt(H) and
-// contributes p[t] * vs[t] * v8[t].  That halves (bf16) or quarters (fp32) the
-// bytes this kernel is bound by.  For self-attention the current token is not
-// in the cache yet: `decode_step_scan` (:661-685) attends the quantized prefix
-// and adds the token's unquantized k_new, v_new analytically, committing them
-// quantized afterwards.  Here the combine pass takes k_new, v_new [B,Nkv,H] as
-// one more partial with max = its score, sum = 1, accumulator = v_new.
-#include <cuda_runtime.h>
+// The codes are widened exactly in registers and the scales stay outside the
+// dots, as `_sdpa_quant` (:85) has them: slot t scores (q . k8[t]) * ks[t] /
+// sqrt(H) and contributes p[t] * vs[t] * v8[t].  For self-attention the
+// current token is not in the cache yet: `decode_step_scan` (:661-685) attends
+// the quantized prefix and adds the token's unquantized k_new, v_new
+// analytically; here rank 0 adds it as one more partial with max = its score,
+// sum = 1, accumulator = v_new.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int NWARPS = 4;   // warp g < G owns query head n*G + g; all warps load tiles
-constexpr int CHUNK = 128;  // cache slots per block (one split)
-constexpr int BK = 32;      // slots per shared-memory tile: one per lane
+constexpr float LOG2E = 1.44269504088896340736f;  // scores in log2 units: exp2f, not expf
+constexpr int CLUSTER = 8;  // blocks (splits) per (row, kv head); the portable cluster size
+constexpr int NWARPS = 4;   // warps per block, each an equal share of the block's slots
+constexpr int NT = NWARPS * 32;
+constexpr int UNITS = 2;    // 16-byte units of K (and of V) each lane copies per stage
+constexpr int STAGES = 4;   // depth of each warp's cp.async ring
+
+// Slot geometry of a cache element type C at head dim H: a slot's row is LPS
+// units of EPL elements, one per lane, so a warp-wide copy covers SPI slots and
+// a stage SPS.
+template <typename C, int H>
+struct Geom {
+  static constexpr int EPL = 16 / (int)sizeof(C);
+  static constexpr int LPS = H * (int)sizeof(C) / 16;
+  static constexpr int SPI = 32 / LPS;
+  static constexpr int SPS = UNITS * SPI;
+  static_assert(LPS >= 1 && LPS <= 32 && 32 % LPS == 0, "a slot's row is 1..32 units");
+};
+
+// Dynamic shared memory: the rings (K and V units, and for int8 caches each
+// lane's copy of its slots' scales), then the warps' and the block's partials.
+template <typename C, int H, int GT>
+struct Smem {
+  static constexpr bool QUANT = sizeof(C) == 1;
+  static constexpr int RING = NWARPS * STAGES * 2 * UNITS * 32;  // 16-byte units
+  static constexpr int SRING = QUANT ? RING : 0;                 // floats
+  static constexpr size_t ring = 0;
+  static constexpr size_t sring = ring + (size_t)RING * 16;
+  static constexpr size_t wacc = sring + (size_t)SRING * 4;      // [NWARPS][GT][H]
+  static constexpr size_t wm = wacc + (size_t)NWARPS * GT * H * 4;  // [NWARPS][GT]
+  static constexpr size_t wl = wm + (size_t)NWARPS * GT * 4;
+  static constexpr size_t bacc = wl + (size_t)NWARPS * GT * 4;   // [GT][H]
+  static constexpr size_t bm = bacc + (size_t)GT * H * 4;        // [GT]
+  static constexpr size_t bl = bm + (size_t)GT * 4;
+  static constexpr size_t scur = bl + (size_t)GT * 4;
+  static constexpr size_t bytes = scur + (size_t)GT * 4;
+  static_assert(bytes <= 227 * 1024, "shared memory of one block");
+};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// one 16-byte unit of cache elements, widened exactly to fp32
+__device__ __forceinline__ void widen(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x), f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z), f[3] = __uint_as_float(r.w);
 }
+__device__ __forceinline__ void widen(const uint4& r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // the lower address holds the lower half
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void widen(const uint4& r, float (&f)[16]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) f[4 * i + k] = (float)((int32_t)(w[i] << (24 - 8 * k)) >> 24);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16 / 4 bytes global -> shared, asynchronously; zeros when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-// grid (n_split, Nkv, B); partials [B, Nq, n_split] (+ H for acc).  C is the
-// cache's element type: T, or int8_t with the slot scales ks, vs [B, Tc, Nkv]
-template <typename T, typename C, int H>
-__global__ void __launch_bounds__(NWARPS * 32)
-decode_partial_kernel(const T* __restrict__ q, const C* __restrict__ kc,
-                      const C* __restrict__ vc, const float* __restrict__ ks,
-                      const float* __restrict__ vs, const int* __restrict__ start,
-                      const int* __restrict__ end, float* __restrict__ part_acc,
-                      float* __restrict__ part_m, float* __restrict__ part_l, int Tc, int Nq,
-                      int Nkv, float scale) {
-  constexpr int DPL = H / 32;
-  constexpr bool QUANT = sizeof(C) == 1;
-  __shared__ float q_s[NWARPS][H];
-  __shared__ float k_s[BK][H + 1];  // +1: lane j reading slot j is conflict free
-  __shared__ float v_s[BK][H];
-  __shared__ float ks_s[BK], vs_s[BK];
+// grid (CLUSTER, Nkv, B), clusters of (CLUSTER, 1, 1), NT threads.  C is the
+// cache's element type: T, or int8_t with the slot scales ks, vs [B, Tc, Nkv].
+// GT >= G = Nq / Nkv query heads per kv head are held in registers (heads
+// g >= G are zeros and never written).
+template <typename T, typename C, int H, int GT>
+__global__ void __launch_bounds__(NT)
+decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ kc,
+                        const C* __restrict__ vc, const float* __restrict__ ks,
+                        const float* __restrict__ vs, const T* __restrict__ k_new,
+                        const T* __restrict__ v_new, const int* __restrict__ start,
+                        const int* __restrict__ end, T* __restrict__ out, int Tc, int Nq,
+                        int Nkv, float scale) {
+  using Gm = Geom<C, H>;
+  using Sm = Smem<C, H, GT>;
+  constexpr int EPL = Gm::EPL, LPS = Gm::LPS, SPI = Gm::SPI, SPS = Gm::SPS;
+  constexpr bool QUANT = Sm::QUANT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* ring = reinterpret_cast<uint4*>(smem + Sm::ring);  // [NWARPS][STAGES][K, V][UNITS][32]
+  float* sring = reinterpret_cast<float*>(smem + Sm::sring);
+  float* wacc = reinterpret_cast<float*>(smem + Sm::wacc);
+  float* wm = reinterpret_cast<float*>(smem + Sm::wm);
+  float* wl = reinterpret_cast<float*>(smem + Sm::wl);
+  float* bacc = reinterpret_cast<float*>(smem + Sm::bacc);
+  float* bm = reinterpret_cast<float*>(smem + Sm::bm);
+  float* bl = reinterpret_cast<float*>(smem + Sm::bl);
+  float* scur = reinterpret_cast<float*>(smem + Sm::scur);
 
-  const int split = blockIdx.x, n_split = gridDim.x;
-  const int nk = blockIdx.y;
-  const int b = blockIdx.z;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int nk = blockIdx.y, b = blockIdx.z;
   const int G = Nq / Nkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int u = lane % LPS;    // the unit of a slot's row this lane copies
+  const int sub = lane / LPS;  // its slot within a warp-wide copy
 
+  // this warp's share of this block's share of the row's range
   const int lo = max(start[b], 0);
-  const int hi = min(end[b], Tc);
-  const int c0 = lo + split * CHUNK;
-  const int c1 = min(hi, c0 + CHUNK);
+  const int n = max(min(end[b], Tc) - lo, 0);
+  const int r0 = lo + n * rank / CLUSTER, nb = lo + n * (rank + 1) / CLUSTER - r0;
+  const int w0 = r0 + nb * warp / NWARPS, w1 = r0 + nb * (warp + 1) / NWARPS;
+  const int nst = (w1 - w0 + SPS - 1) / SPS;
 
-  for (int i = tid; i < G * H; i += NWARPS * 32) {
+  float qf[GT][EPL];
+#pragma unroll
+  for (int g = 0; g < GT; ++g)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e)
+      qf[g][e] = g < G ? to_f(q[((size_t)b * Nq + nk * G + g) * H + u * EPL + e]) : 0.f;
+
+  const size_t slot_stride = (size_t)Nkv * H;
+  const C* kb = kc + ((size_t)b * Tc * Nkv + nk) * H + u * EPL;
+  const C* vb = vc + ((size_t)b * Tc * Nkv + nk) * H + u * EPL;
+  const size_t sc0 = (size_t)b * Tc * Nkv + nk;
+  uint4* my_ring = ring + (size_t)warp * STAGES * 2 * UNITS * 32;
+  float* my_sring = sring + (size_t)warp * STAGES * 2 * UNITS * 32;
+
+  auto copy_stage = [&](int j) {
+    uint4* dst = my_ring + (j % STAGES) * 2 * UNITS * 32;
+    float* sdst = my_sring + (j % STAGES) * 2 * UNITS * 32;
+#pragma unroll
+    for (int k = 0; k < UNITS; ++k) {
+      const int slot = w0 + j * SPS + k * SPI + sub;
+      const bool ok = slot < w1;
+      const size_t off = ok ? (size_t)slot * slot_stride : 0;
+      cp_async16(dst + k * 32 + lane, kb + off, ok);
+      cp_async16(dst + (UNITS + k) * 32 + lane, vb + off, ok);
+      if constexpr (QUANT) {
+        const size_t so = sc0 + (ok ? (size_t)slot * Nkv : 0);
+        cp_async4(sdst + k * 32 + lane, ks + so, ok);
+        cp_async4(sdst + (UNITS + k) * 32 + lane, vs + so, ok);
+      }
+    }
+  };
+
+  float m[GT], l[GT], acc[GT][EPL];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = NEG, l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+  }
+
+#pragma unroll
+  for (int j = 0; j < STAGES; ++j) {
+    if (j < nst) copy_stage(j);
+    cp_async_commit();  // empty groups too: the wait below counts groups
+  }
+  for (int j = 0; j < nst; ++j) {
+    cp_async_wait<STAGES - 1>();  // stage j has landed
+    const uint4* src = my_ring + (j % STAGES) * 2 * UNITS * 32;
+    const float* ssrc = my_sring + (j % STAGES) * 2 * UNITS * 32;
+    float s[UNITS][GT];
+    bool ok[UNITS];
+#pragma unroll
+    for (int k = 0; k < UNITS; ++k) {
+      ok[k] = w0 + j * SPS + k * SPI + sub < w1;
+      float kf[EPL];
+      widen(src[k * 32 + lane], kf);
+      const float kscale = QUANT ? ssrc[k * 32 + lane] * scale : scale;
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) d = fmaf(qf[g][e], kf[e], d);
+#pragma unroll
+        for (int o = LPS / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        s[k][g] = ok[k] ? d * kscale : NEG;
+      }
+    }
+    float p[UNITS][GT];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float mx = s[0][g];  // slot 0 of a stage is always in range
+#pragma unroll
+      for (int k = 1; k < UNITS; ++k) mx = fmaxf(mx, s[k][g]);
+#pragma unroll
+      for (int o = LPS; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = exp2f(m[g] - m_new);  // m == NEG on the first stage -> 0
+      m[g] = m_new;
+      float ps = 0.f;
+#pragma unroll
+      for (int k = 0; k < UNITS; ++k) {
+        p[k][g] = ok[k] ? exp2f(s[k][g] - m_new) : 0.f;
+        ps += p[k][g];
+      }
+      l[g] = fmaf(l[g], alpha, ps);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+    }
+#pragma unroll
+    for (int k = 0; k < UNITS; ++k) {
+      float vf[EPL];
+      widen(src[(UNITS + k) * 32 + lane], vf);
+      const float vscale = QUANT ? ssrc[(UNITS + k) * 32 + lane] : 1.f;
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        const float pv = p[k][g] * vscale;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pv, vf[e], acc[g][e]);
+      }
+    }
+    __syncwarp();  // this stage's reads are done before its buffer is refilled
+    if (j + STAGES < nst) copy_stage(j + STAGES);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // the lanes of different slots hold partial sums over their own slots
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+#pragma unroll
+    for (int o = LPS; o < 32; o <<= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    }
+  }
+  if (lane < LPS) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) wacc[(warp * GT + g) * H + u * EPL + e] = acc[g][e];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) wm[warp * GT + g] = m[g], wl[warp * GT + g] = l[g];
+  }
+  // rank 0: the current token's score for head g (warp g; G <= NWARPS)
+  if (k_new != nullptr && rank == 0 && warp < G) {
+    const T* qg = q + ((size_t)b * Nq + nk * G + warp) * H;
+    const T* kn = k_new + ((size_t)b * Nkv + nk) * H;
+    float d = 0.f;
+#pragma unroll
+    for (int i = lane; i < H; i += 32) d = fmaf(to_f(qg[i]), to_f(kn[i]), d);
+    d = warp_sum(d);
+    if (lane == 0) scur[warp] = d * scale;
+  }
+  __syncthreads();
+
+  // the block's partial: its warps' partials merged in warp order
+  for (int i = tid; i < G * H; i += NT) {
     const int g = i / H, d = i % H;
-    q_s[g][d] = to_f(q[((size_t)b * Nq + nk * G + g) * H + d]);
-  }
-
-  float m = NEG, l = 0.f, acc[DPL];
+    float M = NEG;
 #pragma unroll
-  for (int j = 0; j < DPL; ++j) acc[j] = 0.f;
-
-  for (int t0 = c0; t0 < c1; t0 += BK) {  // empty when this chunk lies past end
-    __syncthreads();
-    for (int i = tid; i < BK * H; i += NWARPS * 32) {
-      const int j = i / H, d = i % H, slot = t0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (slot < c1) {
-        const size_t off = (((size_t)b * Tc + slot) * Nkv + nk) * H + d;
-        kv = to_f(kc[off]);
-        vv = to_f(vc[off]);
-      }
-      k_s[j][d] = kv;
-      v_s[j][d] = vv;
-    }
-    if (QUANT && tid < BK) {
-      const int slot = t0 + tid;
-      const size_t off = ((size_t)b * Tc + slot) * Nkv + nk;
-      ks_s[tid] = slot < c1 ? ks[off] : 0.f;
-      vs_s[tid] = slot < c1 ? vs[off] : 0.f;
-    }
-    __syncthreads();
-    if (warp < G) {
-      const bool ok = t0 + lane < c1;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < H; ++d) s = fmaf(q_s[warp][d], k_s[lane][d], s);
-      if (QUANT) s *= ks_s[lane];
-      s = ok ? s * scale : NEG;
-      const float m_new = fmaxf(m, warp_max(s));  // >= one real score: t0 < c1
-      const float alpha = expf(m - m_new);         // m == NEG on the first tile -> 0
-      const float p = ok ? expf(s - m_new) : 0.f;
-      l = l * alpha + warp_sum(p);
-      m = m_new;
-      const float pv = QUANT ? p * vs_s[lane] : p;
+    for (int w = 0; w < NWARPS; ++w)
+      if (wl[w * GT + g] > 0.f) M = fmaxf(M, wm[w * GT + g]);
+    float a = 0.f, L = 0.f;
 #pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) acc[dd] *= alpha;
-#pragma unroll 4
-      for (int j = 0; j < BK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pv, j);
-#pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) acc[dd] = fmaf(pj, v_s[j][lane + 32 * dd], acc[dd]);
+    for (int w = 0; w < NWARPS; ++w) {
+      const float lw = wl[w * GT + g];
+      if (lw > 0.f) {  // a warp with no slot has l == 0 (and m == NEG)
+        const float e = exp2f(wm[w * GT + g] - M);
+        a = fmaf(e, wacc[(w * GT + g) * H + d], a);
+        L = fmaf(e, lw, L);
       }
     }
+    bacc[g * H + d] = a;
+    if (d == 0) bm[g] = M, bl[g] = L;
   }
+  cluster.sync();  // every block's partial is in its shared memory
 
-  if (warp < G) {
-    const size_t idx = ((size_t)b * Nq + nk * G + warp) * n_split + split;
+  if (rank == 0) {
+    const size_t cur = ((size_t)b * Nkv + nk) * H;
+    for (int i = tid; i < G * H; i += NT) {
+      const int g = i / H, d = i % H;
+      float pm[CLUSTER], pl[CLUSTER], pa[CLUSTER];
 #pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) part_acc[idx * H + lane + 32 * dd] = acc[dd];
-    if (lane == 0) {
-      part_m[idx] = m;  // an empty chunk leaves m = NEG, l = 0
-      part_l[idx] = l;
+      for (int r = 0; r < CLUSTER; ++r) {  // distributed shared memory reads, all in flight
+        pm[r] = cluster.map_shared_rank(bm, r)[g];
+        pl[r] = cluster.map_shared_rank(bl, r)[g];
+        pa[r] = cluster.map_shared_rank(bacc, r)[g * H + d];
+      }
+      float M = k_new != nullptr ? scur[g] : NEG;
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r)
+        if (pl[r] > 0.f) M = fmaxf(M, pm[r]);
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r) {
+        if (pl[r] > 0.f) {
+          const float e = exp2f(pm[r] - M);
+          num = fmaf(e, pa[r], num);
+          den = fmaf(e, pl[r], den);
+        }
+      }
+      if (k_new != nullptr) {
+        const float e = exp2f(scur[g] - M);
+        num = fmaf(e, to_f(v_new[cur + d]), num);
+        den += e;
+      }
+      // empty range and no current token: num == 0 -> exact zero
+      out[((size_t)b * Nq + nk * G + g) * H + d] = from_f<T>(num / fmaxf(den, 1e-30f));
     }
   }
-}
-
-// grid (Nq, B), H threads: merge the chunks of one (row, query head) and, when
-// k_new is given, the current token [B, Nkv, H] that is not in the cache
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const T* __restrict__ q, const T* __restrict__ k_new,
-                                      const T* __restrict__ v_new, T* __restrict__ out, int Nq,
-                                      int Nkv, int H, int n_split, float scale) {
-  __shared__ float dot_s[4];  // one per warp: H <= 128
-  const int n = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const size_t base = ((size_t)b * Nq + n) * n_split;
-  float M = NEG;
-  for (int s = 0; s < n_split; ++s)
-    if (part_l[base + s] > 0.f) M = fmaxf(M, part_m[base + s]);
-  float num = 0.f, den = 0.f, s_cur = 0.f;
-  const size_t cur = ((size_t)b * Nkv + n / (Nq / Nkv)) * H + d;
-  if (k_new != nullptr) {
-    const float prod = warp_sum(to_f(q[((size_t)b * Nq + n) * H + d]) * to_f(k_new[cur]));
-    if ((d & 31) == 0) dot_s[d >> 5] = prod;
-    __syncthreads();
-    for (int i = 0; i < H / 32; ++i) s_cur += dot_s[i];
-    s_cur *= scale;
-    M = fmaxf(M, s_cur);
-    const float w = expf(s_cur - M);
-    num = w * to_f(v_new[cur]);
-    den = w;
-  }
-  for (int s = 0; s < n_split; ++s) {
-    const float ls = part_l[base + s];
-    if (ls > 0.f) {
-      const float w = expf(part_m[base + s] - M);
-      num = fmaf(w, part_acc[(base + s) * H + d], num);
-      den = fmaf(w, ls, den);
-    }
-  }
-  // empty range: num == 0 -> exact zero
-  out[((size_t)b * Nq + n) * H + d] = from_f<T>(num / fmaxf(den, 1e-30f));
+  cluster.sync();  // no block leaves while rank 0 may still read its shared memory
 }
 
 struct Args {
   const void *q, *kc, *vc, *ks, *vs, *k_new, *v_new, *start, *end;
   void* out;
-  float* part;
-  int B, Tc, Nq, Nkv, n_split;
+  int B, Tc, Nq, Nkv;
   cudaStream_t stream;
 };
 
-template <typename T, typename C, int H>
+template <typename T, typename C, int H, int GT>
 cudaError_t launch(const Args& a) {
-  float* part_acc = a.part;
-  float* part_m = part_acc + (size_t)a.B * a.Nq * a.n_split * H;
-  float* part_l = part_m + (size_t)a.B * a.Nq * a.n_split;
-  const float scale = 1.0f / sqrtf((float)H);
-  decode_partial_kernel<T, C, H><<<dim3(a.n_split, a.Nkv, a.B), NWARPS * 32, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const C*>(a.kc), static_cast<const C*>(a.vc),
-      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
-      static_cast<const int*>(a.start), static_cast<const int*>(a.end), part_acc, part_m, part_l,
-      a.Tc, a.Nq, a.Nkv, scale);
-  cudaError_t err = cudaGetLastError();
+  const auto kernel = decode_attention_kernel<T, C, H, GT>;
+  constexpr size_t smem = Smem<C, H, GT>::bytes;
+  // the opt-in above 48 KB of shared memory, once per device (of the first 64)
+  static unsigned long long configured = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(a.Nq, a.B), H, 0, a.stream>>>(
-      part_acc, part_m, part_l, static_cast<const T*>(a.q), static_cast<const T*>(a.k_new),
-      static_cast<const T*>(a.v_new), static_cast<T*>(a.out), a.Nq, a.Nkv, H, a.n_split, scale);
-  return cudaGetLastError();
+  if (dev >= 64 || !(configured >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) configured |= 1ull << dev;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER, a.Nkv, a.B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a.q), static_cast<const C*>(a.kc),
+                           static_cast<const C*>(a.vc), static_cast<const float*>(a.ks),
+                           static_cast<const float*>(a.vs), static_cast<const T*>(a.k_new),
+                           static_cast<const T*>(a.v_new), static_cast<const int*>(a.start),
+                           static_cast<const int*>(a.end), static_cast<T*>(a.out), a.Tc, a.Nq,
+                           a.Nkv, LOG2E / sqrtf((float)H));
+  const cudaError_t last = cudaGetLastError();  // clear it: the next entry's check reads it
+  return err != cudaSuccess ? err : last;
+}
+
+template <typename T, typename C, int H>
+cudaError_t dispatch_g(int G, const Args& a) {
+  switch (G) {
+    case 1: return launch<T, C, H, 1>(a);
+    case 2: return launch<T, C, H, 2>(a);
+    case 3:
+    case 4: return launch<T, C, H, 4>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, typename C>
-cudaError_t dispatch_h(int H, const Args& a) {
+cudaError_t dispatch_h(int H, int G, const Args& a) {
   switch (H) {
-    case 32: return launch<T, C, 32>(a);
-    case 64: return launch<T, C, 64>(a);
-    case 128: return launch<T, C, 128>(a);
+    case 32: return dispatch_g<T, C, 32>(G, a);
+    case 64: return dispatch_g<T, C, 64>(G, a);
+    case 128: return dispatch_g<T, C, 128>(G, a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t dispatch_cache(bool kv_int8, int H, const Args& a) {
-  return kv_int8 ? dispatch_h<T, int8_t>(H, a) : dispatch_h<T, T>(H, a);
+cudaError_t dispatch_cache(bool kv_int8, int H, int G, const Args& a) {
+  return kv_int8 ? dispatch_h<T, int8_t>(H, G, a) : dispatch_h<T, T>(H, G, a);
 }
 
 }  // namespace
 
-extern "C" int decode_attention_chunk() { return CHUNK; }
-
 // q [B,Nq,H] (dtype 0 = float32, 1 = bfloat16), start/end int32 [B], out
-// [B,Nq,H] in q's dtype, part fp32 scratch of B*Nq*n_split*(H+2) floats with
-// n_split = ceil(Tc / CHUNK).  Caches [B,Tc,Nkv,H]: in q's dtype (kv_int8 = 0;
-// ks, vs null), or int8 with fp32 slot scales ks, vs [B,Tc,Nkv] (kv_int8 = 1).
-// k_new, v_new [B,Nkv,H] in q's dtype: one more token that every row attends
-// besides its slot range, or both null.  All contiguous.  Requires
-// Nq / Nkv <= 4.  Returns the launches' cudaError_t.
+// [B,Nq,H] in q's dtype.  Caches [B,Tc,Nkv,H], 16-byte aligned: in q's dtype
+// (kv_int8 = 0; ks, vs null), or int8 with fp32 slot scales ks, vs [B,Tc,Nkv]
+// (kv_int8 = 1).  k_new, v_new [B,Nkv,H] in q's dtype: one more token that
+// every row attends besides its slot range, or both null.  All contiguous.
+// Requires Nq / Nkv <= 4 (NWARPS).  One launch; returns its cudaError_t.
 extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* vc,
                                     const void* ks, const void* vs, const void* k_new,
                                     const void* v_new, const void* start, const void* end,
-                                    void* out, void* part, int B, int Tc, int Nq, int Nkv, int H,
-                                    int dtype, int kv_int8, void* stream) {
+                                    void* out, int B, int Tc, int Nq, int Nkv, int H, int dtype,
+                                    int kv_int8, void* stream) {
   if (B <= 0 || Tc <= 0 || Nkv <= 0 || Nq % Nkv != 0 || Nq / Nkv > NWARPS ||
       (kv_int8 != 0) != (ks != nullptr) || (ks == nullptr) != (vs == nullptr) ||
-      (k_new == nullptr) != (v_new == nullptr))
+      (k_new == nullptr) != (v_new == nullptr) ||
+      ((reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) & 15) != 0)
     return cudaErrorInvalidValue;
-  const Args a{q, kc, vc, ks, vs, k_new, v_new, start, end, out, static_cast<float*>(part),
-               B, Tc, Nq, Nkv, (Tc + CHUNK - 1) / CHUNK, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch_cache<float>(kv_int8 != 0, H, a);
-  if (dtype == 1) return dispatch_cache<__nv_bfloat16>(kv_int8 != 0, H, a);
+  const Args a{q, kc, vc, ks, vs, k_new, v_new, start, end, out, B, Tc, Nq, Nkv,
+               static_cast<cudaStream_t>(stream)};
+  const int G = Nq / Nkv;
+  if (dtype == 0) return dispatch_cache<float>(kv_int8 != 0, H, G, a);
+  if (dtype == 1) return dispatch_cache<__nv_bfloat16>(kv_int8 != 0, H, G, a);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,16 @@
 """Single-token GQA decode attention over a cache: CUDA kernel wrapper and its
 plain PyTorch version.
 
-Kernel: ``csrc/decode_attention.cu`` (hand-written split-K flash-decoding for
-sm_90a, loaded with ctypes).  It replaces the Pallas kernel
+Kernel: ``csrc/decode_attention.cu`` (hand-written for sm_90a, loaded with
+ctypes).  It replaces the Pallas kernel
 ``dia_tts_prune_tpu/ops/kernels/decode_attention.py::decode_attention`` (:95),
 generalising its scalar ``valid_len`` to a per-row slot range
 ``[start[b], end[b])``.  Slots outside the range are never read, and a row
-whose range is empty gets exact zeros.
+whose range is empty gets exact zeros.  One launch per call: the splits of a
+(row, kv head) are the blocks of a thread-block cluster, each an equal share
+of the row's own range (so a row's result never depends on the batch, the
+cache capacity or the other rows), combined on chip through distributed
+shared memory.
 
 The port's decode step runs it for every layer, twice:
 
@@ -36,8 +40,11 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 4  # query heads per kv head the kernel takes (one warp each)
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+MAX_GROUP = 4  # query heads per kv head the kernel takes
+# how the kernel combines a row's splits: a thread-block cluster that merges
+# them on chip through distributed shared memory (csrc: CLUSTER blocks)
+DESIGN = "cluster"
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def decode_attention_plain(
@@ -133,6 +140,8 @@ def _check(q, k_cache, v_cache, start, end, k_scale=None, v_scale=None, k_new=No
         raise ValueError("decode_attention inputs must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention inputs must be contiguous")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention caches must start on a 16-byte boundary")
 
 
 def decode_attention(
@@ -160,18 +169,14 @@ def decode_attention(
     from ._build import kernel_function
 
     fn = kernel_function("decode_attention", "decode_attention_fwd", _ARGTYPES)
-    chunk = kernel_function("decode_attention", "decode_attention_chunk", [])()
     B, Nq, H = q.shape
     T, Nkv = k_cache.shape[1], k_cache.shape[2]
-    n_split = -(-T // chunk)
     out = torch.empty_like(q)
-    part = torch.empty(B * Nq * n_split * (H + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  *(None if t is None else t.data_ptr() for t in args[5:]), start.data_ptr(),
-                 end.data_ptr(), out.data_ptr(), part.data_ptr(), B, T, Nq, Nkv, H,
-                 _DTYPE_CODES[q.dtype], int(k_scale is not None),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 end.data_ptr(), out.data_ptr(), B, T, Nq, Nkv, H, _DTYPE_CODES[q.dtype],
+                 int(k_scale is not None), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (cudaError {err})")
     decode_attention.launches += 1

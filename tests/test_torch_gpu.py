@@ -253,6 +253,89 @@ def test_decode_kernel_int8_cache_matches_plain_on_card(cuda_device, dtype, rtol
         assert torch.all(out[0] == 0)
 
 
+def _decode_args(rng, device, dtype, B, T, Nq, Nkv, H, starts, ends, int8, with_new=False):
+    q = _t(_normal(rng, (B, Nq, H))).to(device, dtype)
+    start = torch.tensor(starts, dtype=torch.int32, device=device)
+    end = torch.tensor(ends, dtype=torch.int32, device=device)
+    if not int8:
+        k, v = (_t(_normal(rng, (B, T, Nkv, H))).to(device, dtype) for _ in range(2))
+        return [q, k, v, start, end]
+    (k8, ks), (v8, vs) = (quantize_kv(_t(_normal(rng, (B, T, Nkv, H))).to(device))
+                          for _ in range(2))
+    new = [_t(_normal(rng, (B, Nkv, H))).to(device, dtype) for _ in range(2)] if with_new else []
+    return [q, k8, v8, start, end, ks, vs, *new]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_rows_do_not_depend_on_the_batch_and_repeat(cuda_device, dtype, int8):
+    """Eight rows (four CFG streams) equal the same rows called two at a time,
+    bit for bit, and a second call gives the same bits: a row's splits come
+    from its own range, and every sum runs in a fixed order."""
+    rng = np.random.default_rng(20)
+    ends = [1537, 1537, 0, 900, 61, 3072, 1, 2000]
+    args = _decode_args(rng, cuda_device, dtype, 8, 3072, 16, 4, 128, [0] * 8, ends, int8,
+                        with_new=int8)
+    n0 = decode_attention.launches
+    out = decode_attention(*args)
+    assert decode_attention.launches == n0 + 1
+    assert torch.equal(decode_attention(*args), out)
+    for i in range(0, 8, 2):
+        assert torch.equal(decode_attention(*(a[i:i + 2].contiguous() for a in args)),
+                           out[i:i + 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_slots_outside_the_range_are_never_read(cuda_device, int8):
+    rng = np.random.default_rng(21)
+    T, starts, ends = 400, [0, 37, 5, 390], [0, 300, 6, 400]
+    args = _decode_args(rng, cuda_device, torch.bfloat16, 4, T, 8, 2, 64, starts, ends, int8)
+    out = decode_attention(*args)
+    slots = torch.arange(T, device=cuda_device)
+    outside = (slots[None] < args[3][:, None].long()) | (slots[None] >= args[4][:, None].long())
+    poisoned = list(args)
+    if int8:  # int8 codes hold no NaN: poison the scales
+        poisoned[5], poisoned[6] = (torch.where(outside[..., None], float("nan"), s)
+                                    for s in args[5:7])
+    else:
+        poisoned[1], poisoned[2] = (torch.where(outside[..., None, None], float("nan"), c)
+                                    for c in args[1:3])
+    assert torch.equal(decode_attention(*poisoned), out)
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_replays_from_a_cuda_graph(cuda_device):
+    rng = np.random.default_rng(22)
+    args = _decode_args(rng, cuda_device, torch.bfloat16, 2, 1024, 16, 16, 128, [0, 0],
+                        [0, 700], True)
+    eager = decode_attention(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attention(*args)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+def test_decode_kernel_one_query_head_per_kv_head_with_start(cuda_device, dtype, rtol, atol):
+    """G = 1 at H = 128 (Dia's cross-attention) with ranges that start past 0,
+    one shorter than the cluster's splits and one empty."""
+    rng = np.random.default_rng(23)
+    args = _decode_args(rng, cuda_device, dtype, 4, 1024, 16, 16, 128, [100, 1000, 3, 8],
+                        [700, 1024, 6, 8], False)
+    out = decode_attention(*args)
+    ref = decode_attention_plain(*_wide(*args))
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+    assert torch.all(out[3] == 0)
+
+
 # The GEMV kernels sum K fp32 products in another order than the plain matmul:
 # the error scales with the sum of the products' magnitudes (1e-6 of it, ~17
 # fp32 ulps; measured on the card at most 0.2e-6), plus the one rounding to bf16.

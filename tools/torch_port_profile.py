@@ -22,6 +22,8 @@ line:
 * ``device_ms_per_step`` — summed CUDA kernel time per step (torch.profiler);
 * ``device_idle_share`` — 1 - device / host time;
 * ``top_kernels``       — kernel names by device time per step;
+* ``decode_attention_ms_per_step`` and ``decode_attention_launches_per_step``
+  — the decode-attention kernel's share (36 launches an unfused step);
 * the card's name and power limit.
 
 Run on the card: ``python3 tools/torch_port_profile.py [--steps 64] [--quant int8]
@@ -156,10 +158,16 @@ def main(argv=None) -> int:
         kernels.sort(key=lambda r: -r[1])
         device_ms = sum(r[1] for r in kernels)
         fused_ms = sum(r[1] for r in kernels if "fused_step_kernel" in r[0])
+        # the decode-attention kernel (and the split-K design's two kernels, for older sources)
+        attn = [r for r in kernels
+                if any(n in r[0] for n in ("decode_attention_kernel", "decode_partial_kernel",
+                                           "decode_combine_kernel"))]
         out.update({
             "device_ms_per_step": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
             "launches_per_step": sum(r[2] for r in kernels),
+            "decode_attention_ms_per_step": sum(r[1] for r in attn),
+            "decode_attention_launches_per_step": sum(r[2] for r in attn),
             "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": c}
                             for k, ms, c in kernels[:12]],
         })
