@@ -9,17 +9,20 @@ script exits non-zero:
 1. build     — compile every CUDA kernel from ``dia_tts_prune_tpu_torch/csrc``
                and the planted-fault copies of the fused step (one nvcc per
                source, all at once), and report the registers and spills of
-               the flash and block-sparse kernels (``nvcc -Xptxas -v``);
+               the flash, block-sparse, decode-attention and bf16 int8-matmul
+               kernels (``nvcc -Xptxas -v``);
 2. kernels   — each kernel against its plain PyTorch version at the main
                paths' shapes, fp32 and bf16: max abs error beside the stated
                tolerance, kernel and library times (device time: calls
                replayed from a CUDA graph), the plain version's time and the
                kernel's eager time (events around Python calls), the least
                time the card could take, launches.  The attention
-               kernels (float and int8 caches), the int8-matmul and
-               int4-GEMV kernels at the five weight shapes of a decode step
-               and a few odd ones, and the three training kernels (flash
-               forward with log-sum-exp, dK/dV, dQ) at the three attention
+               kernels (float and int8 caches), the int8-matmul (B = 2, 8,
+               64; bf16 calls one kernel each, by the profiler) and int4-GEMV
+               (B = 2, 64) kernels at the five weight shapes of a decode step
+               and a few odd ones (one with an unaligned weight), and the
+               three training kernels (flash forward with log-sum-exp,
+               dK/dV, dQ) at the three attention
                shapes of a Dia-1.6B training step and odd ones (ragged
                lengths, head dims 32/64, segment ids t % 3 that no tile
                skip may drop), dK/dV and dQ bit-identical over two runs, each
@@ -225,14 +228,15 @@ def flash_tiles(torch, route, q_seg, kv_seg, causal) -> dict:
 
 # registers and spills reported
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "block_sparse_matmul",
-                 "decode_attention")
+                 "decode_attention", "int8_matmul")
 
 
 def ptxas_report(log: str) -> dict:
     """{kernel<args>: {"registers", "spill_stores", "spill_loads"}} from
     ``nvcc -Xptxas -v`` output: the flash kernels by head dim, the bf16
     block-sparse kernel by tile (rows x columns), load width and slice map,
-    the decode kernel at head dim 128 by q and cache type and query heads held."""
+    the decode kernel at head dim 128 by q and cache type and query heads held,
+    the bf16 int8-matmul kernel by n-tiles of 8 rows and weight copy width."""
     import re
 
     report, name = {}, None
@@ -240,10 +244,15 @@ def ptxas_report(log: str) -> dict:
     bsm = re.compile(r"Function properties for \S*?bsm_mma_kernelI\w*?CfgI" + r"Li(\d+)E" * 6
                      + r"EELi(\d+)ELb([01])E")
     dec = re.compile(r"Function properties for \S*?decode_attention_kernelI(\w*?)Li128ELi(\d)E")
+    i8 = re.compile(r"Function properties for \S*?int8_matmul_mma_kernelILi(\d+)ELi(\d+)ELb([01])E")
     types = {"13__nv_bfloat16S1_": "bf16, bf16", "13__nv_bfloat16a": "bf16, int8",
              "ff": "float, float", "fa": "float, int8"}
     for line in log.splitlines():
-        if m := dec.search(line):
+        if m := i8.search(line):
+            name = (f"int8_matmul_mma_kernel<{m.group(1)} n-tiles, copies of {m.group(2)} B, "
+                    f"{'conversion unit' if m.group(3) == '1' else 'ALU'}>")
+            report[name] = {}
+        elif m := dec.search(line):
             name = f"decode_attention_kernel<{types.get(m.group(1), m.group(1))}, 128, G {m.group(2)}>"
             report[name] = {}
         elif m := entry.search(line):
@@ -595,10 +604,24 @@ def decode_int8_case(torch, name, dtype, B, T, Nq, Nkv, H, ends, with_new):
     return rec
 
 
-def gemv_case(torch, kernel, dtype, B, K, N, group=None, layout=None, time_it=True):
+def kernels_per_call(torch, fn) -> int:
+    """CUDA kernels that one ``fn()`` runs, by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+
+
+def gemv_case(torch, kernel, dtype, B, K, N, group=None, layout=None, time_it=True, offset=0):
     """``int8_matmul`` (layout None) or ``int4_gemv`` on a weight packed from
     seed-made floats, against its plain version; times over copies of the
-    weight that together exceed the L2, as a decode step finds them cold."""
+    weight that together exceed the L2, as a decode step finds them cold.
+    ``offset`` > 0 (int8): the weight starts that many bytes into its storage,
+    so its address is not 16-byte aligned."""
     from dia_tts_prune_tpu_torch.ops import quant
     from dia_tts_prune_tpu_torch.ops.kernels import KERNEL_WRAPPERS
     from dia_tts_prune_tpu_torch.ops.kernels import int4_gemv_plain, int8_matmul_plain
@@ -615,6 +638,10 @@ def gemv_case(torch, kernel, dtype, B, K, N, group=None, layout=None, time_it=Tr
         if qk.layout != layout or qk.group != group:
             raise RuntimeError(f"packer gave {qk.layout}/{qk.group} for {layout}/{group} at K={K}")
         scale, extra, plain, deq = qk.scale, (layout,), int4_gemv_plain, quant.dequantize4(qk)
+    if offset:
+        values = torch.empty(K * N + offset, dtype=torch.int8, device="cuda")[offset:].view(K, N)
+        values.copy_(qk.values)
+        qk = quant.QuantizedKernel(values, qk.scale, qk.in_shape, qk.out_shape)
     fn = KERNEL_WRAPPERS[kernel]
     before = fn.launches
     out = fn(x, qk.values, scale, *extra)
@@ -630,6 +657,22 @@ def gemv_case(torch, kernel, dtype, B, K, N, group=None, layout=None, time_it=Tr
            "tol": {"sum_abs": GEMV_SUM_TOL, "rtol": TOL[dtype]["rtol"]}, "launches": launches}
     if not rec["max_err_over_tol"] <= 1.0:
         raise RuntimeError(f"{kernel}: kernel disagrees with its plain version: {rec}")
+    if kernel == "int8_matmul":
+        import importlib
+
+        i8 = importlib.import_module("dia_tts_prune_tpu_torch.ops.kernels.int8_matmul")
+        rec["weight_offset"] = offset
+        if dtype == "bfloat16":  # one cluster launch, no finish pass
+            rec["route"] = "mma_bf16"
+            rec["plan"] = {"copy_bytes": i8.copy_width(N, qk.values.data_ptr()),
+                           "cluster_slice": list(i8.cluster_plan(K, N))}
+            rec["kernels_per_call"] = kernels_per_call(torch, lambda: fn(x, qk.values, scale))
+            if rec["kernels_per_call"] != 1:
+                raise RuntimeError(f"int8_matmul bf16: {rec['kernels_per_call']} kernels a call")
+        else:
+            vec = i8.vector_width(N, qk.values.data_ptr())
+            rec["route"] = "fma_fp32"
+            rec["plan"] = {"vec": vec, "n_split": i8.split_plan(K, N, vec)}
     nbytes = (qk.values.numel() + 4 * scale.numel() + x.element_size() * (B * K + B * N))
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * B * K * N, dtype)
     if time_it:
@@ -1138,17 +1181,22 @@ def phase_kernels(torch, faults: dict) -> dict:
         decode_int8_case(torch, "cross_S1024_int8", dtype, 2, 1024, 16, 16, 128, [0, 700], False)
         decode_int8_case(torch, "cross_S128_int8", dtype, 2, 128, 16, 16, 128, [0, 61], False)
         for name, (K, N) in GEMV_SHAPES.items():
-            for B in (2, 64):
+            for B in (2, 8, 64):  # one stream, four streams, the most rows the kernels take
                 r8 = gemv_case(torch, "int8_matmul", dtype, B, K, N)
+                if B == 8:
+                    continue
                 r4 = [gemv_case(torch, "int4_gemv", dtype, B, K, N, g, lay)
                       for g, lay in INT4_FORMS]
                 if name == "mlp_wi_2048x16384" and B == 2:
                     mlp8, mlp4 = r8, r4[0]
-        # odd shapes: K not a multiple of 256, N a multiple of 8 only / of nothing, an odd K
+        # odd shapes: K not a multiple of 256 (of 16: 1000, 40), N a multiple of 8
+        # only / of nothing, an odd K; a weight whose address is 4 bytes past 16
         for K, N in ((1000, 520), (1000, 1027)):
             gemv_case(torch, "int8_matmul", dtype, 3, K, N, time_it=False)
             gemv_case(torch, "int4_gemv", dtype, 3, K, N, 100, "halfsplit", time_it=False)
             gemv_case(torch, "int4_gemv", dtype, 3, K, N, 50, "parity", time_it=False)
+        gemv_case(torch, "int8_matmul", dtype, 3, 40, 7, time_it=False)
+        gemv_case(torch, "int8_matmul", dtype, 3, 2048, 512, time_it=False, offset=4)
         gemv_case(torch, "int4_gemv", dtype, 3, 1023, 520, 33, "unpacked", time_it=False)
         gemv_case(torch, "int4_gemv", dtype, 3, 1023, 520, None, "unpacked", time_it=False)
         # the three attention sites of a Dia-1.6B training step, and an odd shape

@@ -8,9 +8,14 @@ ctypes).  It replaces the Pallas kernel
 rounding to ``x.dtype``.  Activations are never quantized.
 
 At B <= 64 rows (the decode step has 2) this is a GEMV whose cost is the
-int8 weight bytes, so the kernel splits the weight over column strips and K
-slices, enough blocks to fill the card, and sums the slices' fp32 partials in
-a fixed order (no atomics: the output is the same from run to run).
+int8 weight bytes.  bf16 activations (the decode path) take the tensor cores
+in one cluster launch: a cluster of blocks owns a strip of ``STRIP`` columns,
+each block a K slice (``cluster_plan``, from the weight's shape alone), and
+the blocks add their fp32 partials in rank order on chip; the weight is read
+once at any row count.  fp32 activations take the CUDA cores: column strips
+× K slices (``split_plan``), each slice's fp32 partial summed in slice order
+by a second small kernel.  Either way no atomics: the output is the same from
+run to run, and a row's bits do not depend on the other rows.
 """
 
 from __future__ import annotations
@@ -21,14 +26,21 @@ import torch
 
 MAX_ROWS = 64  # the JAX dispatcher's gate (ops/modules.py:160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# The plan's constants come from tools/torch_port_gemv_sweep.py on an H100: the
-# model's five weight shapes are fastest at about eight blocks per SM with 64 to
-# 256 rows each, and 4-byte loads are as fast as wider ones.
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# fp32 route (and the int4 GEMV, which shares it): from tools/torch_port_gemv_sweep.py
+# on an H100, the model's five weight shapes are fastest at about eight blocks
+# per SM with 64 to 256 rows each, and 4-byte loads are as fast as wider ones.
 _TARGET_BLOCKS = 8 * 132
 _LANES = 32
 MAX_SLICE = 1024  # K rows a block keeps of x in shared memory (csrc: KS_MAX)
 MIN_SLICE = 64
+# bf16 route (csrc: namespace tc)
+STRIP = 128  # columns of a cluster's strip (csrc: STRIP)
+KSTEP = 16  # rows of an mma k-step (csrc: KSTEP)
+STAGE_ROWS = 64  # weight rows a stage of the ring holds; slices are multiples of it (csrc: KC)
+MAX_CLUSTER = 16  # blocks of a cluster (above the portable 8: the kernel opts in)
+CLUSTER_BLOCKS = 3 * 132  # blocks a call aims for: as many as fit the SMs at once (3 each)
+MIN_CLUSTER_SLICE = 64
 
 
 def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -38,18 +50,42 @@ def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -
 
 
 def vector_width(n_cols: int, data_ptr: int) -> int:
-    """Bytes a thread loads at once: 4 where that divides both a weight row's
-    length and the weight's address, so that every load is aligned and lies
-    wholly inside or outside a row; else 1."""
+    """fp32 route: bytes a thread loads at once: 4 where that divides both a
+    weight row's length and the weight's address, so that every load is
+    aligned and lies wholly inside or outside a row; else 1."""
     return 4 if n_cols % 4 == 0 and data_ptr % 4 == 0 else 1
 
 
 def split_plan(k_rows: int, n_cols: int, vec: int, max_slice: int = MAX_SLICE) -> int:
-    """K slices for a [k_rows, n_cols] weight: enough that strips × slices
-    fill the card, each slice within [MIN_SLICE, max_slice] rows."""
+    """fp32 route: K slices for a [k_rows, n_cols] weight: enough that strips
+    × slices fill the card, each slice within [MIN_SLICE, max_slice] rows."""
     strips = -(-n_cols // (_LANES * vec))
     want = -(-_TARGET_BLOCKS // strips)
     return max(-(-k_rows // max_slice), min(want, max(1, k_rows // MIN_SLICE)))
+
+
+def copy_width(n_cols: int, data_ptr: int) -> int:
+    """bf16 route: bytes of one ``cp.async`` of weight.  16 where the weight's
+    address is 16-byte aligned and a row's length a multiple of 4 (rows whose
+    start is not 16-byte aligned are copied from the boundary before it); else
+    4 where that divides both; else 1."""
+    if data_ptr % 16 == 0 and n_cols % 4 == 0:
+        return 16
+    return 4 if n_cols % 4 == 0 and data_ptr % 4 == 0 else 1
+
+
+def cluster_plan(k_rows: int, n_cols: int) -> tuple[int, int]:
+    """bf16 route: (blocks of a cluster, K rows of each block's slice) for a
+    [k_rows, n_cols] weight.  The cluster doubles, up to ``MAX_CLUSTER``, while
+    strips × blocks stay within ``CLUSTER_BLOCKS`` and the slices keep at least
+    ``MIN_CLUSTER_SLICE`` rows; a slice is a whole number of stages.  It never
+    sees the row count, so neither does a row's sum order."""
+    strips = -(-n_cols // STRIP)
+    cluster = 1
+    while (cluster < MAX_CLUSTER and 2 * cluster * strips <= CLUSTER_BLOCKS
+           and k_rows >= 2 * cluster * MIN_CLUSTER_SLICE):
+        cluster *= 2
+    return cluster, -(-k_rows // (cluster * STAGE_ROWS)) * STAGE_ROWS
 
 
 def _check(x, w_q, scale):
@@ -70,22 +106,25 @@ def _check(x, w_q, scale):
         raise ValueError("int8_matmul inputs must be contiguous")
 
 
-def launch(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, vec: int,
-           n_split: int) -> torch.Tensor:
-    """Launch the kernel on checked CUDA inputs with a given load width and
-    number of K slices (``int8_matmul`` plans both; a tuning sweep sets them)."""
+def launch(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, vec: int, n_split: int,
+           slice_rows: int) -> torch.Tensor:
+    """Launch the kernel on checked CUDA inputs with a given load width and K
+    slices (``int8_matmul`` plans them; a tuning sweep sets them).  bf16: the
+    slices are the blocks of a cluster, no scratch; fp32: an fp32 scratch of
+    ``n_split`` partials."""
     from ._build import kernel_function
 
     fn = kernel_function("int8_matmul", "int8_matmul_fwd", _ARGTYPES)
     B, K = x.shape
     N = w_q.shape[1]
     out = torch.empty(B, N, dtype=x.dtype, device=x.device)
-    part = torch.empty(n_split * B * N if n_split > 1 else 1, dtype=torch.float32,
-                       device=x.device)
+    part = None
+    if x.dtype == torch.float32 and n_split > 1:
+        part = torch.empty(n_split * B * N, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(), part.data_ptr(),
-                 B, K, N, vec, n_split, _DTYPE_CODES[x.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+        err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                 None if part is None else part.data_ptr(), B, K, N, vec, n_split, slice_rows,
+                 _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed (cudaError {err})")
     int8_matmul.launches += 1
@@ -100,8 +139,12 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torc
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
     _check(x, w_q, scale)
-    vec = vector_width(w_q.shape[1], w_q.data_ptr())
-    return launch(x, w_q, scale, vec, split_plan(*w_q.shape, vec))
+    K, N = w_q.shape
+    if x.dtype == torch.bfloat16:
+        return launch(x, w_q, scale, copy_width(N, w_q.data_ptr()), *cluster_plan(K, N))
+    vec = vector_width(N, w_q.data_ptr())
+    n_split = split_plan(K, N, vec)
+    return launch(x, w_q, scale, vec, n_split, -(-K // n_split))
 
 
 int8_matmul.launches = 0

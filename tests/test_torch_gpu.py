@@ -346,17 +346,68 @@ def _assert_gemv_close(out, ref, x, w_deq, rtol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,rtol,atol", TOLS)
-@pytest.mark.parametrize("B,K,N", [(2, 512, 1024), (5, 1000, 520), (64, 256, 1027), (1, 40, 7)])
-def test_int8_kernel_matches_plain_on_card(cuda_device, dtype, rtol, atol, B, K, N):
+@pytest.mark.parametrize("B,K,N,offset", [(2, 512, 1024, 0), (5, 1000, 520, 0), (64, 256, 1027, 0),
+                                          (1, 40, 7, 0), (3, 2048, 512, 4), (9, 1000, 1040, 1)])
+def test_int8_kernel_matches_plain_on_card(cuda_device, dtype, rtol, atol, B, K, N, offset):
+    """``offset`` > 0: the weight is a view that starts that many bytes into
+    its storage, so its address is not 16-byte aligned."""
     rng = np.random.default_rng(18)
     qk = quant.quantize_int8(_t(_normal(rng, (K, N))).to(cuda_device))
+    values = qk.values
+    if offset:
+        values = torch.empty(K * N + offset, dtype=torch.int8, device=cuda_device)[offset:]
+        values = values.view(K, N)
+        values.copy_(qk.values)
+        assert values.data_ptr() % 16 != 0 and values.is_contiguous()
     x = _t(_normal(rng, (B, K))).to(cuda_device, dtype)
     scale = qk.scale.reshape(N)
-    out = int8_matmul(x, qk.values, scale)
+    out = int8_matmul(x, values, scale)
     assert out.dtype == dtype and out.shape == (B, N)
-    assert torch.equal(out, int8_matmul(x, qk.values, scale))  # no atomics: repeatable
+    assert torch.equal(out, int8_matmul(x, values, scale))  # no atomics: repeatable
     _assert_gemv_close(out, int8_matmul_plain(x.float(), qk.values, scale), x,
                        quant.dequantize(qk), rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (1000, 1027)])
+def test_int8_rows_do_not_depend_on_the_batch(cuda_device, dtype, K, N):
+    """The rows of a B = 8 and a B = 64 call equal the same rows called two
+    at a time, bit for bit, and a second call gives the same bits: the
+    slices come from the weight's shape, never from B."""
+    rng = np.random.default_rng(24)
+    qk = quant.quantize_int8(_t(_normal(rng, (K, N))).to(cuda_device))
+    scale = qk.scale.reshape(N)
+    x = _t(_normal(rng, (64, K))).to(cuda_device, dtype)
+    for B in (8, 64):
+        out = int8_matmul(x[:B].contiguous(), qk.values, scale)
+        assert torch.equal(int8_matmul(x[:B].contiguous(), qk.values, scale), out)
+        for i in range(0, B, 2):
+            assert torch.equal(int8_matmul(x[i:i + 2].contiguous(), qk.values, scale),
+                               out[i:i + 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2, 64])
+def test_int8_bf16_call_is_one_kernel(cuda_device, B):
+    """A bf16 call runs one kernel (no finish pass) and allocates nothing
+    but its output."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(25)
+    qk = quant.quantize_int8(_t(_normal(rng, (2048, 2048))).to(cuda_device))
+    x = _t(_normal(rng, (B, 2048))).to(cuda_device, torch.bfloat16)
+    scale = qk.scale.reshape(-1)
+    int8_matmul(x, qk.values, scale)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = int8_matmul(x, qk.values, scale)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before == out.untyped_storage().nbytes()
+    kernels = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    assert [ev.count for ev in kernels] == [1] and "mma" in kernels[0].key
 
 
 @pytest.mark.gpu

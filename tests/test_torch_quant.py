@@ -409,21 +409,44 @@ def test_int4_layout_checks():
                     torch.zeros(8, device="meta"))
 
 
-@pytest.mark.parametrize("K,N,ptr,vec,splits", [
-    (2048, 2048, 0, 4, 32), (2048, 512, 0, 4, 32), (2048, 16384, 0, 4, 9),
-    (8192, 2048, 0, 4, 66), (2048, 9252, 0, 4, 15), (2048, 9252, 2, 1, 4), (40, 7, 0, 1, 1)])
-def test_int8_launch_plan(K, N, ptr, vec, splits):
-    """The load width divides the row length and the address; the slices
-    fill the card and fit the kernel's shared-memory slice."""
+@pytest.mark.parametrize("K,N,ptr,copy,cluster,slice_rows,vec,splits", [
+    (2048, 2048, 0, 16, 16, 128, 4, 32), (2048, 512, 0, 16, 16, 128, 4, 32),
+    (2048, 16384, 0, 16, 2, 1024, 4, 9), (8192, 2048, 0, 16, 16, 512, 4, 66),
+    (2048, 9252, 0, 16, 4, 512, 4, 15), (2048, 9252, 2, 1, 4, 512, 1, 4),
+    (40, 7, 0, 1, 1, 64, 1, 1)])
+def test_int8_launch_plan(K, N, ptr, copy, cluster, slice_rows, vec, splits):
+    """bf16: the copy width divides the row length and the address; the
+    clusters fill the card, each slice whole stages of the ring.  fp32: the load width
+    likewise; the slices fill the card and fit the kernel's shared-memory
+    slice."""
     from dia_tts_prune_tpu_torch.ops.kernels.int8_matmul import (
         MAX_SLICE,
+        cluster_plan,
+        copy_width,
         split_plan,
         vector_width,
     )
 
+    assert copy_width(N, ptr) == copy
+    assert cluster_plan(K, N) == (cluster, slice_rows)
     assert vector_width(N, ptr) == vec
     n = split_plan(K, N, vec)
     assert n == splits and -(-K // n) <= MAX_SLICE
+
+
+@pytest.mark.parametrize("R,N,ptr,vec,splits", [
+    (1024, 2048, 0, 4, 16), (1024, 512, 0, 4, 16), (1024, 16384, 0, 4, 9),
+    (4096, 2048, 0, 4, 64), (1024, 9252, 0, 4, 15), (1024, 9252, 2, 1, 4), (20, 7, 0, 1, 1),
+    (500, 1027, 0, 1, 7)])
+def test_int4_launch_plan(R, N, ptr, vec, splits):
+    """The int4 GEMV plans its byte rows with the fp32 int8 route's
+    functions and its own shared-memory slice."""
+    import importlib
+
+    m4 = importlib.import_module("dia_tts_prune_tpu_torch.ops.kernels.int4_gemv")
+    assert m4.vector_width(N, ptr) == vec
+    n = m4.split_plan(R, N, vec, max_slice=m4.MAX_SLICE)
+    assert n == splits and -(-R // n) <= m4.MAX_SLICE
 
 
 # ---------------------------------------------------------------------------

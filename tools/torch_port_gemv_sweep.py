@@ -2,9 +2,11 @@
 """Sweep the launch plan of the port's int8-matmul and int4-GEMV kernels.
 
 For each packed weight shape of a Dia-1.6B decode step (B = 2 rows, bf16
-activations) it times the kernel over both load widths and a range of K-slice
-counts, beside the plan the wrapper picks (``split_plan``) and cuBLAS on the
-bf16 weight.  Each timing loop cycles through copies of the weight that
+activations) it times the int8 kernel over its weight copy widths and cluster
+sizes (1 to 16 blocks, each slice a whole number of 64-row stages), beside
+the plan the wrapper picks (``cluster_plan``), and the int4 kernel over both
+load widths and a range of K-slice counts, beside its plan (``split_plan``),
+each beside cuBLAS on the bf16 weight.  Each timing loop cycles through copies of the weight that
 together exceed the L2 cache, as a decode step finds its weights cold.  Prints
 one JSON line per shape and kernel, then the card's name and power limit.
 
@@ -63,8 +65,9 @@ def main() -> int:
         q8 = quant.quantize_int8(w)
         q4 = quant.quantize_int4(w, group=128, halfsplit=True)
         for name, qk, scale, widths, max_slice, launch in (
-            ("int8_matmul", q8, q8.scale.reshape(N), (4, 1), i8.MAX_SLICE,
-             lambda v, s, vec, n: i8.launch(x, v, s, vec, n)),
+            ("int8_matmul", q8, q8.scale.reshape(N), (16, 4, 1), None,
+             lambda v, s, vec, n: i8.launch(x, v, s, vec, n,
+                                            -(-K // (i8.STAGE_ROWS * n)) * i8.STAGE_ROWS)),
             ("int4_gemv", q4, q4.scale, (4, 1), i4.MAX_SLICE,
              lambda v, s, vec, n: i4.launch(x, v, s, "halfsplit", K, 128, vec, n)),
         ):
@@ -75,19 +78,27 @@ def main() -> int:
             iters = 2 * n_copies
             table = {}
             for vec in widths:
-                if N % vec:
+                if N % (4 if max_slice is None and vec == 16 else vec):  # int8: 16 needs N % 4
                     continue
-                lo = -(-rows // max_slice)
-                for n_split in sorted({lo, *(n for n in (1, 2, 4, 8, 16, 32, 64) if n >= lo),
-                                       i8.split_plan(rows, N, vec, max_slice)}):
+                if max_slice is None:  # int8: clusters of 1 to 16 blocks
+                    splits = (1, 2, 4, 8, 16)
+                else:
+                    lo = -(-rows // max_slice)
+                    splits = sorted({lo, *(n for n in (1, 2, 4, 8, 16, 32, 64) if n >= lo),
+                                     i8.split_plan(rows, N, vec, max_slice)})
+                for n_split in splits:
                     table[f"vec{vec}_split{n_split}"] = cuda_ms(
                         lambda: launch(vals[next(turn) % n_copies], scale, vec, n_split), iters)
-            vec = i8.vector_width(N, qk.values.data_ptr())
+            if max_slice is None:
+                planned = (f"vec{i8.copy_width(N, qk.values.data_ptr())}"
+                           f"_split{i8.cluster_plan(K, N)[0]}")
+            else:
+                vec = i8.vector_width(N, qk.values.data_ptr())
+                planned = f"vec{vec}_split{i8.split_plan(rows, N, vec, max_slice)}"
             wl = [w.bfloat16() for _ in range(max(2, n_copies // 2))]
             print(json.dumps({
                 "tool": "torch_port_gemv_sweep", "kernel": name, "K": K, "N": N, "B": 2,
-                "dtype": "bfloat16",
-                "planned": f"vec{vec}_split{i8.split_plan(rows, N, vec, max_slice)}",
+                "dtype": "bfloat16", "planned": planned,
                 "ms": table, "best": min(table, key=table.get),
                 "cublas_bf16_ms": cuda_ms(lambda: torch.matmul(x, wl[next(turn) % len(wl)]), iters),
                 "weight_bytes": qk.values.numel(),

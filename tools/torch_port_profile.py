@@ -24,6 +24,8 @@ line:
 * ``top_kernels``       — kernel names by device time per step;
 * ``decode_attention_ms_per_step`` and ``decode_attention_launches_per_step``
   — the decode-attention kernel's share (36 launches an unfused step);
+* ``int8_matmul_ms_per_step`` and ``int8_matmul_launches_per_step`` — the
+  int8-matmul kernels' share (145 calls a packed int8 step);
 * the card's name and power limit.
 
 Run on the card: ``python3 tools/torch_port_profile.py [--steps 64] [--quant int8]
@@ -162,12 +164,17 @@ def main(argv=None) -> int:
         attn = [r for r in kernels
                 if any(n in r[0] for n in ("decode_attention_kernel", "decode_partial_kernel",
                                            "decode_combine_kernel"))]
+        # the int8-matmul kernels (the cluster kernel; the split-K design's kernel
+        # and finish pass, for older sources)
+        gemv8 = [r for r in kernels if "int8_matmul" in r[0]]
         out.update({
             "device_ms_per_step": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
             "launches_per_step": sum(r[2] for r in kernels),
             "decode_attention_ms_per_step": sum(r[1] for r in attn),
             "decode_attention_launches_per_step": sum(r[2] for r in attn),
+            "int8_matmul_ms_per_step": sum(r[1] for r in gemv8),
+            "int8_matmul_launches_per_step": sum(r[2] for r in gemv8),
             "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": c}
                             for k, ms, c in kernels[:12]],
         })
