@@ -10,17 +10,18 @@ script exits non-zero:
                and the planted-fault copies of the fused step (one nvcc per
                source, all at once), and report the registers and spills of
                the flash, block-sparse, decode-attention and bf16 int8-matmul
-               kernels (``nvcc -Xptxas -v``);
+               and int4-GEMV kernels (``nvcc -Xptxas -v``);
 2. kernels   — each kernel against its plain PyTorch version at the main
                paths' shapes, fp32 and bf16: max abs error beside the stated
                tolerance, kernel and library times (device time: calls
                replayed from a CUDA graph), the plain version's time and the
                kernel's eager time (events around Python calls), the least
                time the card could take, launches.  The attention
-               kernels (float and int8 caches), the int8-matmul (B = 2, 8,
-               64; bf16 calls one kernel each, by the profiler) and int4-GEMV
-               (B = 2, 64) kernels at the five weight shapes of a decode step
-               and a few odd ones (one with an unaligned weight), and the
+               kernels (float and int8 caches), the int8-matmul and int4-GEMV
+               kernels (B = 2, 8, 64; bf16 calls one kernel each, counted as
+               the nodes of a CUDA graph that captures a call; int4 in four
+               forms) at the five weight shapes of a
+               decode step and a few odd ones (unaligned weights), and the
                three training kernels (flash forward with log-sum-exp,
                dK/dV, dQ) at the three attention
                shapes of a Dia-1.6B training step and odd ones (ragged
@@ -66,8 +67,10 @@ script exits non-zero:
                greedy ``generate``; (d) ``pruned``: a fresh model, per-module
                block ranking at 0.5 (and the global ranking's densities,
                reported), ``sparsify_block``, a greedy ``generate``; (e)
-               ``batched``: four greedy streams on it against their
-               single-stream runs; (f) ``prune_cli``: ``offline_prune
+               ``batched``: four greedy streams on it, each equal to its
+               single-stream run frame for frame and, by the batched-lane
+               probe, op for op (the first differing op is printed, or
+               none); (f) ``prune_cli``: ``offline_prune
                --prune-mode block`` at 2 + 2 layers, ``from_pretrained``,
                ``sparsify_block``, generate; (g) ``fused_int8``,
                ``fused_int4``, ``fused_batched`` (four streams): one fused
@@ -228,7 +231,7 @@ def flash_tiles(torch, route, q_seg, kv_seg, causal) -> dict:
 
 # registers and spills reported
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "block_sparse_matmul",
-                 "decode_attention", "int8_matmul")
+                 "decode_attention", "int8_matmul", "int4_gemv")
 
 
 def ptxas_report(log: str) -> dict:
@@ -236,7 +239,9 @@ def ptxas_report(log: str) -> dict:
     ``nvcc -Xptxas -v`` output: the flash kernels by head dim, the bf16
     block-sparse kernel by tile (rows x columns), load width and slice map,
     the decode kernel at head dim 128 by q and cache type and query heads held,
-    the bf16 int8-matmul kernel by n-tiles of 8 rows and weight copy width."""
+    the bf16 int8-matmul kernel by n-tiles of 8 rows and weight copy width, the
+    bf16 int4 GEMV by n-tiles, layout, copy width and whether scale segments
+    may end inside a k-step."""
     import re
 
     report, name = {}, None
@@ -245,10 +250,17 @@ def ptxas_report(log: str) -> dict:
                      + r"EELi(\d+)ELb([01])E")
     dec = re.compile(r"Function properties for \S*?decode_attention_kernelI(\w*?)Li128ELi(\d)E")
     i8 = re.compile(r"Function properties for \S*?int8_matmul_mma_kernelILi(\d+)ELi(\d+)ELb([01])E")
+    i4 = re.compile(r"Function properties for \S*?int4_gemv_mma_kernelILi(\d+)ELi([01])ELi(\d+)"
+                    r"ELb([01])E")
     types = {"13__nv_bfloat16S1_": "bf16, bf16", "13__nv_bfloat16a": "bf16, int8",
              "ff": "float, float", "fa": "float, int8"}
     for line in log.splitlines():
-        if m := i8.search(line):
+        if m := i4.search(line):
+            name = (f"int4_gemv_mma_kernel<{m.group(1)} n-tiles, "
+                    f"{('halfsplit', 'parity')[int(m.group(2))]}, copies of {m.group(3)} B"
+                    f"{', segments inside k-steps' if m.group(4) == '1' else ''}>")
+            report[name] = {}
+        elif m := i8.search(line):
             name = (f"int8_matmul_mma_kernel<{m.group(1)} n-tiles, copies of {m.group(2)} B, "
                     f"{'conversion unit' if m.group(3) == '1' else 'ALU'}>")
             report[name] = {}
@@ -605,23 +617,27 @@ def decode_int8_case(torch, name, dtype, B, T, Nq, Nkv, H, ends, with_new):
 
 
 def kernels_per_call(torch, fn) -> int:
-    """CUDA kernels that one ``fn()`` runs, by ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """CUDA work items (kernels, memsets, copies) that one ``fn()`` enqueues:
+    the nodes of a CUDA graph that captures one call (``cuGraphGetNodes``)."""
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed (CUresult {err})")
+    return n.value
 
 
 def gemv_case(torch, kernel, dtype, B, K, N, group=None, layout=None, time_it=True, offset=0):
     """``int8_matmul`` (layout None) or ``int4_gemv`` on a weight packed from
     seed-made floats, against its plain version; times over copies of the
     weight that together exceed the L2, as a decode step finds them cold.
-    ``offset`` > 0 (int8): the weight starts that many bytes into its storage,
-    so its address is not 16-byte aligned."""
+    ``offset`` > 0: the weight starts that many bytes into its storage, so
+    its address is not 16-byte aligned."""
     from dia_tts_prune_tpu_torch.ops import quant
     from dia_tts_prune_tpu_torch.ops.kernels import KERNEL_WRAPPERS
     from dia_tts_prune_tpu_torch.ops.kernels import int4_gemv_plain, int8_matmul_plain
@@ -638,46 +654,65 @@ def gemv_case(torch, kernel, dtype, B, K, N, group=None, layout=None, time_it=Tr
         if qk.layout != layout or qk.group != group:
             raise RuntimeError(f"packer gave {qk.layout}/{qk.group} for {layout}/{group} at K={K}")
         scale, extra, plain, deq = qk.scale, (layout,), int4_gemv_plain, quant.dequantize4(qk)
+    values = qk.values
     if offset:
-        values = torch.empty(K * N + offset, dtype=torch.int8, device="cuda")[offset:].view(K, N)
+        values = torch.empty(values.numel() + offset, dtype=torch.int8, device="cuda")
+        values = values[offset:].view(qk.values.shape)
         values.copy_(qk.values)
-        qk = quant.QuantizedKernel(values, qk.scale, qk.in_shape, qk.out_shape)
     fn = KERNEL_WRAPPERS[kernel]
     before = fn.launches
-    out = fn(x, qk.values, scale, *extra)
+    out = fn(x, values, scale, *extra)
     launches = fn.launches - before
     torch.cuda.synchronize()
-    ref = plain(x.float(), qk.values, scale, *extra)
+    ref = plain(x.float(), values, scale, *extra)
     diff = (out.float() - ref).abs()
     sum_abs = x.float().abs() @ deq.abs()
     tol = GEMV_SUM_TOL * sum_abs + TOL[dtype]["rtol"] * ref.abs()
     rec = {"phase": "kernels", "kernel": kernel, "dtype": dtype,
            "shape": {"B": B, "K": K, "N": N, "group": group, "layout": layout},
            "max_abs_err": diff.max().item(), "max_err_over_tol": (diff / tol).max().item(),
-           "tol": {"sum_abs": GEMV_SUM_TOL, "rtol": TOL[dtype]["rtol"]}, "launches": launches}
+           "tol": {"sum_abs": GEMV_SUM_TOL, "rtol": TOL[dtype]["rtol"]}, "launches": launches,
+           "weight_offset": offset}
     if not rec["max_err_over_tol"] <= 1.0:
         raise RuntimeError(f"{kernel}: kernel disagrees with its plain version: {rec}")
     if kernel == "int8_matmul":
         import importlib
 
         i8 = importlib.import_module("dia_tts_prune_tpu_torch.ops.kernels.int8_matmul")
-        rec["weight_offset"] = offset
         if dtype == "bfloat16":  # one cluster launch, no finish pass
             rec["route"] = "mma_bf16"
-            rec["plan"] = {"copy_bytes": i8.copy_width(N, qk.values.data_ptr()),
+            rec["plan"] = {"copy_bytes": i8.copy_width(N, values.data_ptr()),
                            "cluster_slice": list(i8.cluster_plan(K, N))}
-            rec["kernels_per_call"] = kernels_per_call(torch, lambda: fn(x, qk.values, scale))
+            rec["kernels_per_call"] = kernels_per_call(torch, lambda: fn(x, values, scale))
             if rec["kernels_per_call"] != 1:
                 raise RuntimeError(f"int8_matmul bf16: {rec['kernels_per_call']} kernels a call")
         else:
-            vec = i8.vector_width(N, qk.values.data_ptr())
+            vec = i8.vector_width(N, values.data_ptr())
             rec["route"] = "fma_fp32"
             rec["plan"] = {"vec": vec, "n_split": i8.split_plan(K, N, vec)}
-    nbytes = (qk.values.numel() + 4 * scale.numel() + x.element_size() * (B * K + B * N))
+    else:
+        import importlib
+
+        i4 = importlib.import_module("dia_tts_prune_tpu_torch.ops.kernels.int4_gemv")
+        R = values.shape[0]
+        if i4.uses_mma(dt, layout):  # one cluster launch, no finish pass
+            rec["route"] = "mma_bf16"
+            rec["plan"] = {"copy_bytes": i4.copy_width(N, values.data_ptr()),
+                           "cluster_slice": list(i4.cluster_plan(R, N))}
+            rec["kernels_per_call"] = kernels_per_call(torch, lambda: fn(x, values, scale,
+                                                                         *extra))
+            if rec["kernels_per_call"] != 1:
+                raise RuntimeError(f"int4_gemv bf16: {rec['kernels_per_call']} kernels a call")
+        else:
+            vec = i4.vector_width(N, values.data_ptr())
+            rec["route"] = "fma_fp32" if dtype == "float32" else "fma_bf16"
+            rec["plan"] = {"vec": vec,
+                           "n_split": i4.split_plan(R, N, vec, max_slice=i4.MAX_SLICE)}
+    nbytes = (values.numel() + 4 * scale.numel() + x.element_size() * (B * K + B * N))
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * B * K * N, dtype)
     if time_it:
-        n = max(2, min(64, -(-COLD_BYTES // qk.values.numel())))
-        vals = [qk.values.clone() for _ in range(n)]
+        n = max(2, min(64, -(-COLD_BYTES // values.numel())))
+        vals = [values.clone() for _ in range(n)]
         wlib = [deq.to(dt) for _ in range(max(2, n // 2 if dt == torch.bfloat16 else n // 4))]
         turn = iter(range(1 << 30))
         rec["ms"] = graph_ms(torch, lambda: fn(x, vals[next(turn) % n], scale, *extra), iters=2 * n)
@@ -1183,8 +1218,6 @@ def phase_kernels(torch, faults: dict) -> dict:
         for name, (K, N) in GEMV_SHAPES.items():
             for B in (2, 8, 64):  # one stream, four streams, the most rows the kernels take
                 r8 = gemv_case(torch, "int8_matmul", dtype, B, K, N)
-                if B == 8:
-                    continue
                 r4 = [gemv_case(torch, "int4_gemv", dtype, B, K, N, g, lay)
                       for g, lay in INT4_FORMS]
                 if name == "mlp_wi_2048x16384" and B == 2:
@@ -1197,6 +1230,10 @@ def phase_kernels(torch, faults: dict) -> dict:
             gemv_case(torch, "int4_gemv", dtype, 3, K, N, 50, "parity", time_it=False)
         gemv_case(torch, "int8_matmul", dtype, 3, 40, 7, time_it=False)
         gemv_case(torch, "int8_matmul", dtype, 3, 2048, 512, time_it=False, offset=4)
+        # int4 bytes 4 and 1 bytes past a 16-byte boundary at the logits width
+        for offset in (4, 1):
+            gemv_case(torch, "int4_gemv", dtype, 8, 2048, 9252, 128, "halfsplit", time_it=False,
+                      offset=offset)
         gemv_case(torch, "int4_gemv", dtype, 3, 1023, 520, 33, "unpacked", time_it=False)
         gemv_case(torch, "int4_gemv", dtype, 3, 1023, 520, None, "unpacked", time_it=False)
         # the three attention sites of a Dia-1.6B training step, and an odd shape
@@ -1580,6 +1617,13 @@ def seed_weights(torch, cfg):
     return params_to(_SEED_WEIGHTS["host"], "cuda")
 
 
+FULL_WIDTH_TEXT = ("[S1] Dia is an open weights text to dialogue model. [S2] You get full "
+                   "control over scripts and voices. [S1] Wow. Amazing.")
+# the other three streams of the batched path (the first is FULL_WIDTH_TEXT)
+BATCHED_TEXTS = ("[S2] Four streams share every weight read. [S1] Do they?",
+                 "[S1] Batched serving on a pruned model.", "[S2] The last of the four. [S1] Yes.")
+
+
 def phase_full_width(torch) -> dict:
     import numpy as np
 
@@ -1599,8 +1643,7 @@ def phase_full_width(torch) -> dict:
     dia = new_model()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    text = ("[S1] Dia is an open weights text to dialogue model. [S2] You get full control "
-            "over scripts and voices. [S1] Wow. Amazing.")
+    text = FULL_WIDTH_TEXT
     runs = []
 
     def describe(runs):
@@ -1670,6 +1713,10 @@ def phase_full_width(torch) -> dict:
         counts = launch_counts()
         paths[name] = {"runs": describe([("greedy", codes.shape[0], steps, gen_s, dec_s, wav)]),
                        "launches": counts, "quantize_s": quantize_s,
+                       # the port's kernel launches a decode step (each GEMV call one
+                       # launch on the bf16 route), the conditioning's beside them
+                       "port_kernel_launches_per_step": sum(counts.values()) / max(steps, 1),
+                       f"{gemv}_calls_per_step": counts[gemv] / max(steps, 1),
                        "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
                        "memory_allocated_bytes": int(torch.cuda.memory_allocated())}
         other = "int4_gemv" if gemv == "int8_matmul" else "int8_matmul"
@@ -1750,9 +1797,10 @@ def pruned_paths(torch, dia, text, timed, describe) -> dict:
     ``sparsify_block``, a greedy ``generate`` whose block-sparse launches
     must equal the count derived from the code; what the global ranking
     (``prune_block_sparse(0.5)``) gives on the same weights, reported only;
-    (e) ``batched`` — four greedy streams on the pruned model, and for how
-    many frames each lane equals its single-stream run (recorded: random
-    weights give near-ties); (f) ``prune_cli`` — ``offline_prune
+    (e) ``batched`` — four greedy streams on the pruned model, each of which
+    must equal its single-stream run for every frame, and the batched-lane
+    probe (``batch_lane_probe``) on the first lane that does not (lane 2 when
+    all do), which must find no differing op; (f) ``prune_cli`` — ``offline_prune
     --prune-mode block`` at 2 + 2 layers, ``from_pretrained``,
     ``sparsify_block``, generate."""
     import numpy as np
@@ -1812,8 +1860,7 @@ def pruned_paths(torch, dia, text, timed, describe) -> dict:
         raise RuntimeError(f"full-width pruned: expected {expected} block_sparse_matmul launches "
                            f"({steps} steps) and no GEMV launches: {counts}")
 
-    texts = [text, "[S2] Four streams share every weight read. [S1] Do they?",
-             "[S1] Batched serving on a pruned model.", "[S2] The last of the four. [S1] Yes."]
+    texts = [text, *BATCHED_TEXTS]
     reset_launch_counts()
     batch, batch_s, bsteps = timed(lambda: dia.generator.generate_tokens_batch(
         texts, max_tokens=192, temperature=0.0))
@@ -1829,17 +1876,28 @@ def pruned_paths(torch, dia, text, timed, describe) -> dict:
         diff = np.flatnonzero((a[:n] != b[:n]).any(axis=1))
         return int(diff[0]) if diff.size else n
 
+    equal = [same_frames(b, s_) for b, s_ in zip(batch, singles)]
+    frames = [int(b.shape[0]) for b in batch]
+    # the op whose rows first leave the single-stream run, for the first lane
+    # that does (lane 2 when all agree)
+    lane = next((i for i, (e, f) in enumerate(zip(equal, frames)) if e < f), 2)
+    probe = batch_lane_probe(torch, dia, texts, lane)
     paths["batched"] = {
         "streams": len(texts), "decode_steps": bsteps, "wall_s": batch_s,
         "ms_per_step": 1e3 * batch_s / max(bsteps, 1),
         "aggregate_tokens_per_s": len(texts) * bsteps / batch_s,
         "single_stream_ms_per_step": 1e3 * single_s / max(1, single_steps),
-        "frames": [int(b.shape[0]) for b in batch],
-        "frames_equal_single_stream": [same_frames(b, s_) for b, s_ in zip(batch, singles)],
+        "frames": frames, "frames_equal_single_stream": equal,
+        "first_differing_op": probe["first_differing_op"] or "none", "probe": probe,
         "launches": bcounts}
     emit({"phase": "full_width", "path": "batched", **paths["batched"]})
-    if bsteps <= 0 or min(paths["batched"]["frames"]) == 0:
+    if bsteps <= 0 or min(frames) == 0:
         raise RuntimeError(f"full-width batched: no frames: {paths['batched']}")
+    # every lane is its single-stream run, bit for bit: frame for frame, and op
+    # for op over the conditioning and the first decode steps
+    if equal != frames or probe["first_differing_op"] is not None:
+        raise RuntimeError(f"full-width batched: a lane left its single-stream run: "
+                           f"{paths['batched']}")
     del dia, batch, singles
     torch.cuda.empty_cache()
 
@@ -1872,6 +1930,125 @@ def pruned_paths(torch, dia, text, timed, describe) -> dict:
     if rc != 0 or codes.shape[0] == 0 or "pytorch_model.bin" not in files:
         raise RuntimeError(f"the offline_prune CLI run failed its checks: {paths['prune_cli']}")
     return paths
+
+
+# ops the batched-lane probe records: (module, function names); each output
+# is compared at a lane's rows between a batched run and its single-stream run
+PROBE_OPS = {"dia_tts_prune_tpu_torch.generate": ("encoder_forward", "precompute_cross_cache"),
+             "dia_tts_prune_tpu_torch.models.dia": (
+                 "rms_norm", "attention", "mlp_block", "_embed_channels", "attention_qkv",
+                 "decode_attention", "attention_out", "dense_general", "rope")}
+PROBE_STEPS = 40  # decode steps the probe compares op by op (frame 14 + the largest delay)
+
+
+class _ProbeDone(Exception):
+    pass
+
+
+def batch_lane_probe(torch, dia, texts, lane, steps=PROBE_STEPS, max_tokens=192) -> dict:
+    """Lane ``lane`` of a greedy ``generate_tokens_batch(texts)`` against its
+    ``generate_codes`` run, op by op: the outputs of the conditioning (each
+    encoder layer's norms, attention and MLP, the encoder output, the cross
+    K/V) and of the first ``steps`` decode steps (the embedding, each layer's
+    norms, projections, attention and MLP outputs, the logits) are recorded in
+    both runs, in call order, and the lane's rows compared bit for bit (over
+    the common extent where a key axis differs).  Batched conditioning that
+    runs once per stream is compared call for call.  Returns the first op
+    whose rows differ — None when all agree — with its largest difference,
+    and every op that differs."""
+    import importlib
+
+    records, phase = [], ["conditioning"]
+    originals = []
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            outs = list(out) if isinstance(out, tuple) else [out]
+            # the cross K/V are [L, B, S, ...]: their batch axis is 1
+            dim = 1 if name == "precompute_cross_cache" else 0
+            records.append((name, phase[0], [(t, dim) for t in outs if torch.is_tensor(t)]))
+            return out
+
+        originals.append((mod, name, fn))
+        setattr(mod, name, recorded)
+
+    gen = importlib.import_module("dia_tts_prune_tpu_torch.generate")
+    step_fn = gen.decode_step
+
+    def counted_step(*args, **kwargs):
+        n = int(phase[0].split()[-1]) + 1 if phase[0].startswith("step") else 1
+        if n > steps:
+            raise _ProbeDone
+        phase[0] = f"step {n}"
+        return step_fn(*args, **kwargs)
+
+    def run(fn):
+        records.clear()
+        phase[0] = "conditioning"
+        try:
+            fn()
+        except _ProbeDone:
+            pass
+        return list(records)
+
+    try:
+        for mod_name, names in PROBE_OPS.items():
+            mod = importlib.import_module(mod_name)
+            for name in names:
+                wrap(mod, name)
+        originals.append((gen, "decode_step", step_fn))
+        gen.decode_step = counted_step
+        batch = run(lambda: dia.generator.generate_tokens_batch(
+            texts, max_tokens=max_tokens, temperature=0.0))
+        single = run(lambda: dia.generate_codes(texts[lane], max_tokens=max_tokens,
+                                                temperature=0.0))
+    finally:
+        for mod, name, fn in reversed(originals):
+            setattr(mod, name, fn)
+
+    N = len(texts)
+    cond_b = [r for r in batch if r[1] == "conditioning"]
+    cond_s = [r for r in single if r[1] == "conditioning"]
+    if len(cond_b) == N * len(cond_s):  # one conditioning per stream: the lane's own
+        pairs = list(zip(cond_b[lane * len(cond_s):(lane + 1) * len(cond_s)], cond_s))
+        cond_rows = [0, 1]
+    elif len(cond_b) == len(cond_s):
+        pairs, cond_rows = list(zip(cond_b, cond_s)), [lane, N + lane]
+    else:
+        raise RuntimeError(f"batched-lane probe: {len(cond_b)} conditioning records against "
+                           f"{len(cond_s)}")
+    steps_b = [r for r in batch if r[1] != "conditioning"]
+    steps_s = [r for r in single if r[1] != "conditioning"]
+    if len(steps_b) != len(steps_s):
+        raise RuntimeError(f"batched-lane probe: {len(steps_b)} step records against "
+                           f"{len(steps_s)}")
+    first, differing, compared = None, {}, 0
+    calls = {}
+    for (rb, rs), rows in ([(p, cond_rows) for p in pairs]
+                           + [(p, [lane, N + lane]) for p in zip(steps_b, steps_s)]):
+        (name, where, outs_b), (name_s, where_s, outs_s) = rb, rs
+        if (name, where) != (name_s, where_s) or len(outs_b) != len(outs_s):
+            raise RuntimeError(f"batched-lane probe: {name} at {where} against {name_s} at "
+                               f"{where_s}")
+        calls[(name, where)] = calls.get((name, where), 0) + 1
+        for (tb, dim), (ts, _) in zip(outs_b, outs_s):
+            a = tb.index_select(dim, torch.tensor(rows, device=tb.device))
+            cut = tuple(slice(0, min(i, j)) for i, j in zip(a.shape, ts.shape))
+            a, b = a[cut], ts[cut]
+            compared += 1
+            if torch.equal(a, b):
+                continue
+            label = f"{name} ({where}, call {calls[(name, where)]})"
+            differing[name] = differing.get(name, 0) + 1
+            if first is None:
+                first = {"op": label, "max_abs_diff": (a.float() - b.float()).abs().max().item(),
+                         "shape": list(a.shape)}
+    return {"lane": lane, "steps": steps, "outputs_compared": compared,
+            "first_differing_op": first["op"] if first else None, "first_difference": first,
+            "differing_ops": differing}
 
 
 def _decoder_kernels(params):

@@ -263,39 +263,6 @@ __device__ __forceinline__ void widen_pairs(uint32_t a, uint32_t b, uint32_t (&o
   }
 }
 
-// d += a . b (m16n8k16, bf16, fp32), as mma_tiles::mma_bf16 but not volatile:
-// the compiler may move it among the widening and the loads of a stage
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// mbarriers of the ring: a stage is full when the copying warps' copies of it
-// have landed, empty when every multiplying warp is done with it
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// arrives once this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void bar_arrive_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// waits for the completion of the barrier's phase of the given parity
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 // grid (cluster, strips), clusters of (cluster, 1, 1), NT threads; TB n-tiles
 // of x (B <= 8 * TB); VEC bytes a weight copy (N % VEC == 0 and w VEC-aligned);
 // CVT: widen by the conversion unit

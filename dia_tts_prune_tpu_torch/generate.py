@@ -34,7 +34,10 @@ draws (greedy decoding is identical).
 The batched loop runs 2N CFG rows ([uncond × N; cond × N]) with voice
 prompts left-padded to one window, row-local RoPE positions, a first valid
 cache slot per row (``decode_step(valid_from=...)``), and an EOS countdown
-and a generator per stream, so each stream repeats its single-stream run.
+and a generator per stream, so each stream repeats its single-stream run —
+bit for bit on the card too: each stream is conditioned at its
+single-stream shape (``conditioning_batch``), and every op of a decode
+step computes a row in an order that does not depend on the other rows.
 """
 
 from __future__ import annotations
@@ -125,6 +128,32 @@ def conditioning(params, config: DiaConfig, enc_input: torch.Tensor, compute_dty
     cross_cache = precompute_cross_cache(params, config, enc_out, positions)
     cross_ends = ends_from_padding_mask(cross_attention_mask(padding_mask))
     return cross_cache, padding_mask, cross_ends
+
+
+@torch.no_grad()
+def conditioning_batch(params, config: DiaConfig, conds: list[np.ndarray], compute_dtype,
+                       device):
+    """N streams' conditioning, each at its single-stream shape: stream i's
+    [uncond; cond] text rows ``conds[i]`` through ``conditioning`` with its
+    own cross window, so that its cross K/V are those of its single-stream
+    run bit for bit (a GEMM's kernel, and with it the order of its sums, may
+    change with its row count).  Returned as ``conditioning`` returns them,
+    rows [uncond × N; cond × N], the keys padded with zeros to the longest
+    window (masked: past every row's end)."""
+    parts = [conditioning(params, config, torch.from_numpy(c).to(device), compute_dtype,
+                          _cross_window_for(c, config)) for c in conds]
+    S = max(mask.shape[1] for _, mask, _ in parts)
+
+    def rows(tensors, dim):  # [uncond × N; cond × N], padded to S along the key axis
+        pad = [[0, 0] * (t.dim() - dim - 2) + [0, S - t.shape[dim + 1]] for t in tensors]
+        padded = [torch.nn.functional.pad(t, p) for t, p in zip(tensors, pad)]
+        return torch.cat([t.narrow(dim, r, 1) for r in (0, 1) for t in padded], dim=dim)
+
+    cross = type(parts[0][0])(*(rows([p[0][i] for p in parts], 1)
+                                for i in range(len(parts[0][0]))))
+    padding_mask = rows([mask for _, mask, _ in parts], 0)
+    cross_ends = torch.cat([torch.stack([ends[r] for _, _, ends in parts]) for r in (0, 1)])
+    return cross, padding_mask, cross_ends
 
 
 @torch.no_grad()
@@ -414,8 +443,6 @@ class DiaGenerator:
                                  "`audio_prompt_codes[i]` is provided.")
         conds = [encode_cfg_batch(build_effective_text(t, pt), d.text_length, d.text_pad_value)
                  for t, pt in zip(texts, prompt_texts)]
-        enc_input = np.concatenate([np.stack([c[0] for c in conds]),
-                                    np.stack([c[1] for c in conds])])  # [uncond × N; cond × N]
 
         templates = [prepare_audio_prompt(cfg, p) for p in prompts]
         prefill_steps = np.asarray([t[1] for t in templates], np.int64)
@@ -444,9 +471,8 @@ class DiaGenerator:
         if temperature != 0.0:
             generators = [torch.Generator(device=self.device).manual_seed(s) for s in seed_list]
 
-        cross_cache, padding_mask, cross_ends = conditioning(
-            self.params, cfg, torch.from_numpy(enc_input).to(self.device), dtype,
-            _cross_window_for(enc_input, cfg))
+        cross_cache, padding_mask, cross_ends = conditioning_batch(
+            self.params, cfg, conds, dtype, self.device)
         if kv_int8 is None:
             kv_int8 = decoder_is_packed(self.params)
         self_cache = new_self_cache(cfg, 2 * N, _cache_len_for(cache_len or int(caps.max()),

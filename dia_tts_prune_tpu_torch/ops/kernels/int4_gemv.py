@@ -19,6 +19,17 @@ in the compute dtype before its dot (int4_gemv.py:78-79), rounding each to
 bf16 — an artefact of feeding the matrix unit; fp32 sums are cheaper here and
 closer to the dequantized kernel.  The Pallas kernel's lane constraints
 (``K % 256``, ``N % 128``) do not apply: any K, N with 1..64 rows is served.
+
+bf16 activations in the two nibble layouts (the decode path) take the tensor
+cores in one cluster launch, the int8 matmul's design: a cluster of blocks
+owns a strip of ``STRIP`` columns, each block a slice of byte rows
+(``cluster_plan``, from the weight's shape alone), nibbles widen to bf16 in
+registers, and the blocks add their fp32 totals in rank order on chip; the
+weight is read once at any row count.  fp32 activations and the
+one-value-a-byte layout take the CUDA cores: column strips × slices of byte
+rows (``split_plan``), each slice's fp32 partial summed in slice order by a
+second small kernel.  Either way no atomics: the output is the same from run
+to run, and a row's bits do not depend on the other rows.
 """
 
 from __future__ import annotations
@@ -28,12 +39,19 @@ import ctypes
 import torch
 
 from ..quant import unpack_nibble_rows
-from .int8_matmul import MAX_ROWS, split_plan, vector_width
+# the tensor-core route plans byte rows with the bf16 int8 route's rule (a stage
+# holds STAGE_ROWS byte rows, each two rows of K); it never sees the row count
+from .int8_matmul import MAX_ROWS, cluster_plan, copy_width, split_plan, vector_width
 
 LAYOUTS = {"halfsplit": 0, "parity": 1, "unpacked": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-MAX_SLICE = 512  # byte rows a block walks (csrc: RS_MAX)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+MAX_SLICE = 512  # byte rows a block of the CUDA-core route walks (csrc: RS_MAX)
+
+
+def uses_mma(dtype: torch.dtype, layout: str) -> bool:
+    """The tensor-core route: bf16 activations, two nibbles a byte."""
+    return dtype == torch.bfloat16 and layout != "unpacked"
 
 
 def _dims(x, w_b, scale, layout):
@@ -91,9 +109,11 @@ def _check(x, w_b, scale, layout):
 
 
 def launch(x: torch.Tensor, w_b: torch.Tensor, scale: torch.Tensor, layout: str, K: int,
-           group: int | None, vec: int, n_split: int) -> torch.Tensor:
-    """Launch the kernel on checked CUDA inputs with a given load width and
-    number of slices (``int4_gemv`` plans both; a tuning sweep sets them)."""
+           group: int | None, vec: int, n_split: int, slice_rows: int) -> torch.Tensor:
+    """Launch the kernel on checked CUDA inputs with a given copy or load width
+    and slices of byte rows (``int4_gemv`` plans them; a tuning sweep sets
+    them).  Tensor-core route: the slices are the blocks of a cluster, no
+    scratch; CUDA-core route: an fp32 scratch of ``n_split`` partials."""
     from ._build import kernel_function
 
     fn = kernel_function("int4_gemv", "int4_gemv_fwd", _ARGTYPES)
@@ -107,12 +127,14 @@ def launch(x: torch.Tensor, w_b: torch.Tensor, scale: torch.Tensor, layout: str,
         seg = group // 2 if layout == "parity" else group
         hi_off = S // 2 if layout == "halfsplit" else 0
     out = torch.empty(B, N, dtype=x.dtype, device=x.device)
-    part = torch.empty(n_split * B * N if n_split > 1 else 1, dtype=torch.float32,
-                       device=x.device)
+    part = None
+    if not uses_mma(x.dtype, layout) and n_split > 1:
+        part = torch.empty(n_split * B * N, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w_b.data_ptr(), scale.data_ptr(), out.data_ptr(), part.data_ptr(),
-                 B, K, R, N, S, LAYOUTS[layout], seg, hi_off, vec, n_split,
-                 _DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        err = fn(x.data_ptr(), w_b.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                 None if part is None else part.data_ptr(), B, K, R, N, S, LAYOUTS[layout], seg,
+                 hi_off, vec, n_split, slice_rows, _DTYPE_CODES[x.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int4_gemv kernel launch failed (cudaError {err})")
     int4_gemv.launches += 1
@@ -128,9 +150,13 @@ def int4_gemv(x: torch.Tensor, w_b: torch.Tensor, scale: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"int4_gemv: unsupported device {x.device}")
     K, group = _check(x, w_b, scale, layout)
-    vec = vector_width(w_b.shape[1], w_b.data_ptr())
-    return launch(x, w_b, scale, layout, K, group, vec,
-                  split_plan(*w_b.shape, vec, max_slice=MAX_SLICE))
+    R, N = w_b.shape
+    if uses_mma(x.dtype, layout):
+        return launch(x, w_b, scale, layout, K, group, copy_width(N, w_b.data_ptr()),
+                      *cluster_plan(R, N))
+    vec = vector_width(N, w_b.data_ptr())
+    n_split = split_plan(R, N, vec, max_slice=MAX_SLICE)
+    return launch(x, w_b, scale, layout, K, group, vec, n_split, -(-R // n_split))
 
 
 int4_gemv.launches = 0

@@ -109,10 +109,24 @@ def _dense_general_sparse(x: torch.Tensor, sk: BlockSparseKernel,
     return y.reshape(*lead, *sk.out_shape)
 
 
+NORM_PARTS = 16  # partial means a row's mean of squares is taken from
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in float32 (reference: torch.nn.RMSNorm at dia/layers.py:360-393)."""
+    """RMSNorm in float32 (reference: torch.nn.RMSNorm at dia/layers.py:360-393).
+
+    The mean of squares is the mean of ``NORM_PARTS`` partial means of a
+    row's consecutive values.  A CUDA reduction's launch shape — how many
+    threads share an output, and so the order its sum is taken in — follows
+    its output count, and from 16 outputs on it no longer changes: split so,
+    a row's bits do not depend on how many rows the call holds (a decode step
+    holds two a stream, so a batched stream would otherwise leave its
+    single-stream run).  The width must be a multiple of ``NORM_PARTS``."""
+    D = x.shape[-1]
+    if D % NORM_PARTS:
+        raise ValueError(f"rms_norm width {D} is not a multiple of {NORM_PARTS}")
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    var = x32.square().unflatten(-1, (NORM_PARTS, D // NORM_PARTS)).mean(-1).mean(-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 

@@ -147,3 +147,28 @@ def test_decode_step_valid_from_matches_jax():
     no_window = tdia.decode_step(params, cfg, torch.from_numpy(tok), torch.from_numpy(pos).long(),
                                  slot, t_cache, t_cross, ends)
     assert (no_window - out).abs().max() > 1e-3  # the window does change the result
+
+
+def test_batch_lane_probe_names_a_row_dependent_op(monkeypatch):
+    """``chip_smoke.batch_lane_probe`` (the card's op-by-op comparison of a
+    batched lane with its single-stream run): on the CPU every lane agrees op
+    for op, the conditioning run once per stream; a norm whose result depends
+    on how many rows it is given is named as the first op to differ."""
+    import chip_smoke
+
+    dia = Dia.from_pretrained(SMALL, device="cpu")
+    texts = TEXTS + ["[S2] A fourth stream."]
+    for lane in range(len(texts)):
+        rec = chip_smoke.batch_lane_probe(torch, dia, texts, lane, steps=2, max_tokens=32)
+        assert rec["first_differing_op"] is None and rec["differing_ops"] == {}
+        assert rec["outputs_compared"] > 0
+    norm = tdia.rms_norm
+
+    def row_dependent_norm(x, scale, eps):  # a decode step holds two rows a stream
+        out = norm(x, scale, eps)
+        return out * (1 + 2.0 ** -6) if x.shape[0] > 2 and x.shape[1] == 1 else out
+
+    monkeypatch.setattr(tdia, "rms_norm", row_dependent_norm)
+    rec = chip_smoke.batch_lane_probe(torch, dia, texts, 1, steps=2, max_tokens=32)
+    assert rec["first_differing_op"] == "rms_norm (step 1, call 1)"
+    assert rec["first_difference"]["max_abs_diff"] > 0 and "rms_norm" in rec["differing_ops"]

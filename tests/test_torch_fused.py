@@ -398,6 +398,16 @@ def _jax_driven(monkeypatch, jd):
             1, 3, 4))(jd.params, jcfg, jnp.asarray(enc_input.numpy()), jnp.float32, window)
         return real["conditioning"](params, config, enc_input, dtype, window)
 
+    def conditioning_batch(params, config, conds, dtype, device):
+        # the port conditions each stream alone (through ``conditioning``
+        # above); the JAX package all streams at once, rows [uncond × N; cond × N]
+        out = real["conditioning_batch"](params, config, conds, dtype, device)
+        enc = np.concatenate([np.stack([c[0] for c in conds]), np.stack([c[1] for c in conds])])
+        st["cross"], st["mask"], st["pad"] = jax.jit(jgen._conditioning, static_argnums=(
+            1, 3, 4))(jd.params, jcfg, jnp.asarray(enc), jnp.float32,
+                      tgen._cross_window_for(enc, config))
+        return out
+
     def new_self_cache(config, batch, max_len, dtype, device, quant):
         st["self"] = jdia.new_self_cache(jcfg, batch, max_len, quant=quant)
         return real["new_self_cache"](config, batch, max_len, dtype, device, quant=quant)
@@ -457,9 +467,10 @@ def _jax_driven(monkeypatch, jd):
 
     st["forced"] = forced
     real = {name: getattr(tgen, name) for name in
-            ("conditioning", "new_self_cache", "run_prefill", "quantize_cache", "decode_loop",
-             "decode_loop_batch")}
-    for name, fn in (("conditioning", conditioning), ("new_self_cache", new_self_cache),
+            ("conditioning", "conditioning_batch", "new_self_cache", "run_prefill",
+             "quantize_cache", "decode_loop", "decode_loop_batch")}
+    for name, fn in (("conditioning", conditioning), ("conditioning_batch", conditioning_batch),
+                     ("new_self_cache", new_self_cache),
                      ("run_prefill", run_prefill), ("quantize_cache", quantize_cache),
                      ("decode_loop", decode_loop), ("decode_loop_batch", decode_loop_batch)):
         monkeypatch.setattr(tgen, name, fn)

@@ -60,6 +60,14 @@ def test_rms_norm(rng):
     _close(tmod.rms_norm(_t(x), _t(s), 1e-5), jmod.rms_norm(jnp.asarray(x), jnp.asarray(s), 1e-5))
 
 
+def test_rms_norm_width_must_be_a_multiple_of_its_parts():
+    """The mean of squares is always taken over ``NORM_PARTS`` partial means:
+    a width that does not split so is refused, not normed another way."""
+    x = torch.ones(2, 1, tmod.NORM_PARTS + 4)
+    with pytest.raises(ValueError, match="multiple"):
+        tmod.rms_norm(x, torch.ones(x.shape[-1]), 1e-5)
+
+
 @pytest.mark.parametrize("H", [32, 64, 128])
 def test_rope(rng, H):
     x = rng.normal(size=(2, 7, 3, H)).astype(np.float32)

@@ -434,19 +434,25 @@ def test_int8_launch_plan(K, N, ptr, copy, cluster, slice_rows, vec, splits):
     assert n == splits and -(-K // n) <= MAX_SLICE
 
 
-@pytest.mark.parametrize("R,N,ptr,vec,splits", [
-    (1024, 2048, 0, 4, 16), (1024, 512, 0, 4, 16), (1024, 16384, 0, 4, 9),
-    (4096, 2048, 0, 4, 64), (1024, 9252, 0, 4, 15), (1024, 9252, 2, 1, 4), (20, 7, 0, 1, 1),
-    (500, 1027, 0, 1, 7)])
-def test_int4_launch_plan(R, N, ptr, vec, splits):
-    """The int4 GEMV plans its byte rows with the fp32 int8 route's
-    functions and its own shared-memory slice."""
+@pytest.mark.parametrize("R,N,ptr,vec,splits,copy,cluster,slice_rows", [
+    (1024, 2048, 0, 4, 16, 16, 16, 64), (1024, 512, 0, 4, 16, 16, 16, 64),
+    (1024, 16384, 0, 4, 9, 16, 2, 512), (4096, 2048, 0, 4, 64, 16, 16, 256),
+    (1024, 9252, 0, 4, 15, 16, 4, 256), (1024, 9252, 2, 1, 4, 1, 4, 256), (20, 7, 0, 1, 1, 1, 1, 64),
+    (500, 1027, 0, 1, 7, 1, 4, 128)])
+def test_int4_launch_plan(R, N, ptr, vec, splits, copy, cluster, slice_rows):
+    """The CUDA-core route (fp32, one value a byte) plans its byte rows with
+    the fp32 int8 route's functions and its own shared-memory slice; the
+    tensor-core route (bf16 nibbles) copies as the bf16 int8 route does and
+    plans byte rows with its cluster rule, each slice whole stages."""
     import importlib
 
     m4 = importlib.import_module("dia_tts_prune_tpu_torch.ops.kernels.int4_gemv")
     assert m4.vector_width(N, ptr) == vec
     n = m4.split_plan(R, N, vec, max_slice=m4.MAX_SLICE)
     assert n == splits and -(-R // n) <= m4.MAX_SLICE
+    assert m4.copy_width(N, ptr) == copy
+    assert m4.cluster_plan(R, N) == (cluster, slice_rows)
+    assert slice_rows % 64 == 0 and cluster * slice_rows >= R
 
 
 # ---------------------------------------------------------------------------

@@ -39,8 +39,22 @@ phase (set-up, waiting for the first stage, the rest of the loop, the barrier
 that every block has started, pushing the sums, the cluster sync, the merge)
 and globaltimer at start and end, read after one eager call.
 
+``--kernel int4``: the int4 GEMV instead (``csrc/int4_gemv.cu``), on nibble
+weights packed as the decode path packs them (``--form``: halfsplit with
+groups of 128 by default; per-column, parity), the old source being the
+split-K CUDA-core design (``int4_gemv_fwd(x, w, scale, out, part, B, K, R, N,
+S, layout, seg, hi_off, vec, n_split, dtype, stream)``, planned by
+``vector_width`` and ``split_plan`` over byte rows); cuBLAS on the dequantized
+bf16 weight.  Its variants: ``base``; ``ring48`` / ``ring96``;
+``c1`` / ``c2`` / ``c4`` / ``c8`` — clusters of at most that many blocks;
+``wide`` / ``narrow``; ``p2`` / ``p8``; ``lb1`` — no register cap at one
+n-tile (two blocks an SM instead of three); ``alias`` / ``noalias``
+— the inbox in the ring's bytes (written after a cluster barrier that every
+block has left its ring) / beside the ring (written once every block has
+started) at every row count, where the source picks by n-tiles; probes ``empty``, ``no_mma``, ``no_weight``, ``no_widen``, ``no_merge``.
+
 Run on the card from the repository root:
-``python3 tools/torch_gemv_ab.py [--old PATH] [--variants base st4 ...] [--rows 2 8 64]``.
+``python3 tools/torch_gemv_ab.py [--kernel int4] [--old PATH] [--variants base st4 ...] [--rows 2 8 64]``.
 """
 
 from __future__ import annotations
@@ -57,8 +71,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-OLD_DEFAULT = REPO / "_parent" / "dia_tts_prune_tpu_torch" / "csrc" / "int8_matmul.cu"
-OLD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+OLD_DIR = REPO / "_parent" / "dia_tts_prune_tpu_torch" / "csrc"
+OLD_ARGTYPES = {"int8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+                "int4": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]}
+SOURCE = {"int8": "int8_matmul", "int4": "int4_gemv"}
+# int4 weight forms: (group, halfsplit)
+FORMS = {"halfsplit128": (128, True), "halfsplit": (None, True), "parity128": (128, False),
+         "parity": (None, False)}
 SHAPES = [(2048, 2048), (2048, 512), (2048, 16384), (8192, 2048), (2048, 9252)]
 ROWS = (2, 8, 64)
 
@@ -142,6 +161,32 @@ TIMELINE = [
      "  if (threadIdx.x == 0) g_tl[blockIdx.y * gridDim.x + blockIdx.x][9] = gtime();\n}"),
 ]
 PROBES["timeline"] = (TIMELINE, None)
+# the int4 GEMV's variants and probes (same plan overrides as int8's)
+INT4_TOP = "  using S = Smem<TB, LAYOUT>;\n  constexpr int XS"
+INT4_VARIANTS = {
+    "base": ([], None),
+    "ring48": VARIANTS["ring48"], "ring96": VARIANTS["ring96"],
+    "c1": ([], (1, None)), "c2": ([], (2, None)), "c4": ([], (4, None)), "c8": ([], (8, None)),
+    "wide": VARIANTS["wide"], "narrow": VARIANTS["narrow"],
+    "p2": VARIANTS["p2"], "p8": VARIANTS["p8"],
+    "lb1": ([("__launch_bounds__(NT, TB == 1 ? 3 : 1)", "__launch_bounds__(NT, 1)")], None),
+    # the inbox in the ring's bytes at every row count / beside it at every row count
+    "alias": ([("  static constexpr bool ALIAS = TB >= 4;", "  static constexpr bool ALIAS = true;")],
+              None),
+    "noalias": ([("  static constexpr bool ALIAS = TB >= 4;", "  static constexpr bool ALIAS = false;")],
+                None),
+}
+INT4_PROBES = {
+    "empty": ([(INT4_TOP, "  if (B > 0) return;\n" + INT4_TOP)], None),
+    "no_mma": ([("          for (int p = 0; p < TB; ++p) mma(acc[m][p], a[m], xb[p][0], xb[p][1]);",
+                 "          for (int p = 0; p < 0; ++p) mma(acc[m][p], a[m], xb[p][0], xb[p][1]);")],
+               None),
+    "no_weight": PROBES["no_weight"],
+    "no_widen": ([("  return bits(__hsub2(bf2((p & 0x000F000Fu) ^ MAGIC), bf2(MAGIC)));",
+                   "  return p;")], None),
+    "no_merge": PROBES["no_merge"],
+}
+INT4_VARIANTS.update(INT4_PROBES)
 TL_PHASES = ("init", "first_stage_wait", "loop_rest", "start_barrier", "push", "cluster_sync",
              "merge")
 VARIANTS.update(PROBES)
@@ -206,7 +251,7 @@ def caller(torch, i8, lib, x, vals, scale, old: bool, override=None):
     """fn() launching ``lib``'s entry on x and the next weight copy into a
     fixed output."""
     fn = lib.int8_matmul_fwd
-    fn.argtypes, fn.restype = (OLD_ARGTYPES if old else i8._ARGTYPES), ctypes.c_int
+    fn.argtypes, fn.restype = (OLD_ARGTYPES["int8"] if old else i8._ARGTYPES), ctypes.c_int
     B, K = x.shape
     N = vals[0].shape[1]
     out = torch.empty(B, N, dtype=x.dtype, device="cuda")
@@ -233,11 +278,52 @@ def caller(torch, i8, lib, x, vals, scale, old: bool, override=None):
     return run
 
 
+def caller4(torch, i8, i4, lib, x, vals, scale, group, layout, old: bool, override=None):
+    """The int4 GEMV's ``caller``: its entry on x and the next byte-weight
+    copy, with the wrapper's segment arguments and the old or new plan."""
+    fn = lib.int4_gemv_fwd
+    fn.argtypes, fn.restype = (OLD_ARGTYPES["int4"] if old else i4._ARGTYPES), ctypes.c_int
+    B, K = x.shape
+    R, N = vals[0].shape
+    if group is None:
+        S, seg, hi_off = 1, R, 0
+    else:
+        S = K // group
+        seg = group // 2 if layout == "parity" else group
+        hi_off = S // 2 if layout == "halfsplit" else 0
+    out = torch.empty(B, N, dtype=x.dtype, device="cuda")
+    if old:
+        vec = i8.vector_width(N, vals[0].data_ptr())
+        tail = [vec, i8.split_plan(R, N, vec, max_slice=i4.MAX_SLICE)]
+    else:
+        tail = [i8.copy_width(N, vals[0].data_ptr()), *plan(i8, R, N, override)]
+    turn = iter(range(1 << 30))
+
+    def run(i=None):
+        w = vals[next(turn) % len(vals) if i is None else i]
+        part = None
+        if old and tail[1] > 1:  # a scratch per call, as the earlier wrapper allocated it
+            part = torch.empty(tail[1] * B * N, dtype=torch.float32, device="cuda")
+        err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                 None if part is None else part.data_ptr(), B, K, R, N, S, i4.LAYOUTS[layout],
+                 seg, hi_off, *tail, 1, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"int4_gemv_fwd failed (cudaError {err})")
+        return out
+
+    return run
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--old", type=Path, default=OLD_DEFAULT)
+    p.add_argument("--kernel", choices=sorted(SOURCE), default="int8")
+    p.add_argument("--form", choices=sorted(FORMS), default="halfsplit128",
+                   help="int4: the weight's layout and scale groups")
+    p.add_argument("--old", type=Path, default=None,
+                   help="the earlier source (default: its copy under _parent/)")
     p.add_argument("--variants", nargs="+", default=["base"],
-                   help=f"names of {sorted(VARIANTS)}, or several joined by '+'")
+                   help=f"names of {sorted(VARIANTS)} (int8) or {sorted(INT4_VARIANTS)} (int4), "
+                        "or several joined by '+'")
     p.add_argument("--rows", nargs="+", type=int, default=list(ROWS))
     args = p.parse_args(argv)
 
@@ -245,44 +331,61 @@ def main(argv=None) -> int:
 
     from chip_smoke import COLD_BYTES, GEMV_SUM_TOL, TOL, bound, graph_ms
     from dia_tts_prune_tpu_torch.ops import quant
-    from dia_tts_prune_tpu_torch.ops.kernels import _build, int8_matmul_plain
+    from dia_tts_prune_tpu_torch.ops.kernels import _build, int4_gemv_plain, int8_matmul_plain
 
     if not torch.cuda.is_available():
         print("torch_gemv_ab: no CUDA device", file=sys.stderr)
         return 1
-    # by module path: the package's namespace holds the wrapper function under this name
+    # by module path: the package's namespace holds the wrapper functions under these names
     i8 = importlib.import_module("dia_tts_prune_tpu_torch.ops.kernels.int8_matmul")
+    i4 = importlib.import_module("dia_tts_prune_tpu_torch.ops.kernels.int4_gemv")
+    int4 = args.kernel == "int4"
+    variants, probes = (INT4_VARIANTS, INT4_PROBES) if int4 else (VARIANTS, PROBES)
     for name in args.variants:  # a joined name: the parts' edits, the last plan given
-        if name not in VARIANTS:
-            parts = [VARIANTS[part] for part in name.split("+")]
-            VARIANTS[name] = ([e for edits, _ in parts for e in edits],
+        if name not in variants:
+            parts = [variants[part] for part in name.split("+")]
+            variants[name] = ([e for edits, _ in parts for e in edits],
                               next((o for _, o in reversed(parts) if o is not None), None))
-    source = (_build.CSRC_DIR / "int8_matmul.cu").read_text()
-    sources = {"old": args.old.read_text()}
+    source = (_build.CSRC_DIR / f"{SOURCE[args.kernel]}.cu").read_text()
+    old_path = args.old or OLD_DIR / f"{SOURCE[args.kernel]}.cu"
+    sources = {"old": old_path.read_text()}
     for name in args.variants:
         text = source
-        for old, new in VARIANTS[name][0]:
+        for old, new in variants[name][0]:
             if old not in text:
                 raise RuntimeError(f"variant {name}: {old!r} is not in the source")
             text = text.replace(old, new)
         sources[name] = text
+    group, halfsplit = FORMS[args.form]
+    layout = "halfsplit" if halfsplit else "parity"
     g = torch.Generator(device="cuda").manual_seed(4)
     with tempfile.TemporaryDirectory(prefix="gemv_ab_") as tmp:
         libs = build(sources, Path(tmp))
         order = ["old", *args.variants]
         for K, N in SHAPES:
             w = torch.randn(K, N, generator=g, device="cuda") / K ** 0.5
-            qk = quant.quantize_int8(w)
-            scale = qk.scale.reshape(N)
+            if int4:
+                qk = quant.quantize_int4(w, group=group, halfsplit=halfsplit)
+                if (qk.layout, qk.group) != (layout, group):
+                    raise RuntimeError(f"packer gave {qk.layout}/{qk.group} at K={K}")
+                scale, deq = qk.scale, quant.dequantize4(qk)
+            else:
+                qk = quant.quantize_int8(w)
+                scale, deq = qk.scale.reshape(N), quant.dequantize(qk)
+            rows_k = qk.values.shape[0]  # weight rows (int4: byte rows)
             n = max(2, min(64, -(-COLD_BYTES // qk.values.numel())))
             vals = [qk.values.clone() for _ in range(n)]
-            deq = quant.dequantize(qk)
-            wlib = [deq.bfloat16() for _ in range(max(2, n // 2))]
+            wlib = [deq.bfloat16() for _ in range(max(2, n // 2 if not int4 else n // 4))]
             for B in args.rows:
                 x = torch.randn(B, K, generator=g, device="cuda").bfloat16()
-                calls = {name: caller(torch, i8, libs[name], x, vals, scale, name == "old",
-                                      VARIANTS.get(name, (None, None))[1])
-                         for name in order}
+                if int4:
+                    calls = {name: caller4(torch, i8, i4, libs[name], x, vals, scale, group,
+                                           layout, name == "old", variants.get(name, (0, None))[1])
+                             for name in order}
+                else:
+                    calls = {name: caller(torch, i8, libs[name], x, vals, scale, name == "old",
+                                          variants.get(name, (None, None))[1])
+                             for name in order}
                 for fn in calls.values():
                     fn(0)
                 torch.cuda.synchronize()
@@ -292,7 +395,10 @@ def main(argv=None) -> int:
                     cl, _ = plan(i8, K, N, None)
                     tl = timeline(torch, libs["timeline"], cl * -(-N // i8.STRIP))
                 repeat = {name: torch.equal(calls[name](0), outs[name]) for name in order}
-                ref = int8_matmul_plain(x.float(), qk.values, scale)
+                if int4:
+                    ref = int4_gemv_plain(x.float(), qk.values, scale, layout)
+                else:
+                    ref = int8_matmul_plain(x.float(), qk.values, scale)
                 tol = (GEMV_SUM_TOL * (x.float().abs() @ deq.abs())
                        + TOL["bfloat16"]["rtol"] * ref.abs())
                 gate = {name: ((o.float() - ref).abs() / tol).max().item()
@@ -305,10 +411,12 @@ def main(argv=None) -> int:
                 turn = iter(range(1 << 30))
                 cublas = graph_ms(torch, lambda: torch.matmul(x, wlib[next(turn) % len(wlib)]),
                                   iters=4 * len(wlib))
-                nbytes = qk.values.numel() + 4 * N + 2 * (B * K + B * N)
+                nbytes = qk.values.numel() + 4 * scale.numel() + 2 * (B * K + B * N)
                 print(json.dumps({
-                    "tool": "torch_gemv_ab", "K": K, "N": N, "B": B, "dtype": "bfloat16",
-                    "plan": {name: list(plan(i8, K, N, VARIANTS[name][1])) for name in order
+                    "tool": "torch_gemv_ab", "kernel": args.kernel,
+                    "form": args.form if int4 else None, "K": K, "N": N, "B": B,
+                    "dtype": "bfloat16",
+                    "plan": {name: list(plan(i8, rows_k, N, variants[name][1])) for name in order
                              if name != "old"},
                     "ms": ms, "ms_each_turn": times,
                     "ratio_to_old": {name: ms[name] / ms["old"] for name in order},
@@ -319,7 +427,7 @@ def main(argv=None) -> int:
                     "timeline": tl,
                     "weight_copies": n}), flush=True)
                 if max(v for name, v in gate.items()
-                       if not any(part in PROBES for part in name.split("+"))) > 1.0:
+                       if not any(part in probes for part in name.split("+"))) > 1.0:
                     raise RuntimeError(f"K={K} N={N} B={B}: an output misses the gate: {gate}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)

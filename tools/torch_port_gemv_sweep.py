@@ -2,11 +2,11 @@
 """Sweep the launch plan of the port's int8-matmul and int4-GEMV kernels.
 
 For each packed weight shape of a Dia-1.6B decode step (B = 2 rows, bf16
-activations) it times the int8 kernel over its weight copy widths and cluster
-sizes (1 to 16 blocks, each slice a whole number of 64-row stages), beside
-the plan the wrapper picks (``cluster_plan``), and the int4 kernel over both
-load widths and a range of K-slice counts, beside its plan (``split_plan``),
-each beside cuBLAS on the bf16 weight.  Each timing loop cycles through copies of the weight that
+activations) it times the int8 kernel and the int4 GEMV (halfsplit nibbles,
+groups of 128, as ``Dia.quantize_int4()`` packs them) over their weight copy
+widths and cluster sizes (1 to 16 blocks, each slice a whole number of
+64-row stages — int4: of 64 byte rows), beside the plan each wrapper picks
+(``cluster_plan``), each beside cuBLAS on the bf16 weight.  Each timing loop cycles through copies of the weight that
 together exceed the L2 cache, as a decode step finds its weights cold.  Prints
 one JSON line per shape and kernel, then the card's name and power limit.
 
@@ -64,37 +64,28 @@ def main() -> int:
         x = torch.randn(2, K, generator=g, device="cuda").bfloat16()
         q8 = quant.quantize_int8(w)
         q4 = quant.quantize_int4(w, group=128, halfsplit=True)
-        for name, qk, scale, widths, max_slice, launch in (
-            ("int8_matmul", q8, q8.scale.reshape(N), (16, 4, 1), None,
-             lambda v, s, vec, n: i8.launch(x, v, s, vec, n,
-                                            -(-K // (i8.STAGE_ROWS * n)) * i8.STAGE_ROWS)),
-            ("int4_gemv", q4, q4.scale, (4, 1), i4.MAX_SLICE,
-             lambda v, s, vec, n: i4.launch(x, v, s, "halfsplit", K, 128, vec, n)),
+        for name, qk, scale, mod, launch in (
+            ("int8_matmul", q8, q8.scale.reshape(N), i8,
+             lambda v, s, vec, n, sl: i8.launch(x, v, s, vec, n, sl)),
+            ("int4_gemv", q4, q4.scale, i4,
+             lambda v, s, vec, n, sl: i4.launch(x, v, s, "halfsplit", K, 128, vec, n, sl)),
         ):
-            rows = qk.values.shape[0]
+            rows = qk.values.shape[0]  # weight rows (int4: byte rows)
             n_copies = max(2, min(64, -(-COLD_BYTES // qk.values.numel())))
             vals = [qk.values.clone() for _ in range(n_copies)]
             turn = iter(range(1 << 30))
             iters = 2 * n_copies
             table = {}
-            for vec in widths:
-                if N % (4 if max_slice is None and vec == 16 else vec):  # int8: 16 needs N % 4
+            for vec in (16, 4, 1):
+                if N % (4 if vec == 16 else vec):  # 16-byte copies need N % 4 == 0
                     continue
-                if max_slice is None:  # int8: clusters of 1 to 16 blocks
-                    splits = (1, 2, 4, 8, 16)
-                else:
-                    lo = -(-rows // max_slice)
-                    splits = sorted({lo, *(n for n in (1, 2, 4, 8, 16, 32, 64) if n >= lo),
-                                     i8.split_plan(rows, N, vec, max_slice)})
-                for n_split in splits:
+                for n_split in (1, 2, 4, 8, 16):  # clusters of 1 to 16 blocks
+                    sl = -(-rows // (i8.STAGE_ROWS * n_split)) * i8.STAGE_ROWS
                     table[f"vec{vec}_split{n_split}"] = cuda_ms(
-                        lambda: launch(vals[next(turn) % n_copies], scale, vec, n_split), iters)
-            if max_slice is None:
-                planned = (f"vec{i8.copy_width(N, qk.values.data_ptr())}"
-                           f"_split{i8.cluster_plan(K, N)[0]}")
-            else:
-                vec = i8.vector_width(N, qk.values.data_ptr())
-                planned = f"vec{vec}_split{i8.split_plan(rows, N, vec, max_slice)}"
+                        lambda: launch(vals[next(turn) % n_copies], scale, vec, n_split, sl),
+                        iters)
+            planned = (f"vec{mod.copy_width(N, qk.values.data_ptr())}"
+                       f"_split{mod.cluster_plan(rows, N)[0]}")
             wl = [w.bfloat16() for _ in range(max(2, n_copies // 2))]
             print(json.dumps({
                 "tool": "torch_port_gemv_sweep", "kernel": name, "K": K, "N": N, "B": 2,

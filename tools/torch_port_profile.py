@@ -26,6 +26,9 @@ line:
   — the decode-attention kernel's share (36 launches an unfused step);
 * ``int8_matmul_ms_per_step`` and ``int8_matmul_launches_per_step`` — the
   int8-matmul kernels' share (145 calls a packed int8 step);
+* ``int4_gemv_ms_per_step`` and ``int4_gemv_launches_per_step`` — the int4
+  GEMV kernels' share (145 calls a packed int4 step; the cluster kernel, or
+  the split-K design's kernel and finish pass of older sources);
 * the card's name and power limit.
 
 Run on the card: ``python3 tools/torch_port_profile.py [--steps 64] [--quant int8]
@@ -167,6 +170,7 @@ def main(argv=None) -> int:
         # the int8-matmul kernels (the cluster kernel; the split-K design's kernel
         # and finish pass, for older sources)
         gemv8 = [r for r in kernels if "int8_matmul" in r[0]]
+        gemv4 = [r for r in kernels if "int4_gemv" in r[0]]
         out.update({
             "device_ms_per_step": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / host_ms),
@@ -175,6 +179,8 @@ def main(argv=None) -> int:
             "decode_attention_launches_per_step": sum(r[2] for r in attn),
             "int8_matmul_ms_per_step": sum(r[1] for r in gemv8),
             "int8_matmul_launches_per_step": sum(r[2] for r in gemv8),
+            "int4_gemv_ms_per_step": sum(r[1] for r in gemv4),
+            "int4_gemv_launches_per_step": sum(r[2] for r in gemv4),
             "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": c}
                             for k, ms, c in kernels[:12]],
         })
