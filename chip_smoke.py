@@ -9,8 +9,8 @@ script exits non-zero:
 1. build     — compile every CUDA kernel from ``dia_tts_prune_tpu_torch/csrc``
                and the planted-fault copies of the fused step (one nvcc per
                source, all at once), and report the registers and spills of
-               the flash, block-sparse, decode-attention and bf16 int8-matmul
-               and int4-GEMV kernels (``nvcc -Xptxas -v``);
+               the flash, block-sparse, decode-attention, bf16 int8-matmul,
+               int4-GEMV and fused-step kernels (``nvcc -Xptxas -v``);
 2. kernels   — each kernel against its plain PyTorch version at the main
                paths' shapes, fp32 and bf16: max abs error beside the stated
                tolerance, kernel and library times (device time: calls
@@ -36,7 +36,8 @@ script exits non-zero:
                runs, rows independent of M (2, 8, 16 against 64; 2 against a
                512-row product whose blocks each run every slice);
                the fused decode step at Dia-1.6B widths (int8 and int4-MLP
-               packs, bf16 and int8 caches, B = 2 and 8, and 20), rows of
+               packs, bf16 and int8 caches, B = 2 and 8, and 20 and 66; one
+               kernel a call, counted in a captured CUDA graph), rows of
                B = 20 equal to B = 2 and 8 runs, NaN where nothing may be
                read, the plain version's own spread (host against card, 2
                rows against 8) and four planted faults, built from edited
@@ -231,7 +232,7 @@ def flash_tiles(torch, route, q_seg, kv_seg, causal) -> dict:
 
 # registers and spills reported
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "block_sparse_matmul",
-                 "decode_attention", "int8_matmul", "int4_gemv")
+                 "decode_attention", "int8_matmul", "int4_gemv", "fused_step")
 
 
 def ptxas_report(log: str) -> dict:
@@ -241,7 +242,7 @@ def ptxas_report(log: str) -> dict:
     the decode kernel at head dim 128 by q and cache type and query heads held,
     the bf16 int8-matmul kernel by n-tiles of 8 rows and weight copy width, the
     bf16 int4 GEMV by n-tiles, layout, copy width and whether scale segments
-    may end inside a k-step."""
+    may end inside a k-step, the fused step by n-tiles of x a pass."""
     import re
 
     report, name = {}, None
@@ -252,10 +253,14 @@ def ptxas_report(log: str) -> dict:
     i8 = re.compile(r"Function properties for \S*?int8_matmul_mma_kernelILi(\d+)ELi(\d+)ELb([01])E")
     i4 = re.compile(r"Function properties for \S*?int4_gemv_mma_kernelILi(\d+)ELi([01])ELi(\d+)"
                     r"ELb([01])E")
+    fs = re.compile(r"Function properties for \S*?fused_step_kernelILi(\d+)E")
     types = {"13__nv_bfloat16S1_": "bf16, bf16", "13__nv_bfloat16a": "bf16, int8",
              "ff": "float, float", "fa": "float, int8"}
     for line in log.splitlines():
-        if m := i4.search(line):
+        if m := fs.search(line):
+            name = f"fused_step_kernel<{m.group(1)} n-tiles>"
+            report[name] = {}
+        elif m := i4.search(line):
             name = (f"int4_gemv_mma_kernel<{m.group(1)} n-tiles, "
                     f"{('halfsplit', 'parity')[int(m.group(2))]}, copies of {m.group(3)} B"
                     f"{', segments inside k-steps' if m.group(4) == '1' else ''}>")
@@ -298,9 +303,11 @@ def phase_build() -> dict:
             raise RuntimeError(f"fault {name}: its line is not in fused_step.cu once")
         src, lib = faults_dir / f"{name}.cu", faults_dir / f"lib{name}.so"
         src.write_text(source.replace(old, new))
-        running[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-                                           str(src)], stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT), lib)
+        # the faults run at B = 2: one row tiling is enough (FUSED_TB)
+        running[name] = (subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                                           f"-I{_build.CSRC_DIR}", "-DFUSED_TB=1", "-o", str(lib),
+                                           str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT), lib)
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
     verbose = {name: subprocess.Popen(
         [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-cubin", "-o",
@@ -903,21 +910,23 @@ def phase_sparse_kernels(torch) -> dict:
 # ``fused_fault_cases`` plants faults in the kernel that the gate must reject.
 FUSED_TOL = 2e-2
 # One-line edits of csrc/fused_step.cu, each built beside the real kernel: the
-# last K slice of every GEMV left out of its sum; o_proj reading 64 of its
-# 2048 K rows fewer (half a head); the last 32-slot chunk of every attention
-# left out of the combine; the int4 MLP's low- and high-nibble scales swapped.
+# last K slice of every GEMV left out of its strip's sum; o_proj reading 64
+# of its 2048 K rows fewer (half a head: its plan, and so its layers' offsets,
+# as for 1984 rows); the last 32-slot chunk of every attention left out of
+# the combine (its weight zero); the int4 MLP's low- and high-nibble scale
+# rows swapped.
 FUSED_FAULTS = {
     "k_slice_dropped": (
         "for (int s = 0; s < nsl; ++s) v += __ldcg(part + s * stride + off);",
         "for (int s = 0; s < nsl - 1; ++s) v += __ldcg(part + s * stride + off);"),
     "o_proj_64_rows_short": (
-        "make_job(p, 1, l, NqH, D, 0, D)", "make_job(p, 1, l, NqH - 64, D, 0, D)"),
+        "case M_O: return {Nq * H, D, 0, D};", "case M_O: return {Nq * H - 64, D, 0, D};"),
     "attention_chunk_dropped": (
-        "for (int k = 0; k < nch; ++k) {\n        const float f",
-        "for (int k = 0; k < nch - 1; ++k) {\n        const float f"),
+        "const float f = expf(cm[g * nch + k] - mx);",
+        "const float f = k + 1 < nch ? expf(cm[g * nch + k] - mx) : 0.f;"),
     "int4_scales_swapped": (
-        "j.s[(size_t)(tile * 2) * j.n + col + c] +\n                v2 * j.s[(size_t)(tile * 2 + 1)",
-        "j.s[(size_t)(tile * 2 + 1) * j.n + col + c] +\n                v2 * j.s[(size_t)(tile * 2)"),
+        "slo[j] = __ldg(s_lo + j), shi[j] = __ldg(s_hi + j);",
+        "slo[j] = __ldg(s_hi + j), shi[j] = __ldg(s_lo + j);"),
 }
 # Fused fixtures, card against CPU: teacher-forced logits within 2e-2 (the JAX
 # package's kernel gate) as a share of the
@@ -1040,13 +1049,17 @@ def fused_case(torch, int4, kind, B, pack=None, time_it=True) -> dict:
         nbytes = fused_bytes(pack, inp)
         flops = 2 * B * sum(t.numel() * (2 if int4 and i >= 4 else 1)
                             for i, t in enumerate(pack[:14:2]))  # int4: 2 weights a byte
-        b_ms, b_by = bound(nbytes, flops, "float32")
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")  # mma.sync on bf16 x and widened weights
         rec.update({"ms": cuda_ms(torch, lambda: fused_decode_step(pack, **inp), iters=20),
                     "timing": "CUDA events around 20 back-to-back launches",
                     "plain_ms": cuda_ms(torch, lambda: fused_decode_step_plain(pack, **inp),
                                         iters=3, warmup=1),
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "library_ms": None,
                     "library": "none: no single PyTorch call computes a decoder step"})
+        # one kernel a step; float caches add the wrapper's two casts of k_new, v_new
+        rec["kernels_per_call"] = kernels_per_call(torch, lambda: fused_decode_step(pack, **inp))
+        if rec["kernels_per_call"] != (1 if kind == "int8" else 3):
+            raise RuntimeError(f"fused_decode_step: {rec['kernels_per_call']} kernels a call")
     emit(rec)
     return rec
 
@@ -1061,8 +1074,8 @@ def fused_rows(torch, inp, rows) -> dict:
 
 
 def fused_rows_and_poison_case(torch, pack, kind) -> None:
-    """Rows of a 20-row step (ten streams: two groups of the kernel's 16
-    staged rows) equal the same rows run 2 and 8 at a time, bit for bit; NaN
+    """Rows of a 20-row step (ten streams: three of the kernel's n-tiles of 8
+    rows) equal the same rows run 2 and 8 at a time, bit for bit; NaN
     in every self slot outside [valid_from, write_slot), in the text keys
     past each row's end and in the unconditional rows' whole cross cache
     leaves every output bit-identical (int8 caches: NaN in their scales)."""
@@ -1138,7 +1151,7 @@ def fused_fault_cases(torch, pack, int4, faults: dict) -> list:
     against the plain version: the gate must reject it.  Returns each
     fault's ``err_over_tol``."""
     from dia_tts_prune_tpu_torch.ops.kernels import _build, fused_decode_step, fused_decode_step_plain
-    from dia_tts_prune_tpu_torch.ops.kernels.fused_step import _ARGTYPES
+    from dia_tts_prune_tpu_torch.ops.kernels.fused_step import _ARGTYPES, _STATIC
 
     inp = fused_inputs(torch, 2, "bfloat16")
     ref = fused_decode_step_plain(pack, **inp)
@@ -1154,11 +1167,13 @@ def fused_fault_cases(torch, pack, int4, faults: dict) -> list:
         fwd.restype = size.restype = ctypes.c_int
         _build._functions[("fused_step", "fused_step_fwd")] = fwd
         _build._functions[("fused_step", "fused_step_workspace_bytes")] = size
+        _STATIC.clear()  # the workspace size comes from the fault's own layout
         try:
             gate = fused_gate(fused_decode_step(pack, **inp), ref)
         finally:
             for k, fn in real.items():
                 _build._functions[k] = fn
+            _STATIC.clear()
         rec = {"phase": "kernels", "kernel": "fused_decode_step", "dtype": "bfloat16",
                "case": f"planted fault {name}", "rejected": gate["err_over_tol"] > 1, **gate}
         emit(rec)
@@ -1170,8 +1185,8 @@ def fused_fault_cases(torch, pack, int4, faults: dict) -> list:
 
 def phase_fused_kernels(torch, faults: dict) -> dict:
     """The fused step with int8 and int4-MLP packs, bf16 and int8 caches, at
-    B = 2 and B = 8 (and 20 rows for the int8 pack and caches), rows across
-    B, NaN poison, the plain version's own spread and the planted faults;
+    B = 2 and B = 8 (and 20 rows for the int8 pack and caches; 66, untimed),
+    rows across B, NaN poison, the plain version's own spread and the planted faults;
     returns the int8-pack, int8-cache, B = 2 record (the main path's) for the
     kernels line."""
     sound, spread, caught = [], [], []
@@ -1184,6 +1199,8 @@ def phase_fused_kernels(torch, faults: dict) -> dict:
                 if not int4 and kind == "int8" and B == 2:
                     picked = rec
             fused_rows_and_poison_case(torch, pack, kind)
+        if not int4:  # 66 rows: two passes of the kernel's 64, the weight streamed twice
+            sound.append(fused_case(torch, int4, "int8", 66, pack, time_it=False)["err_over_tol"])
         sp = fused_spread_case(torch, pack, int4)
         spread += [sp["plain_host_vs_card"], sp["plain_2_rows_vs_8_rows"]]
         caught += fused_fault_cases(torch, pack, int4, faults)

@@ -2,7 +2,9 @@
 pack, the CUDA kernel's wrapper and its plain PyTorch version.
 
 Kernel: ``csrc/fused_step.cu`` (hand-written for sm_90a, loaded with ctypes,
-one cooperative launch per decode step, any number of rows).  It replaces
+one cooperative launch per decode step, any number of rows: copying warps
+stream every block's weight tiles through a shared-memory ring across phases
+and barriers, ``mma.sync`` GEMV items, three grid barriers a layer).  It replaces
 the Pallas kernel ``dia_tts_prune_tpu/ops/kernels/fused_step.py::
 fused_decode_step`` (``pallas_call`` :1018), which walks ``(layers,
 phases)`` on one TPU core with the activations in VMEM.  Per layer: folded-norm → qkv → RoPE → cached
@@ -422,11 +424,33 @@ def fused_decode_step(
     return x, kv[0].to(out_dt), kv[1].to(out_dt)
 
 
+# (shapes, rope timescales, device) -> (workspace bytes, inv_freq): what a
+# launch needs that depends on nothing but its shapes, asked for once
+_STATIC: dict[tuple, tuple[int, torch.Tensor]] = {}
+
+
+def _static(shapes: tuple, rope_min, rope_max, dev) -> tuple[int, torch.Tensor]:
+    key = (shapes, float(rope_min), float(rope_max), dev)
+    hit = _STATIC.get(key)
+    if hit is None:
+        from ..modules import _inv_freq
+        from ._build import kernel_function
+
+        need = ctypes.c_longlong(0)
+        size_fn = kernel_function("fused_step", "fused_step_workspace_bytes",
+                                  [ctypes.c_int] * 11 + [ctypes.c_void_p])
+        if size_fn(*shapes, ctypes.byref(need)) != 0:
+            raise ValueError(f"fused_decode_step: shapes {shapes} refused")
+        hit = _STATIC[key] = (need.value, _inv_freq(shapes[6], float(rope_min), float(rope_max),
+                                                    dev))
+    return hit
+
+
 def launch(pack: FusedPack, x_in, position, write_slot: int, self_k, self_v, cross_k, cross_v,
            cross_ends, valid_from, scales, eps, rope_min, rope_max, stream: int):
     """One launch of the kernel on checked inputs (``fused_decode_step``
-    checks them): returns (x [B, D] fp32, kv [2, L, B, Nkv, H] fp32)."""
-    from ..modules import _inv_freq
+    checks them): returns (x [B, D] fp32, kv [2, L, B, Nkv, H] fp32), fresh
+    tensors on every call."""
     from ._build import kernel_function
 
     L, B, T, Nkv, H = self_k.shape
@@ -434,15 +458,10 @@ def launch(pack: FusedPack, x_in, position, write_slot: int, self_k, self_v, cro
     D, F, Nq = x_in.shape[1], pack.wg.shape[2], pack.wo.shape[1] // H
     dev = x_in.device
     shapes = (B, D, F, Nq, Nkv, Ncq, H, T, S, int(pack.mlp_int4), pack.mlp_tiles)
-    need = ctypes.c_longlong(0)
-    size_fn = kernel_function("fused_step", "fused_step_workspace_bytes",
-                              [ctypes.c_int] * 11 + [ctypes.c_void_p])
-    if size_fn(*shapes, ctypes.byref(need)) != 0:
-        raise ValueError(f"fused_decode_step: shapes {shapes} refused")
-    work = torch.empty(need.value, dtype=torch.uint8, device=dev)
+    need, inv_freq = _static(shapes, rope_min, rope_max, dev)
+    work = torch.empty(need, dtype=torch.uint8, device=dev)
     x = torch.empty(B, D, dtype=torch.float32, device=dev)
     kv = torch.empty(2, L, B, Nkv, H, dtype=torch.float32, device=dev)
-    inv_freq = _inv_freq(H, float(rope_min), float(rope_max), dev)
     ptrs = [t.data_ptr() for t in pack[:14]] + [
         t.data_ptr() for t in (x_in, position, valid_from, cross_ends, inv_freq,
                                self_k, self_v, cross_k, cross_v)]

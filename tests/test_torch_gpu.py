@@ -708,7 +708,7 @@ def _fused_inputs(device, B, kind, T=96, S=40, write_slot=70, seed=1):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("int4", [False, True])
-@pytest.mark.parametrize("B", [2, 6, 36])  # 36: three groups of staged rows
+@pytest.mark.parametrize("B", [2, 6, 36])  # 36: five n-tiles of 8 rows
 def test_fused_kernel_matches_plain_on_card(cuda_device, kind, int4, B):
     from dia_tts_prune_tpu_torch.ops.kernels import fused_decode_step, fused_decode_step_plain
 
@@ -729,7 +729,7 @@ def test_fused_kernel_matches_plain_on_card(cuda_device, kind, int4, B):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", [torch.bfloat16, torch.int8])
 def test_fused_rows_do_not_depend_on_the_batch_or_poison(cuda_device, kind):
-    """Rows of a 36-row step (three groups of 16 staged rows) equal the same
+    """Rows of a 36-row step (five of the kernel's n-tiles of 8 rows) equal the same
     rows run 2 or 6 at a time, bit for bit; NaN wherever a row may not read
     leaves every output as it was."""
     from dia_tts_prune_tpu_torch.ops.kernels import fused_decode_step
