@@ -59,25 +59,31 @@ script exits non-zero:
                full, LoRA and QAT-int8 optimizer steps on ``trained_small``,
                the loss after each step on the card against the CPU run;
 4. full_width — Dia-1.6B shapes in bf16 and the 44.1 kHz DAC with weights
-               from a numpy seed, three paths, each with the launch counts
-               zeroed just before and read just after: (a) float weights — a
-               greedy and a seeded-sampled ``generate`` and a voice-prompted
-               ``generate_codes`` (the causal-flash prefill); (b)
-               ``quantize_int8()`` then a greedy ``generate`` (int8 weights,
-               int8 KV caches); (c) a fresh model, ``quantize_int4()``, a
-               greedy ``generate``; (d) ``pruned``: a fresh model, per-module
-               block ranking at 0.5 (and the global ranking's densities,
-               reported), ``sparsify_block``, a greedy ``generate``; (e)
-               ``batched``: four greedy streams on it, each equal to its
-               single-stream run frame for frame and, by the batched-lane
-               probe, op for op (the first differing op is printed, or
-               none); (f) ``prune_cli``: ``offline_prune
-               --prune-mode block`` at 2 + 2 layers, ``from_pretrained``,
-               ``sparsify_block``, generate; (g) ``fused_int8``,
-               ``fused_int4``, ``fused_batched`` (four streams): one fused
-               launch and no decode-attention launch per step.  Every kernel
-               of a path must have launched, the GEMV and block-sparse
-               kernels once per contraction of every step;
+               from a numpy seed, every serving route on the CUDA-graph
+               decode loop (``graphed_route``; each call with the launch
+               counts zeroed just before and read just after): an eager
+               reference call at 192 tokens whose codes the graph loop must
+               equal bit for bit, then a call that captures at 512 and three
+               from the kept graph — ms/step (median, spread), host against
+               device ms/step, capture seconds, graph nodes per step against
+               the decode step's own, peak memory, RTF, aggregate tokens/s.
+               Routes: (a) float weights — ``bf16`` greedy, ``sampled``
+               (seeded), ``prompted`` (a voice prompt: the causal-flash
+               prefill); (b) ``int8`` (``quantize_int8()``, int8 KV caches);
+               (c) ``int4`` (a fresh model, ``quantize_int4()``); (d)
+               ``pruned``: a fresh model, per-module block ranking at 0.5
+               (and the global ranking's densities, reported),
+               ``sparsify_block``; (e) ``batched``: four greedy streams on
+               it, each equal to its single-stream run frame for frame on
+               the graph loop and, by the batched-lane probe (eager), op for
+               op (the first differing op is printed, or none); (f)
+               ``prune_cli``: ``offline_prune --prune-mode block`` at 2 + 2
+               layers, ``from_pretrained``, ``sparsify_block``, generate; (g)
+               ``fused_int8``, ``fused_int4``, ``fused_batched`` (four
+               streams): one fused launch and no decode-attention launch per
+               step.  Every kernel of a path must have launched, the GEMV
+               and block-sparse kernels once per contraction of every step
+               the host issued (eager, warm-up and captured steps);
 5. training  — teacher-forced fine-tuning at the same full width (bf16
                compute, ``audio_length`` 3072, batch 2, every layer
                rematerialized): three LoRA steps, two full fine-tune steps
@@ -631,12 +637,7 @@ def kernels_per_call(torch, fn) -> int:
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    n = ctypes.c_size_t(0)
-    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
-        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
-    if err != 0:
-        raise RuntimeError(f"cuGraphGetNodes failed (CUresult {err})")
-    return n.value
+    return graph_nodes(torch, graph)
 
 
 def gemv_case(torch, kernel, dtype, B, K, N, group=None, layout=None, time_it=True, offset=0):
@@ -966,7 +967,8 @@ def fused_inputs(torch, B, kind, dims=FUSED_DIMS, T=1024, S=128, write_slot=512,
                  seed=12):
     """One decode step's inputs: caches of ``kind`` (bfloat16 / int8), CFG row
     pairs (uncond rows first, ``cross_ends == 0``), per-row positions and
-    first valid slots when B > 2 (left-padded voice prompts)."""
+    first valid slots when B > 2 (left-padded voice prompts), the write slot
+    in device memory (int32 [1]), as the graph-replayed decode loop gives it."""
     from dia_tts_prune_tpu_torch.models.dia import quantize_kv
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -987,7 +989,8 @@ def fused_inputs(torch, B, kind, dims=FUSED_DIMS, T=1024, S=128, write_slot=512,
     ends = [0] * n + [S - 67 + (13 * i) % 67 for i in range(n)]
     i32 = dict(dtype=torch.int32, device=device)
     return dict(x_emb=0.02 * r(B, D), position=torch.tensor([write_slot + 1 - o for o in off], **i32),
-                write_slot=write_slot, self_k=caches[0], self_v=caches[1], cross_k=caches[2],
+                write_slot=torch.tensor([write_slot], **i32), self_k=caches[0],
+                self_v=caches[1], cross_k=caches[2],
                 cross_v=caches[3], cross_ends=torch.tensor(ends, **i32),
                 valid_from=torch.tensor(off, **i32), self_ks=scales[0], self_vs=scales[1],
                 cross_ks=scales[2], cross_vs=scales[3])
@@ -1000,7 +1003,7 @@ def fused_bytes(pack, inp) -> int:
     L, B, T, Nkv, H = inp["self_k"].shape
     Ncq = inp["cross_k"].shape[3]
     per = inp["self_k"].element_size() + (4 / H if inp["self_ks"] is not None else 0)
-    slots = sum(max(0, inp["write_slot"] - int(v)) for v in inp["valid_from"])
+    slots = sum(max(0, int(inp["write_slot"]) - int(v)) for v in inp["valid_from"])
     keys = int(inp["cross_ends"].sum())
     return int(pack.weight_bytes() + 2 * L * H * per * (slots * Nkv + keys * Ncq)
                + inp["x_emb"].numel() * 4 * 2 + 2 * L * B * Nkv * H * 4)
@@ -1039,7 +1042,7 @@ def fused_case(torch, int4, kind, B, pack=None, time_it=True) -> dict:
     rec = {"phase": "kernels", "kernel": "fused_decode_step", "dtype": kind,
            "case": f"{'int4-MLP' if int4 else 'int8'} pack, {kind} caches",
            "shape": {"B": B, **FUSED_DIMS, "T": inp["self_k"].shape[2],
-                     "S": inp["cross_k"].shape[2], "write_slot": inp["write_slot"]},
+                     "S": inp["cross_k"].shape[2], "write_slot": int(inp["write_slot"])},
            "max_abs_err": max(gate["max_abs_err_x_k_v"]), **gate,
            "tol": f"{FUSED_TOL} * (max|ref| + |ref|)",
            "repeat_bit_identical": all(torch.equal(a, b) for a, b in zip(out, again))}
@@ -1065,11 +1068,12 @@ def fused_case(torch, int4, kind, B, pack=None, time_it=True) -> dict:
 
 
 def fused_rows(torch, inp, rows) -> dict:
-    """The step inputs of the listed rows only."""
+    """The step inputs of the listed rows only (the write slot is every row's)."""
     idx = torch.tensor(rows, device=inp["self_k"].device)
     per_row = ("x_emb", "position", "cross_ends", "valid_from")
     return {k: (v.index_select(0, idx).contiguous() if k in per_row else
-                v.index_select(1, idx).contiguous() if isinstance(v, torch.Tensor) else v)
+                v.index_select(1, idx).contiguous() if isinstance(v, torch.Tensor)
+                and k != "write_slot" else v)
             for k, v in inp.items()}
 
 
@@ -1473,14 +1477,14 @@ def greedy_until_near_tie(torch, dias, text, **kw) -> tuple:
                                           d.audio_eos_value, d.audio_pad_value, d.audio_bos_value))
             return logits
 
-        def loop(params, config, tokens_buf, *args):
-            out = real_loop(params, config, tokens_buf, *args)
+        def loop(params, config, tokens_buf, *args, **kwargs):
+            out = real_loop(params, config, tokens_buf, *args, **kwargs)
             bufs.append((tokens_buf.copy(), args[3]))  # rows, first loop row (prefill_step)
             return out
 
         gen.step_function, gen.decode_loop = (lambda params: step), loop
-        try:
-            codes = dia.generate_codes(text, temperature=0.0, **kw)
+        try:  # the eager loop: the step reads every step's logits back
+            codes = dia.generate_codes(text, temperature=0.0, loop="eager", **kw)
         finally:
             gen.step_function, gen.decode_loop = real_step, real_loop
         runs.append((codes, bufs[0][0], bufs[0][1], logs))
@@ -1539,7 +1543,7 @@ def cpu_driven_greedy(torch, gpu, cpu, text, cpu_codes, **kw) -> dict:
         mine = real["step_function"](params)(params, config, tgt, position, ws, self_cache,
                                              cross_cache, ends, dtype, valid_from=valid_from)
         ref = real["step_function"](cpu.params)(
-            cpu.params, config, tgt.cpu(), position.cpu(), ws, host["self"], host["cross"],
+            cpu.params, config, tgt.cpu(), position.cpu(), ws.cpu(), host["self"], host["cross"],
             host["ends"], dtype, valid_from=None if valid_from is None else valid_from.cpu())
         shares.append(float((mine.cpu() - ref).abs().max()) / float(ref.abs().max()))
         return ref.to(mine.device)
@@ -1548,8 +1552,8 @@ def cpu_driven_greedy(torch, gpu, cpu, text, cpu_codes, **kw) -> dict:
                   ("run_prefill", run_prefill), ("quantize_cache", quantize_cache),
                   ("step_function", lambda params: step)):
         setattr(gen, n, fn)
-    try:
-        codes = gpu.generate_codes(text, temperature=0.0, **kw)
+    try:  # the eager loop: every step goes on with logits read back from the CPU
+        codes = gpu.generate_codes(text, temperature=0.0, loop="eager", **kw)
     finally:
         for n in names:
             setattr(gen, n, real[n])
@@ -1641,15 +1645,157 @@ BATCHED_TEXTS = ("[S2] Four streams share every weight read. [S1] Do they?",
                  "[S1] Batched serving on a pruned model.", "[S2] The last of the four. [S1] Yes.")
 
 
-def phase_full_width(torch) -> dict:
+def graph_nodes(torch, graph) -> int:
+    """Nodes (kernels, memsets, copies) of a captured ``torch.cuda.CUDAGraph``
+    kept with ``keep_graph=True`` (``cuGraphGetNodes``)."""
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed (CUresult {err})")
+    return n.value
+
+
+def step_and_loop_nodes(torch, dia, key, buffers) -> dict:
+    """A route's loop split in two on its kept buffers, after its last call:
+    the decode step alone (``step_function``; its nodes in a captured graph)
+    and the rest of the loop body — CFG, bans, sampling, state machine —
+    around a stub step that hands back fixed logits (its nodes, and its
+    device ms a step, ``graph_ms``, on a copy of the loop state)."""
+    import dia_tts_prune_tpu_torch.generate as gen
+
+    st, cache = buffers.held["state"], buffers.held["self"]
+    cross, ends = buffers.held["cross"], buffers.held["ends"]
+    dtype = gen.DTYPES[dia.compute_dtype]
+    step = gen.step_function(dia.params)
+
+    def one():
+        step(dia.params, dia.config, torch.cat([st.prev_tok, st.prev_tok])[:, None],
+             (st.t + 1 - st.offsets2)[:, None], st.t.clamp(0, cache.k.shape[2] - 1), cache,
+             cross, ends, dtype, valid_from=st.valid_from)
+
+    copy = gen.LoopState(*(t.clone() for t in st))
+    d = dia.config
+    logits = torch.zeros(2 * copy.caps.shape[0], 1, d.data.channels, d.model.tgt_vocab_size,
+                         device=cache.k.device)
+
+    def rest():  # the default generator: graph_ms registers no other
+        gen.loop_step(copy, lambda *a, **k: logits, dia.params, d, cache, cross, ends, key[-1],
+                      None, dtype)
+
+    return {"decode_step_nodes": kernels_per_call(torch, one),
+            "loop_nodes": kernels_per_call(torch, rest),
+            "loop_device_ms": graph_ms(torch, rest, iters=16, replays=3)}
+
+
+EAGER_TOKENS = 192  # a route's eager reference: the graph loop's codes must equal it
+GRAPH_TOKENS = 512  # a route's timed graph calls
+GRAPH_RUNS = 3  # timed graph calls of a route, after the one that captures
+
+
+def graphed_route(torch, dia, name, run, expect, decode=None, streams=1) -> tuple[dict, list]:
+    """One serving route at full width on the CUDA-graph decode loop, each
+    call with the launch counts zeroed just before and read just after:
+    ``run(loop, steps)`` (one call; returns each stream's codes) first with
+    the eager loop at ``EAGER_TOKENS``, then on the graph loop at the same
+    length, whose codes must equal the eager ones bit for bit; then at
+    ``GRAPH_TOKENS`` once to capture and ``GRAPH_RUNS`` times from the kept
+    graph (no capture, codes equal to the capturing call's): ms/step as the
+    median and spread of those runs, host (the call's wall time) against
+    device (CUDA events around the replays) ms per step, capture seconds,
+    graph nodes per step against the decode step's own, peak memory, RTF
+    (``decode``: the codec on the first timed run's codes) and, for N
+    streams, aggregate tokens/s.  ``expect(counts, stats)`` checks each
+    call's kernel launches against the steps its host issued.  Returns the
+    record and the graph loop's codes at ``EAGER_TOKENS``."""
     import numpy as np
 
+    from dia_tts_prune_tpu_torch.generate import GRAPH_STEPS, WARMUP_STEPS
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    gen = dia.generator
+    total: dict[str, int] = {}
+
+    def call(loop, steps):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run(loop, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts, stats = launch_counts(), gen.last_stats
+        expect(counts, stats)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out, wall, stats
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eager, eager_s, eager_stats = call("eager", EAGER_TOKENS)
+    graph, _, graph_stats = call(None, EAGER_TOKENS)
+    frames = [int(c.shape[0]) for c in eager]
+    equal = [bool(np.array_equal(a, b)) for a, b in zip(eager, graph)]
+    first, first_s, first_stats = call(None, GRAPH_TOKENS)
+    timed = [call(None, GRAPH_TOKENS) for _ in range(GRAPH_RUNS)]
+    key, buffers = next(reversed(gen._graphs.items()))  # the key of the timed calls
+    nodes = graph_nodes(torch, buffers.graph)
+    split = step_and_loop_nodes(torch, dia, key, buffers)
+    ms = [1e3 * wall / s.decode_steps for _, wall, s in timed]
+    dev_ms = [s.device_ms_per_replayed_step for _, _, s in timed]
+    rec = {"phase": "full_width", "path": name, "streams": streams,
+           "eager": {"max_tokens": EAGER_TOKENS, "decode_steps": eager_stats.decode_steps,
+                     "frames": frames, "ms_per_step": 1e3 * eager_s / eager_stats.decode_steps},
+           "graph_codes_equal_eager": equal,
+           "graph": {"max_tokens": GRAPH_TOKENS, "decode_steps": timed[0][2].decode_steps,
+                     "frames": [int(c.shape[0]) for c in timed[0][0]],
+                     "ms_per_step_runs": ms, "ms_per_step": float(np.median(ms)),
+                     "ms_per_step_spread": max(ms) - min(ms),
+                     "device_ms_per_step_runs": dev_ms,
+                     "device_ms_per_step": float(np.median(dev_ms)),
+                     "replays": timed[0][2].replays, "graph_steps": GRAPH_STEPS,
+                     "replay_launch_ms": [1e3 * s.replay_launch_seconds / s.replays
+                                          for _, _, s in timed],
+                     "capture_s": {"eager_tokens": graph_stats.capture_seconds,
+                                   "graph_tokens": first_stats.capture_seconds},
+                     "capturing_call_ms_per_step": 1e3 * first_s / first_stats.decode_steps,
+                     "nodes_per_step": nodes / GRAPH_STEPS, **split,
+                     "tokens_per_s": [streams * s.decode_steps / wall for _, wall, s in timed]},
+           "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+           "memory_allocated_bytes": int(torch.cuda.memory_allocated()),
+           "launches": total}
+    if decode is not None:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        wav = decode(timed[0][0][0])
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t
+        finite = bool(np.isfinite(wav).all())
+        audio_s = wav.shape[0] / dia.dac_config.sample_rate
+        rec["graph"].update({"codec_decode_s": dec_s, "audio_s": audio_s,
+                             "waveform_finite": finite,
+                             "rtf": audio_s / (timed[0][1] + dec_s)})
+        if not finite or wav.shape[0] != timed[0][0][0].shape[0] * dia.dac_config.hop_length:
+            raise RuntimeError(f"full-width {name}: bad waveform {rec}")
+    emit(rec)
+    repeat = all(np.array_equal(a, b) for out, _, _ in timed for a, b in zip(out, first))
+    hosted = [s.host_steps for _, _, s in timed]
+    if not all(equal) or min(frames) == 0 or not repeat or any(hosted) \
+            or graph_stats.host_steps != WARMUP_STEPS + GRAPH_STEPS:
+        raise RuntimeError(f"full-width {name}: graph codes differ from the eager loop's, a "
+                           f"timed call captured again, or no frames: {rec} (timed calls' host "
+                           f"steps {hosted}, codes repeat {repeat})")
+    return rec, graph
+
+
+def phase_full_width(torch) -> dict:
+    """Every serving route at full width (``graphed_route``), then the
+    offline prune CLI."""
     from dia_tts_prune_tpu_torch import Dia, dia_1_6b_config
     from dia_tts_prune_tpu_torch.models.dac import DACConfig, init_dac_decoder_params
-    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
     cfg = dia_1_6b_config()
+    L = cfg.model.decoder.n_layer
     dac_cfg = DACConfig()
     dac_params = init_dac_decoder_params(dac_cfg, seed=1, device="cuda")
 
@@ -1661,94 +1807,64 @@ def phase_full_width(torch) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     text = FULL_WIDTH_TEXT
-    runs = []
+    paths = {}
 
-    def describe(runs):
-        return [describe_run(*r) for r in runs]
+    def single(model, **kw):
+        return lambda loop, n: [model.generate_codes(text, max_tokens=n, loop=loop, **kw)]
 
-    def describe_run(name, frames, steps, gen_s, dec_s, w):
-        total_s = gen_s + (dec_s or 0.0)
-        rec = {"run": name, "frames": int(frames), "decode_steps": int(steps),
-               "wall_s": total_s, "ms_per_step": 1e3 * gen_s / max(steps, 1),
-               "tokens_per_s": steps / gen_s if gen_s else None}
-        if w is not None:
-            finite = bool(np.isfinite(w).all())
-            rec.update({"audio_s": w.shape[0] / dac_cfg.sample_rate, "waveform_finite": finite,
-                        "rtf": (w.shape[0] / dac_cfg.sample_rate) / total_s})
-            if not finite or w.shape[0] != frames * dac_cfg.hop_length:
-                raise RuntimeError(f"full-width {name}: bad waveform {rec}")
-        if dec_s is not None:
-            rec["codec_decode_s"] = dec_s
-        return rec
+    def unfused(gemv=None):
+        """Every step: two decode-attention calls a layer, and with packed
+        weights the 145 contractions on the GEMV kernel and none on the other."""
+        other = {"int8_matmul": "int4_gemv", "int4_gemv": "int8_matmul"}.get(gemv)
 
-    def timed(fn):
-        """(result, seconds, decode steps run): every step launches the decode
-        kernel twice per decoder layer, or the fused step kernel once."""
-        def steps_so_far():
-            n = launch_counts()
-            return (n["decode_attention"] // (2 * cfg.model.decoder.n_layer)
-                    + n["fused_decode_step"])
+        def expect(counts, stats):
+            ok = counts["decode_attention"] == 2 * L * stats.host_steps
+            if gemv:
+                ok &= counts[gemv] == DECODER_GEMVS * stats.host_steps and counts[other] == 0
+            if not ok:
+                raise RuntimeError(f"full width: expected {2 * L} decode-attention "
+                                   f"{f'and {DECODER_GEMVS} {gemv} ' if gemv else ''}launches "
+                                   f"in each of {stats.host_steps} host steps: {counts}")
+        return expect
 
-        torch.cuda.synchronize()
-        n0, t = steps_so_far(), time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t, steps_so_far() - n0
-
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    # greedy: generate_codes then the codec decode — the two halves of generate()
-    codes, gen_s, n1 = timed(
-        lambda: dia.generate_codes(text, max_tokens=512, temperature=0.0, seed=0))
-    wav, dec_s, _ = timed(lambda: dia._decode_waveform(codes))
-    runs.append(("greedy", codes.shape[0], n1, gen_s, dec_s, wav))
-    wav2, s2, n2 = timed(lambda: dia.generate(text, max_tokens=512, temperature=1.3, seed=1234))
-    f2 = 0 if wav2 is None else wav2.shape[0] // dac_cfg.hop_length
-    runs.append(("sampled", f2, n2, s2, None, wav2))
-    pcodes, s3, n3 = timed(lambda: dia.generate_codes(
-        "[S2] And it clones voices from a prompt.", max_tokens=codes.shape[0] + 1 + 256,
-        temperature=0.0, audio_prompt_codes=codes, audio_prompt_text=text))
-    runs.append(("prompted_codes", pcodes.shape[0], n3, s3, None, None))
-    torch.cuda.synchronize()
-    if codes.shape[0] == 0 or pcodes.shape[0] == 0:
-        raise RuntimeError("full-width run generated no frames")
-    paths = {"bf16": {"runs": describe(runs), "launches": launch_counts(),
-                      "peak_memory_bytes": int(torch.cuda.max_memory_allocated())}}
+    # float weights: greedy, seeded-sampled, voice-prompted
+    paths["bf16"], eager_codes = graphed_route(
+        torch, dia, "bf16", single(dia, temperature=0.0, seed=0), unfused(),
+        decode=dia._decode_waveform)
+    paths["sampled"], _ = graphed_route(
+        torch, dia, "sampled", single(dia, temperature=1.3, seed=1234), unfused(),
+        decode=dia._decode_waveform)
+    prompt = eager_codes[0]
+    paths["prompted"], _ = graphed_route(
+        torch, dia, "prompted", lambda loop, n: [dia.generate_codes(
+            "[S2] And it clones voices from a prompt.", max_tokens=prompt.shape[0] + 1 + n,
+            temperature=0.0, audio_prompt_codes=prompt, audio_prompt_text=text, loop=loop)],
+        unfused())
 
     # the quantized paths: int8 on the model that just ran (its float decoder
-    # kernels are freed), int4 on a fresh one
-    def quantized_path(name, dia, quantize, gemv):
+    # kernels are freed), int4 on a fresh one, each alone on the card
+    models = [dia]
+    del dia
+    for name, quantize, gemv in (("int8", lambda d: d.quantize_int8(), "int8_matmul"),
+                                 ("int4", lambda d: d.quantize_int4(), "int4_gemv")):
+        model = models.pop() if models else new_model()
         t = time.perf_counter()
-        quantize(dia)
+        quantize(model)
         torch.cuda.synchronize()
         quantize_s = time.perf_counter() - t
-        reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        codes, gen_s, steps = timed(
-            lambda: dia.generate_codes(text, max_tokens=512, temperature=0.0, seed=0))
-        wav, dec_s, _ = timed(lambda: dia._decode_waveform(codes))
-        counts = launch_counts()
-        paths[name] = {"runs": describe([("greedy", codes.shape[0], steps, gen_s, dec_s, wav)]),
-                       "launches": counts, "quantize_s": quantize_s,
-                       # the port's kernel launches a decode step (each GEMV call one
-                       # launch on the bf16 route), the conditioning's beside them
-                       "port_kernel_launches_per_step": sum(counts.values()) / max(steps, 1),
-                       f"{gemv}_calls_per_step": counts[gemv] / max(steps, 1),
-                       "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
-                       "memory_allocated_bytes": int(torch.cuda.memory_allocated())}
-        other = "int4_gemv" if gemv == "int8_matmul" else "int8_matmul"
-        if steps <= 0 or counts[gemv] != DECODER_GEMVS * steps or counts[other] != 0:
-            raise RuntimeError(f"full-width {name}: expected {DECODER_GEMVS} {gemv} launches in "
-                               f"each of {steps} steps and none of {other}: {counts}")
-
-    quantized_path("int8", dia, lambda d: d.quantize_int8(), "int8_matmul")
-    del dia
-    quantized_path("int4", new_model(), lambda d: d.quantize_int4(), "int4_gemv")
-    paths.update(pruned_paths(torch, new_model(), text, timed, describe))
-    paths.update(fused_paths(torch, new_model, text, timed, describe))
+        paths[name], _ = graphed_route(torch, model, name, single(model, temperature=0.0, seed=0),
+                                       unfused(gemv), decode=model._decode_waveform)
+        paths[name]["quantize_s"] = quantize_s
+        del model
+    paths.update(pruned_paths(torch, new_model(), text))
+    paths.update(fused_paths(torch, new_model, text))
 
     rec = {"phase": "full_width", "config": "dia_1_6b_config() bf16, DACConfig(), seed weights",
-           "init_s": init_s, "paths": paths}
+           "init_s": init_s, "seconds": time.perf_counter() - t0,
+           "paths": {k: {"ms_per_step": v["graph"]["ms_per_step"],
+                         "device_ms_per_step": v["graph"]["device_ms_per_step"],
+                         "nodes_per_step": v["graph"]["nodes_per_step"]}
+                     for k, v in paths.items() if "graph" in v}}
     emit(rec)
     kernel_of = {"int8": "int8_matmul", "int4": "int4_gemv", "pruned": "block_sparse_matmul",
                  "batched": "block_sparse_matmul", "prune_cli": "block_sparse_matmul",
@@ -1760,19 +1876,17 @@ def phase_full_width(torch) -> dict:
         missing = [k for k in ran if path["launches"][k] <= 0]
         if missing:
             raise RuntimeError(f"the {name} path never launched {missing}: {path['launches']}")
-    return rec
+    return {"paths": paths}
 
 
-def fused_paths(torch, new_model, text, timed, describe) -> dict:
+def fused_paths(torch, new_model, text) -> dict:
     """The fused decode step at full width, each path on a fresh model:
     ``fused_int8`` (``quantize_int8(fused=True)``, int8 caches),
     ``fused_int4`` (``fused_mlp_int4=True``), ``fused_batched`` (the int8
-    pack, four greedy streams in one batched run).  Each is a greedy
-    512-token run whose every decode step launches the fused kernel once and
-    the decode-attention kernel never (counts zeroed just before the run)."""
-    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-
+    pack, four greedy streams in one batched run): every host-issued decode
+    step launches the fused kernel once and the decode-attention kernel never."""
     out = {}
+    texts = [text, "[S2] A second voice. [S1] Yes.", "[S1] Third.", "[S2] And a fourth."]
     for name, int4, streams in (("fused_int8", False, 1), ("fused_int4", True, 1),
                                 ("fused_batched", False, 4)):
         dia = new_model()
@@ -1781,45 +1895,38 @@ def fused_paths(torch, new_model, text, timed, describe) -> dict:
         torch.cuda.synchronize()
         quantize_s = time.perf_counter() - t
         pack = dia.params["decoder"]["fused_pack"]
-        reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        if streams == 1:
-            codes, gen_s, steps = timed(
-                lambda: dia.generate_codes(text, max_tokens=512, temperature=0.0, seed=0))
-            wav, dec_s, _ = timed(lambda: dia._decode_waveform(codes))
-            runs = describe([("greedy", codes.shape[0], steps, gen_s, dec_s, wav)])
-        else:
-            texts = [text, "[S2] A second voice. [S1] Yes.", "[S1] Third.", "[S2] And a fourth."]
-            batch, gen_s, steps = timed(lambda: dia.generator.generate_tokens_batch(
-                texts, max_tokens=512, temperature=0.0))
-            runs = describe([(f"greedy {streams} streams", sum(b.shape[0] for b in batch), steps,
-                              gen_s, None, None)])
-            runs[0]["tokens_per_s"] = streams * steps / gen_s
-        counts = launch_counts()
-        out[name] = {"runs": runs, "launches": counts, "quantize_s": quantize_s,
-                     "pack_weight_bytes": pack.weight_bytes(),
-                     "port_kernel_launches_per_step": sum(counts.values()) / max(steps, 1),
-                     "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
-                     "memory_allocated_bytes": int(torch.cuda.memory_allocated())}
-        if steps <= 0 or counts["fused_decode_step"] != steps or counts["decode_attention"]:
-            raise RuntimeError(f"full-width {name}: expected one fused launch in each of {steps} "
-                               f"steps and no decode-attention launch: {counts}")
-        del dia, pack
+
+        def expect(counts, stats):
+            if counts["fused_decode_step"] != stats.host_steps or counts["decode_attention"]:
+                raise RuntimeError(f"full-width {name}: expected one fused launch in each of "
+                                   f"{stats.host_steps} host steps and no decode-attention "
+                                   f"launch: {counts}")
+
+        def run(loop, n, dia=dia, streams=streams):
+            if streams == 1:
+                return [dia.generate_codes(text, max_tokens=n, temperature=0.0, seed=0,
+                                           loop=loop)]
+            return dia.generator.generate_tokens_batch(texts, max_tokens=n, temperature=0.0,
+                                                       loop=loop)
+        out[name], _ = graphed_route(torch, dia, name, run, expect, streams=streams,
+                                     decode=dia._decode_waveform if streams == 1 else None)
+        out[name].update({"quantize_s": quantize_s, "pack_weight_bytes": pack.weight_bytes()})
+        del dia, pack, run
     return out
 
 
-def pruned_paths(torch, dia, text, timed, describe) -> dict:
+def pruned_paths(torch, dia, text) -> dict:
     """Pruned serving at full width on a fresh model: (d) ``pruned`` — the
     per-module block ranking at 0.5 with 256 x 256 blocks, ``apply_masks``,
-    ``sparsify_block``, a greedy ``generate`` whose block-sparse launches
-    must equal the count derived from the code; what the global ranking
+    ``sparsify_block``, the greedy route, whose block-sparse launches must
+    equal the count derived from the code; what the global ranking
     (``prune_block_sparse(0.5)``) gives on the same weights, reported only;
     (e) ``batched`` — four greedy streams on the pruned model, each of which
-    must equal its single-stream run for every frame, and the batched-lane
-    probe (``batch_lane_probe``) on the first lane that does not (lane 2 when
-    all do), which must find no differing op; (f) ``prune_cli`` — ``offline_prune
-    --prune-mode block`` at 2 + 2 layers, ``from_pretrained``,
-    ``sparsify_block``, generate."""
+    must equal its single-stream run for every frame on the graph loop, and
+    the batched-lane probe (``batch_lane_probe``, eager) on the first lane
+    that does not (lane 2 when all do), which must find no differing op; (f)
+    ``prune_cli`` — ``offline_prune --prune-mode block`` at 2 + 2 layers,
+    ``from_pretrained``, ``sparsify_block``, generate."""
     import numpy as np
 
     from dia_tts_prune_tpu_torch import Dia
@@ -1852,41 +1959,36 @@ def pruned_paths(torch, dia, text, timed, describe) -> dict:
     step_bytes = sum(e * listed_elements(torch, v) for _, v in step_kernels)
     dense_bytes = sum(e * v.values.numel() for _, v in step_kernels)
 
-    torch.cuda.empty_cache()
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    codes, gen_s, steps = timed(
-        lambda: dia.generate_codes(text, max_tokens=512, temperature=0.0, seed=0))
-    wav, dec_s, _ = timed(lambda: dia._decode_waveform(codes))
-    counts = launch_counts()
-    # 8 contractions in each decoder layer and the logits head per step, and the
-    # cross K/V projections of every layer once (there is no prompt prefill)
-    expected = (8 * L + 1) * steps + 2 * L  # 145 per step at 18 layers (DECODER_GEMVS)
-    paths["pruned"] = {
-        "runs": describe([("greedy", codes.shape[0], steps, gen_s, dec_s, wav)]),
-        "launches": counts, "expected_block_sparse_launches": expected,
+    def sparse(streams):
+        """8 contractions in each decoder layer and the logits head per step,
+        and the cross K/V projections of every layer once a stream (no
+        prompt prefill); no GEMV launch."""
+        def expect(counts, stats):
+            want = (8 * L + 1) * stats.host_steps + 2 * L * streams  # 145 a step at 18 layers
+            if counts["block_sparse_matmul"] != want or counts["int8_matmul"] \
+                    or counts["int4_gemv"]:
+                raise RuntimeError(f"full-width pruned: expected {want} block_sparse_matmul "
+                                   f"launches ({stats.host_steps} host steps, {streams} "
+                                   f"streams) and no GEMV launches: {counts}")
+        return expect
+
+    paths["pruned"], _ = graphed_route(
+        torch, dia, "pruned", lambda loop, n: [dia.generate_codes(
+            text, max_tokens=n, temperature=0.0, seed=0, loop=loop)], sparse(1),
+        decode=dia._decode_waveform)
+    paths["pruned"].update({
         "prune_and_pack_s": prune_s, "block_density": density,
         "global_ranking_block_density": global_density,
         "weight_bytes_per_step": step_bytes, "dense_weight_bytes_per_step": dense_bytes,
         "bound_ms_per_step_weights": 1e3 * step_bytes / HBM_BYTES_PER_S,
-        "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
-        "memory_allocated_bytes": allocated}
-    emit({"phase": "full_width", "path": "pruned", **paths["pruned"]})
-    if steps <= 0 or counts["block_sparse_matmul"] != expected or counts["int8_matmul"] != 0 \
-            or counts["int4_gemv"] != 0:
-        raise RuntimeError(f"full-width pruned: expected {expected} block_sparse_matmul launches "
-                           f"({steps} steps) and no GEMV launches: {counts}")
+        "memory_allocated_bytes": allocated})
 
     texts = [text, *BATCHED_TEXTS]
-    reset_launch_counts()
-    batch, batch_s, bsteps = timed(lambda: dia.generator.generate_tokens_batch(
-        texts, max_tokens=192, temperature=0.0))
-    bcounts = launch_counts()
-    singles, single_s, single_steps = [], 0.0, 0
-    for t_ in texts:
-        c, s_, n_ = timed(lambda: dia.generate_codes(t_, max_tokens=192, temperature=0.0))
-        singles.append(c)
-        single_s, single_steps = single_s + s_, single_steps + n_
+    paths["batched"], batch = graphed_route(
+        torch, dia, "batched", lambda loop, n: dia.generator.generate_tokens_batch(
+            texts, max_tokens=n, temperature=0.0, loop=loop), sparse(len(texts)),
+        streams=len(texts))
+    singles = [dia.generate_codes(t_, max_tokens=EAGER_TOKENS, temperature=0.0) for t_ in texts]
 
     def same_frames(a, b):
         n = min(a.shape[0], b.shape[0])
@@ -1899,22 +2001,15 @@ def pruned_paths(torch, dia, text, timed, describe) -> dict:
     # that does (lane 2 when all agree)
     lane = next((i for i, (e, f) in enumerate(zip(equal, frames)) if e < f), 2)
     probe = batch_lane_probe(torch, dia, texts, lane)
-    paths["batched"] = {
-        "streams": len(texts), "decode_steps": bsteps, "wall_s": batch_s,
-        "ms_per_step": 1e3 * batch_s / max(bsteps, 1),
-        "aggregate_tokens_per_s": len(texts) * bsteps / batch_s,
-        "single_stream_ms_per_step": 1e3 * single_s / max(1, single_steps),
-        "frames": frames, "frames_equal_single_stream": equal,
-        "first_differing_op": probe["first_differing_op"] or "none", "probe": probe,
-        "launches": bcounts}
-    emit({"phase": "full_width", "path": "batched", **paths["batched"]})
-    if bsteps <= 0 or min(frames) == 0:
-        raise RuntimeError(f"full-width batched: no frames: {paths['batched']}")
-    # every lane is its single-stream run, bit for bit: frame for frame, and op
-    # for op over the conditioning and the first decode steps
-    if equal != frames or probe["first_differing_op"] is not None:
-        raise RuntimeError(f"full-width batched: a lane left its single-stream run: "
-                           f"{paths['batched']}")
+    rec = {"phase": "full_width", "path": "batched lanes", "loop": "graph",
+           "max_tokens": EAGER_TOKENS, "frames": frames, "frames_equal_single_stream": equal,
+           "first_differing_op": probe["first_differing_op"] or "none", "probe": probe}
+    emit(rec)
+    paths["batched"]["lanes"] = rec
+    # every lane is its single-stream run, bit for bit: frame for frame on the
+    # graph loop, and op for op over the conditioning and the first decode steps
+    if min(frames) == 0 or equal != frames or probe["first_differing_op"] is not None:
+        raise RuntimeError(f"full-width batched: a lane left its single-stream run: {rec}")
     del dia, batch, singles
     torch.cuda.empty_cache()
 
@@ -2018,10 +2113,11 @@ def batch_lane_probe(torch, dia, texts, lane, steps=PROBE_STEPS, max_tokens=192)
                 wrap(mod, name)
         originals.append((gen, "decode_step", step_fn))
         gen.decode_step = counted_step
+        # the eager loop: the records are read as each op runs
         batch = run(lambda: dia.generator.generate_tokens_batch(
-            texts, max_tokens=max_tokens, temperature=0.0))
+            texts, max_tokens=max_tokens, temperature=0.0, loop="eager"))
         single = run(lambda: dia.generate_codes(texts[lane], max_tokens=max_tokens,
-                                                temperature=0.0))
+                                                temperature=0.0, loop="eager"))
     finally:
         for mod, name, fn in reversed(originals):
             setattr(mod, name, fn)
@@ -2344,15 +2440,25 @@ def main() -> int:
     wanted = lambda name: not only or name in only  # noqa: E731
 
     t0 = time.perf_counter()
+
+    def lap(name):  # each phase's seconds, on stderr
+        print(f"# chip_smoke {name} done at {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+              flush=True)
+
     faults = phase_build()
+    lap("build")
     picked = phase_kernels(torch, faults) if wanted("kernels") else None
+    lap("kernels")
     if wanted("fixtures"):
         phase_fixtures(torch, repo)
         phase_train_fixture(torch, repo)
+        lap("fixtures")
     full = phase_full_width(torch) if wanted("full_width") else None
+    lap("full_width")
     if wanted("training"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             training = phase_training(torch, Path(tmp))
+        lap("training")
     if only:
         print(f"# chip_smoke partial run {sorted(only)}: {time.perf_counter() - t0:.1f} s",
               file=sys.stderr)

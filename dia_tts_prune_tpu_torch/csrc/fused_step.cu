@@ -200,6 +200,8 @@ struct Params {
   const float* x_emb;  // [B, D]
   const int* pos;      // [B]
   const int* vf;       // [B]
+  const int* wsp;      // [1] the write slot, in device memory (a replayed CUDA graph's
+                       // steps each read their own); copied to ws at block start
   const int* cross_ends;  // [B]
   const float* inv_freq;  // [H/2]
   const void* sk;      // [L, B, T, Nkv, H]
@@ -1193,7 +1195,12 @@ __global__ void __launch_bounds__(NT, 1) fused_step_kernel(Params params) {
   // the parameters in shared memory: every function takes them by reference
   // without a copy of the struct in local memory
   __shared__ Params sp;
-  if (threadIdx.x == 0) sp = params;
+  if (threadIdx.x == 0) {
+    sp = params;
+    // read once per block, before any chunk is planned; the loop keeps the slot
+    // inside the cache, the clamp keeps a bad one from reading past it
+    sp.ws = min(max(__ldg(params.wsp), 0), params.T - 1);
+  }
   __syncthreads();
   const Params& p = sp;
   const Smem lay = smem_layout(TB, p.stages, p.Nq / p.Nkv, p.H, max_chunks(p.T, p.S));
@@ -1379,7 +1386,9 @@ extern "C" int fused_step_workspace_bytes(int B, int D, int F, int Nq, int Nkv, 
 
 // Weights/scales in the FusedPack order (wqkv, sqkv, wo, so, wcq, scq, wco,
 // sco, wg, sg, wu, su, wm, sm), x_emb fp32 [B, D], int32 pos / valid_from /
-// cross_ends [B], inv_freq fp32 [H/2], the four caches ([L, B, T|S, N, H],
+// cross_ends [B], the int32 write slot [1] (device memory: each replay of a
+// captured step reads the slot of its own), inv_freq fp32 [H/2], the four
+// caches ([L, B, T|S, N, H],
 // dtype `cache`: 0 fp32, 1 bf16, 2 int8) and, for int8, their four fp32
 // scale tensors (else null); out x fp32 [B, D], kv fp32 [2, L, B, Nkv, H];
 // work: fused_step_workspace_bytes of scratch.  All contiguous.  One
@@ -1388,13 +1397,14 @@ extern "C" int fused_step_fwd(
     const void* wqkv, const void* sqkv, const void* wo, const void* so, const void* wcq,
     const void* scq, const void* wco, const void* sco, const void* wg, const void* sg,
     const void* wu, const void* su, const void* wm, const void* sm, const void* x_emb,
-    const void* pos, const void* vf, const void* cross_ends, const void* inv_freq,
+    const void* pos, const void* vf, const void* cross_ends, const void* ws,
+    const void* inv_freq,
     const void* sk, const void* sv, const void* ck, const void* cv, const void* sks,
     const void* svs, const void* cks, const void* cvs, void* x, void* kv, void* work,
-    int L, int B, int D, int F, int Nq, int Nkv, int Ncq, int H, int T, int S, int ws,
+    int L, int B, int D, int F, int Nq, int Nkv, int Ncq, int H, int T, int S,
     int cache, int int4, int mt, long long work_bytes, float eps, void* stream) {
   if (L <= 0 || B <= 0 || D <= 0 || F <= 0 || Nq <= 0 || Nkv <= 0 ||
-      Nq % Nkv || Ncq <= 0 || H <= 0 || H % 2 || T <= 0 || S <= 0 || ws < 0 || ws >= T ||
+      Nq % Nkv || Ncq <= 0 || H <= 0 || H % 2 || T <= 0 || S <= 0 || !ws ||
       cache < 0 || cache > 2 || mt <= 0 || (Nq / Nkv) * H > MAX_GH || H > MAX_H)
     return cudaErrorInvalidValue;
   const int nqkv = (Nq + 2 * Nkv) * H;
@@ -1419,6 +1429,7 @@ extern "C" int fused_step_fwd(
   p.x_emb = static_cast<const float*>(x_emb);
   p.pos = static_cast<const int*>(pos);
   p.vf = static_cast<const int*>(vf);
+  p.wsp = static_cast<const int*>(ws);
   p.cross_ends = static_cast<const int*>(cross_ends);
   p.inv_freq = static_cast<const float*>(inv_freq);
   p.sk = sk;
@@ -1454,7 +1465,7 @@ extern "C" int fused_step_fwd(
   p.done_att = p.cnt + lo.coff[C_DONE_ATT];
   p.done_catt = p.cnt + lo.coff[C_DONE_CATT];
   p.L = L; p.B = B; p.D = D; p.F = F; p.Nq = Nq; p.Nkv = Nkv; p.Ncq = Ncq; p.H = H;
-  p.T = T; p.S = S; p.ws = ws; p.cache = cache; p.int4 = int4; p.mt = mt;
+  p.T = T; p.S = S; p.ws = 0; p.cache = cache; p.int4 = int4; p.mt = mt;
   p.nsd = lo.nsd;
   p.stages = 0;
   p.eps = eps;

@@ -4,11 +4,12 @@ and N streams at once, ``generate_fused_batch`` :546 /
 ``generate_tokens_batch`` :1047).
 
 Conditioning (encoder + cross K/V, trimmed to a 128-bucket of the text
-length), the voice-prompt prefill, and the decode loop run on the device; the
-loop itself is a plain Python loop that issues one ``decode_step`` per token
-and reads back the 9 sampled codes, so the per-token bookkeeping — the EOS
-countdown, the BOS-window masked write, the near-max trigger — runs on the
-host with the reference's exact semantics (dia/model.py:748-815):
+length) and the voice-prompt prefill run as one eager call each.  The decode
+loop keeps its whole state on the device (``LoopState``, the JAX
+``DecodeLoopState`` / ``BatchLoopState``) and has one body, ``loop_step``,
+for one stream or N: the decode step, CFG, the bans, sampling, and the
+per-token bookkeeping with the reference's exact semantics (dia/model.py:
+748-815) as tensor arithmetic, with no host read:
 
 * step ``t`` consumes buffer row ``t-1``, runs RoPE position ``t``, writes KV
   slot ``t-1`` and attends slots ``[0, t-1]``;
@@ -16,6 +17,14 @@ host with the reference's exact semantics (dia/model.py:748-815):
   ``c`` is forced to EOS at offset ``delay[c]`` and to PAD after;
 * the first ``max_delay`` steps keep the delayed BOS/PAD template rows;
 * generation stops when the countdown reaches zero or ``max_tokens`` nears.
+
+On the CPU (and on the card with ``loop="eager"``) the body runs one step at
+a time, reading ``stop`` back after each.  On the card the default
+``loop="graph"`` captures ``GRAPH_STEPS`` consecutive steps into one CUDA
+graph and replays it until ``stop`` is set, one read-back a replay — the
+JAX package's one-dispatch loop, a replay at a time.  The buffers a graph
+reads (tokens, state, caches) are kept per key by the ``DiaGenerator``, so a
+second call of the same key replays without a new capture.
 
 With a packed decoder (``Dia.quantize_int8`` / ``quantize_int4``) the loop
 also keeps both caches int8 (``models.dia.QuantKVCache``), as the JAX package
@@ -27,9 +36,9 @@ runs every decode step, single-stream and batched, as one fused-step kernel
 launch (``models.dia.decode_step_fused``; the JAX package's ``DIA_FUSED=1``);
 the prompt prefill stays on the packed tree, as in the JAX package.
 
-Sampling draws Gumbel noise from a ``torch.Generator`` seeded per call, so a
-seeded run repeats itself; it cannot repeat the JAX package's ``jax.random``
-draws (greedy decoding is identical).
+Sampling draws Gumbel noise from a ``torch.Generator`` seeded per call (one
+per stream), so a seeded run repeats itself, graphed or eager; it cannot
+repeat the JAX package's ``jax.random`` draws (greedy decoding is identical).
 
 The batched loop runs 2N CFG rows ([uncond × N; cond × N]) with voice
 prompts left-padded to one window, row-local RoPE positions, a first valid
@@ -44,6 +53,8 @@ from __future__ import annotations
 
 import random
 import time
+from collections import OrderedDict
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -64,6 +75,7 @@ from .ops.quant import PACKED_TYPES
 from .ops.sampling import apply_constraints, cfg_combine, sample_next_token
 from .state import cross_attention_mask, new_encoder_state, prepare_audio_prompt
 from .tokenizer import build_effective_text, encode_cfg_batch
+from .utils.profiling import GenerationStats
 
 CFG_BATCH = 2  # [uncond; cond] pair (reference: dia/model.py:360-362)
 
@@ -179,138 +191,323 @@ def run_prefill(params, config: DiaConfig, tokens_buf: np.ndarray, prefill_windo
                     padding_mask.to(torch.int32), compute_dtype)
 
 
+# ---------------------------------------------------------------------------
+# The decode loop: one body on the device, run step by step or replayed from
+# CUDA graphs
+# ---------------------------------------------------------------------------
+
+# Steps one captured CUDA graph holds.  A replay then runs 16 steps (64-100 ms
+# at 4-6 ms a Dia-1.6B step on the H100), so the one read-back of ``stop`` a
+# replay costs ~0.1% of it, while the at most 15 steps a replay runs past the
+# stop cost <= 3% of a 512-step call, and capture time grows with the steps.
+GRAPH_STEPS = 16
+# Eager steps of the loop, run as real steps on the capture stream, before the
+# first capture of a key: they build the kernels, cuBLAS's workspace of that
+# stream and the wrappers' cached launch data, none of which may happen inside
+# a capture.
+WARMUP_STEPS = 2
+GRAPH_CACHE = 4  # keys whose buffers and graph a generator keeps (least recently used out)
+LOOPS = ("eager", "graph")
+
+
+class Sampling(NamedTuple):
+    """The sampling scalars of a call: constants of its captured graph."""
+
+    cfg_scale: float
+    temperature: float
+    top_p: float
+    cfg_filter_top_k: int
+
+
+class LoopState(NamedTuple):
+    """The decode loop's carry, on the device (the JAX ``state.py::
+    DecodeLoopState``, :52, and ``generate.py::BatchLoopState``, :522, for
+    N streams; one stream is N = 1).  The loop body updates it in place, so a
+    CUDA graph that captured steps replays them on the same tensors.  The
+    last five fields are the call's constants."""
+
+    tokens: torch.Tensor         # int32 [N, T, C] delayed rows (template, -1 beyond)
+    prev_tok: torch.Tensor       # int32 [N, C]: each stream's last written row (its next input)
+    bos_rows: torch.Tensor       # int32 [N, R, C]: rolling window of the template rows from start
+    eos_detected: torch.Tensor   # bool [N]
+    eos_countdown: torch.Tensor  # int32 [N] (-1 inactive)
+    stopped: torch.Tensor        # bool [N]
+    final_step: torch.Tensor     # int64 [N]: each stream's last completed step
+    t: torch.Tensor              # int64 [1]: the step run last (the row it wrote)
+    stop: torch.Tensor           # bool [1]: every stream stopped; a step then changes nothing
+    start: torch.Tensor          # int64 [1]: the first loop row (every prompt ends on start - 1)
+    caps: torch.Tensor           # int64 [N]: each stream's total-row cap
+    offsets2: torch.Tensor       # int64 [2N]: the CFG rows' RoPE offsets ([uncond × N; cond × N])
+    valid_from: torch.Tensor     # int32 [2N]: the rows' first valid self-cache slots
+    delay: torch.Tensor          # int32 [C]: the delay pattern
+
+
+def new_loop_state(config: DiaConfig, tokens_buf: np.ndarray, start: int, offsets: np.ndarray,
+                   caps: np.ndarray, device, clamp_window: bool) -> LoopState:
+    """The state entering the loop at row ``start`` (host numbers, moved to
+    the device once per call).  ``clamp_window``: the single-stream
+    ``_loop_entry_carries`` (:279), whose ``dynamic_slice`` clamps the
+    template window's start to ``T - max_delay``; else the batched loop's
+    plain slice (:702), which ends at the buffer's end."""
+    d = config.data
+    N, T, C = tokens_buf.shape
+    w0 = min(start, T - d.max_delay) if clamp_window else start
+    off = np.asarray(offsets, np.int64)
+    caps = np.asarray(caps, np.int64)
+
+    def dev(a, dtype):  # a copy: no field may share memory with tokens_buf or another
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+    return LoopState(
+        tokens=dev(tokens_buf, torch.int32),
+        prev_tok=dev(tokens_buf[:, start - 1], torch.int32),
+        bos_rows=dev(tokens_buf[:, w0:w0 + d.max_delay], torch.int32),
+        eos_detected=torch.zeros(N, dtype=torch.bool, device=device),
+        eos_countdown=torch.full((N,), -1, dtype=torch.int32, device=device),
+        stopped=torch.zeros(N, dtype=torch.bool, device=device),
+        final_step=torch.full((N,), start - 1, dtype=torch.int64, device=device),
+        t=torch.full((1,), start - 1, dtype=torch.int64, device=device),
+        stop=torch.full((1,), bool(start - 1 >= caps.max() - 1), device=device),
+        start=torch.full((1,), start, dtype=torch.int64, device=device),
+        caps=dev(caps, torch.int64),
+        offsets2=dev(np.concatenate([off, off]), torch.int64),
+        valid_from=dev(np.concatenate([off, off]), torch.int32),
+        delay=dev(np.asarray(d.delay_pattern), torch.int32))
+
+
+def loop_step(s: LoopState, step, params, config: DiaConfig, self_cache, cross_cache,
+              cross_ends, sampling: Sampling, generators: list | None, compute_dtype) -> None:
+    """One step of the decode loop, in place on ``s`` and the self cache, all
+    on the device: no host read, so a CUDA graph can hold it.  The JAX loop
+    bodies (``_make_loop_body``, :207-276; ``generate_fused_batch``'s,
+    :625-698) in their order: the step at row ``t = s.t + 1`` (RoPE position
+    ``t - offset``, K/V slot ``t - 1``), CFG, the constraint bans, one
+    sampling call per stream with that stream's generator, the EOS state
+    machine (reference: dia/model.py:771-797), the BOS-window masked write
+    (:790-792), the per-stream stop and the near-max trigger (:800-804).
+    A stopped stream is still stepped and sampled but never written, and
+    keeps its last token as input (its rows touch no other row's numbers).
+    Once ``s.stop`` is set a step changes nothing that is read later: every
+    field keeps its value, the tokens row is rewritten with itself, the K/V
+    slot (clamped into the cache) is past every stream's last step."""
+    d = config.data
+    max_delay, eos, pad = d.max_delay, d.audio_eos_value, d.audio_pad_value
+    N, T = s.tokens.shape[:2]
+    halt = s.stop
+    t = s.t + 1
+    tgt = torch.cat([s.prev_tok, s.prev_tok])[:, None]  # [2N, 1, C]: the CFG pair per stream
+    position = (t - s.offsets2)[:, None]  # [2N, 1] row-local RoPE positions
+    slot = (t - 1).clamp(0, self_cache.k.shape[2] - 1)
+    logits = step(params, config, tgt, position, slot, self_cache, cross_cache, cross_ends,
+                  compute_dtype, valid_from=s.valid_from)  # [2N, 1, C, V]
+    guided = apply_constraints(cfg_combine(logits[:, 0].unflatten(0, (2, N)), sampling.cfg_scale),
+                               eos, pad, d.audio_bos_value)  # [N, C, V]
+    pred = torch.stack([
+        sample_next_token(guided[i], sampling.temperature, sampling.top_p,
+                          sampling.cfg_filter_top_k,
+                          generator=None if generators is None else generators[i])
+        for i in range(N)]).to(torch.int32)  # [N, C]
+
+    newly_eos = ~s.eos_detected & (pred[:, 0] == eos)
+    eos_detected = s.eos_detected | newly_eos
+    countdown = torch.where(newly_eos, max_delay, s.eos_countdown)
+    active = (countdown > 0)[:, None]
+    step_after = (max_delay - countdown)[:, None]
+    pred = torch.where(active & (step_after == s.delay), eos,
+                       torch.where(active & (step_after > s.delay) & (pred != eos), pad, pred))
+    countdown = torch.where(countdown > 0, countdown - 1, countdown)
+
+    # every prompt ends on row start - 1: the write-protected window is the
+    # first max_delay - 1 steps for all, and row is the template at t
+    k = t - s.start
+    row = torch.where(k < max_delay, s.bos_rows[:, 0], -1)
+    write = torch.where((k < max_delay - 1) & (row != -1), row, pred)
+    at = t.clamp(max=T - 1)
+    live = ~(s.stopped | halt)[:, None]
+    kept = s.tokens.index_select(1, at)[:, 0]
+    s.tokens.index_copy_(1, at, torch.where(live, write, kept)[:, None])
+
+    stop_now = (countdown == 0) & ~s.stopped
+    hit_cap = (t >= s.caps - 1) & ~s.stopped & ~stop_now
+    final_step = torch.where(s.stopped, s.final_step, torch.where(stop_now, t - 1, t))
+    stopped = s.stopped | stop_now | hit_cap
+    near_max = (t >= s.caps - max_delay - 1) & ~eos_detected
+    new = dict(prev_tok=torch.where(s.stopped[:, None], s.prev_tok, write),
+               bos_rows=torch.roll(s.bos_rows, -1, dims=1),
+               eos_detected=eos_detected | near_max,
+               eos_countdown=torch.where(near_max, max_delay, countdown),
+               stopped=stopped, final_step=final_step, t=t, stop=stopped.all().reshape(1))
+    for name, value in new.items():
+        held = getattr(s, name)
+        held.copy_(torch.where(halt, held, value))
+
+
+class LoopBuffers:
+    """The tensors a decode loop runs on, and the CUDA graph captured over
+    them.  A generator keeps one per key (``DiaGenerator._buffers``): the
+    first call's tensors stay, later calls copy their data in (``put``), so
+    that the graph captured by the first call replays on every later one.
+    A fresh one (the eager loop) keeps nothing: ``put`` hands values back."""
+
+    def __init__(self, device: torch.device | None = None):
+        self.held: dict = {}
+        self.keep = device is not None
+        self.stream = torch.cuda.Stream(device) if self.keep else None
+        self.graph = None
+        self.gens: list | None = None
+
+    def put(self, name: str, value):
+        """``value`` (a tensor or a tuple of tensors) as this key's static
+        ``name``: the first call's own tensors, later calls' data copied
+        into them."""
+        if not self.keep:
+            return value
+        held = self.held.get(name)
+        if held is None:
+            self.held[name] = value
+            return value
+        for h, v in zip(*((held, value) if isinstance(held, tuple) else ((held,), (value,)))):
+            h.copy_(v)
+        return held
+
+    def generators(self, device, seeds: list[int]) -> list:
+        """One ``torch.Generator`` a stream, seeded; the same objects on every
+        call of a kept key (a captured graph reads their state)."""
+        if not self.keep or self.gens is None:
+            self.gens = [torch.Generator(device=device) for _ in seeds]
+        for g, seed in zip(self.gens, seeds):
+            g.manual_seed(seed)
+        return self.gens
+
+
+def _run_eager(state: LoopState, body, stats: GenerationStats) -> None:
+    while not bool(state.stop):
+        body()
+        stats.host_steps += 1
+
+
+def _run_graphs(state: LoopState, body, buffers: LoopBuffers, stats: GenerationStats) -> None:
+    """The loop as CUDA graph replays on the buffers' stream: the first call
+    of a key runs ``WARMUP_STEPS`` real steps, then captures
+    ``GRAPH_STEPS`` consecutive steps into one graph (the generators
+    registered with it: their Philox offsets advance on replay as in eager
+    calls); every call replays it until ``stop`` is read back set, one read a
+    replay.  A capture that fails raises."""
+    s = buffers.stream
+    s.wait_stream(torch.cuda.current_stream())
+    events = []
+    with torch.cuda.stream(s):
+        if buffers.graph is None:
+            for _ in range(WARMUP_STEPS):
+                if bool(state.stop):
+                    break
+                body()
+                stats.host_steps += 1
+            if not bool(state.stop):
+                t0 = time.perf_counter()
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                for g in buffers.gens or ():
+                    graph.register_generator_state(g)
+                with torch.cuda.graph(graph, stream=s):
+                    for _ in range(GRAPH_STEPS):
+                        body()
+                graph.instantiate()
+                buffers.graph = graph
+                stats.capture_seconds = time.perf_counter() - t0
+                stats.host_steps += GRAPH_STEPS
+        limit = -(-int(state.caps.max() - state.t) // GRAPH_STEPS)  # every cap reached by then
+        while not bool(state.stop):
+            if len(events) == limit:
+                raise RuntimeError("decode loop: the graph replays did not reach the stop")
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            t0 = time.perf_counter()
+            buffers.graph.replay()
+            stats.replay_launch_seconds += time.perf_counter() - t0
+            ev[1].record()
+            events.append(ev)
+    torch.cuda.current_stream().wait_stream(s)
+    stats.graph_steps = GRAPH_STEPS
+    stats.replays = len(events)
+    stats.replay_device_seconds = sum(a.elapsed_time(b) for a, b in events) / 1e3
+
+
+@torch.no_grad()
+def run_decode_loop(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cross_cache,
+                    cross_ends, start: int, offsets: np.ndarray, caps: np.ndarray,
+                    sampling: Sampling, generators: list | None, compute_dtype, loop: str,
+                    buffers: LoopBuffers | None, stats: GenerationStats | None,
+                    clamp_window: bool) -> np.ndarray:
+    """The decode loop over N streams from row ``start`` (the JAX
+    ``_decode_loop_core``, :290, and ``generate_fused_batch``'s loop): the
+    state on the device (``new_loop_state``), ``loop_step`` as its body,
+    ``loop="eager"`` one step at a time (a read of ``stop`` a step),
+    ``"graph"`` replayed from CUDA graphs (the card only).  Fills
+    ``tokens_buf`` [N, T, C] in place and returns each stream's last
+    completed step."""
+    if loop not in LOOPS:
+        raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
+    dev = cross_ends.device
+    if loop == "graph" and dev.type != "cuda":
+        raise ValueError("loop='graph' needs CUDA tensors")
+    buffers = buffers or LoopBuffers()
+    stats = stats if stats is not None else GenerationStats()
+    state = buffers.put("state", new_loop_state(config, tokens_buf, start, offsets, caps, dev,
+                                                clamp_window))
+    step = step_function(params)
+
+    def body():
+        loop_step(state, step, params, config, self_cache, cross_cache, cross_ends, sampling,
+                  generators, compute_dtype)
+
+    stats.loop = loop
+    if loop == "eager":
+        _run_eager(state, body, stats)
+    else:
+        _run_graphs(state, body, buffers, stats)
+    tokens_buf[...] = state.tokens.cpu().numpy()
+    stats.decode_steps = int(state.t.item()) - start + 1
+    return state.final_step.cpu().numpy()
+
+
 @torch.no_grad()
 def decode_loop(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cross_cache,
                 cross_ends, prefill_step: int, max_tokens: int, cfg_scale: float,
                 temperature: float, top_p: float, cfg_filter_top_k: int,
-                generator: torch.Generator | None, compute_dtype) -> int:
-    """The decode loop (loop body semantics of generate.py:217-276).  Fills
-    ``tokens_buf`` rows in place and returns the last completed step."""
-    d = config.data
-    dev = cross_ends.device
-    delay = np.asarray(d.delay_pattern, np.int32)
-    max_delay, eos, pad = d.max_delay, d.audio_eos_value, d.audio_pad_value
-    T = tokens_buf.shape[0]
-    step = step_function(params)
-
-    dec_step = prefill_step - 1
-    prev_tok = tokens_buf[dec_step].copy()
-    w0 = min(dec_step + 1, T - max_delay)  # the JAX dynamic_slice clamps its start
-    bos_rows = tokens_buf[w0:w0 + max_delay].copy()
-    eos_detected, countdown, bos_countdown = False, -1, max_delay
-    while dec_step < max_tokens - 1:
-        t = dec_step + 1
-        tgt = torch.from_numpy(prev_tok).to(dev)[None, None].expand(CFG_BATCH, 1, -1)
-        position = torch.full((CFG_BATCH, 1), t, dtype=torch.int64, device=dev)
-        logits = step(params, config, tgt, position, t - 1, self_cache, cross_cache,
-                      cross_ends, compute_dtype)  # [2, 1, C, V]
-        guided = apply_constraints(cfg_combine(logits[:, -1], cfg_scale), eos, pad,
-                                   d.audio_bos_value)
-        pred = sample_next_token(guided, temperature, top_p, cfg_filter_top_k,
-                                 generator=generator).to(torch.int32).cpu().numpy()
-
-        # EOS state machine (reference: dia/model.py:771-797)
-        newly_eos = (not eos_detected) and pred[0] == eos
-        eos_detected = eos_detected or newly_eos
-        if newly_eos:
-            countdown = max_delay
-        if countdown > 0:
-            step_after = max_delay - countdown
-            pred = np.where(step_after == delay, eos,
-                            np.where((step_after > delay) & (pred != eos), pad, pred))
-            countdown -= 1
-        pred = pred.astype(np.int32)
-
-        # BOS-window masked write (reference: dia/model.py:790-792)
-        bos_countdown = max(0, bos_countdown - 1)
-        row = bos_rows[0]
-        write = np.where((bos_countdown > 0) & (row != -1), row, pred).astype(np.int32)
-        tokens_buf[t] = write
-        bos_rows = np.roll(bos_rows, -1, axis=0)
-
-        stop = countdown == 0
-        # near-max EOS trigger (reference: dia/model.py:800-804)
-        if t >= max_tokens - max_delay - 1 and not eos_detected:
-            eos_detected = True
-            countdown = max_delay
-        prev_tok = write
-        if stop:
-            break
-        dec_step += 1
-    return dec_step
+                generator: torch.Generator | None, compute_dtype, loop: str = "eager",
+                buffers: LoopBuffers | None = None, stats: GenerationStats | None = None) -> int:
+    """The single-stream decode loop (``generate_fused``'s, :460): stream
+    one of ``run_decode_loop`` from row ``prefill_step`` up to ``max_tokens``
+    rows.  Fills ``tokens_buf`` [T, C] in place and returns the last
+    completed step."""
+    final = run_decode_loop(
+        params, config, tokens_buf[None], self_cache, cross_cache, cross_ends, prefill_step,
+        np.zeros(1, np.int64), np.asarray([max_tokens]),
+        Sampling(cfg_scale, temperature, top_p, cfg_filter_top_k),
+        None if generator is None else [generator], compute_dtype, loop, buffers, stats,
+        clamp_window=True)
+    return int(final[0])
 
 
 @torch.no_grad()
 def decode_loop_batch(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cross_cache,
                       cross_ends, start: int, offsets: np.ndarray, caps: np.ndarray,
                       cfg_scale: float, temperature: float, top_p: float, cfg_filter_top_k: int,
-                      generators: list | None, compute_dtype) -> np.ndarray:
+                      generators: list | None, compute_dtype, loop: str = "eager",
+                      buffers: LoopBuffers | None = None,
+                      stats: GenerationStats | None = None) -> np.ndarray:
     """The N-stream decode loop (``generate_fused_batch``'s body,
     generate.py:625-698): all streams advance in lockstep from row
     ``start``, each with its own RoPE positions (``t - offsets[i]``), its
     own first valid cache slot, its own EOS countdown and its own generator,
     so that stream i repeats its single-stream run.  A finished stream stops
-    being written and sampled; its rows keep running until every stream has
-    stopped or the longest cap is reached.  Fills ``tokens_buf`` [N, T, C]
-    in place and returns each stream's last completed step."""
-    d = config.data
-    dev = cross_ends.device
-    N = tokens_buf.shape[0]
-    delay = np.asarray(d.delay_pattern, np.int32)[None]
-    max_delay, eos, pad = d.max_delay, d.audio_eos_value, d.audio_pad_value
-    off2 = np.concatenate([offsets, offsets]).astype(np.int64)
-    valid_from = torch.from_numpy(off2.astype(np.int32)).to(dev)
-    step = step_function(params)
-
-    prev_tok = tokens_buf[:, start - 1].copy()  # [N, C]
-    bos_rows = tokens_buf[:, start:start + max_delay].copy()  # [N, max_delay, C]
-    eos_detected = np.zeros(N, bool)
-    countdown = np.full(N, -1, np.int64)
-    stopped = np.zeros(N, bool)
-    final_step = np.full(N, start - 1, np.int64)
-    t = start - 1
-    while t < caps.max() - 1 and not stopped.all():
-        t += 1
-        tgt = torch.from_numpy(np.concatenate([prev_tok, prev_tok])).to(dev)[:, None]
-        position = torch.from_numpy(t - off2[:, None]).to(dev)
-        logits = step(params, config, tgt, position, t - 1, self_cache, cross_cache,
-                      cross_ends, compute_dtype, valid_from=valid_from)  # [2N, 1, C, V]
-        pred = prev_tok.copy()  # a stopped stream is neither sampled nor written
-        live = np.flatnonzero(~stopped)
-        picks = [sample_next_token(
-            apply_constraints(cfg_combine(logits[[i, N + i], 0], cfg_scale), eos, pad,
-                              d.audio_bos_value),
-            temperature, top_p, cfg_filter_top_k,
-            generator=None if generators is None else generators[i]) for i in live]
-        pred[live] = torch.stack(picks).to(torch.int32).cpu().numpy()
-
-        # per-stream EOS state machines (reference: dia/model.py:771-797)
-        newly_eos = ~eos_detected & (pred[:, 0] == eos)
-        eos_detected |= newly_eos
-        countdown = np.where(newly_eos, max_delay, countdown)
-        active = (countdown > 0)[:, None]
-        step_after = (max_delay - countdown)[:, None]
-        pred = np.where(active & (step_after == delay), eos,
-                        np.where(active & (step_after > delay) & (pred != eos), pad, pred))
-        countdown = np.where(countdown > 0, countdown - 1, countdown)
-
-        # BOS-window masked write: every prompt ends on row start - 1, so the
-        # write-protected window is the first max_delay - 1 steps for all
-        row = bos_rows[:, 0] if t - start < max_delay else np.full_like(prev_tok, -1)
-        write = np.where((t - start < max_delay - 1) & (row != -1), row, pred).astype(np.int32)
-        tokens_buf[live, t] = write[live]
-        bos_rows = np.roll(bos_rows, -1, axis=1)
-
-        stop_now = (countdown == 0) & ~stopped
-        hit_cap = (t >= caps - 1) & ~stopped & ~stop_now
-        final_step = np.where(stopped, final_step, np.where(stop_now, t - 1, t))
-        prev_tok = np.where(stopped[:, None], prev_tok, write)
-        stopped = stopped | stop_now | hit_cap
-        # near-max EOS trigger (reference: dia/model.py:800-804)
-        near_max = (t >= caps - max_delay - 1) & ~eos_detected
-        eos_detected |= near_max
-        countdown = np.where(near_max, max_delay, countdown)
-    return final_step
+    being written; its rows keep running until every stream has stopped or
+    the longest cap is reached.  Fills ``tokens_buf`` [N, T, C] in place and
+    returns each stream's last completed step."""
+    return run_decode_loop(
+        params, config, tokens_buf, self_cache, cross_cache, cross_ends, start, offsets, caps,
+        Sampling(cfg_scale, temperature, top_p, cfg_filter_top_k), generators, compute_dtype,
+        loop, buffers, stats, clamp_window=False)
 
 
 def _undelay(generated: np.ndarray, config: DiaConfig) -> np.ndarray:
@@ -335,6 +532,31 @@ class DiaGenerator:
         self.config = config
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
+        self._graphs: OrderedDict[tuple, LoopBuffers] = OrderedDict()
+        self.last_stats: GenerationStats | None = None  # the last call's, for callers that report
+
+    def _loop(self, loop: str | None) -> str:
+        """``loop`` as given; None: CUDA graphs on the card, eager on the CPU."""
+        loop = loop or ("graph" if self.device.type == "cuda" else "eager")
+        if loop not in LOOPS:
+            raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
+        if loop == "graph" and self.device.type != "cuda":
+            raise ValueError("loop='graph' needs CUDA tensors")
+        return loop
+
+    def _buffers(self, loop: str, key: tuple) -> LoopBuffers:
+        """The kept buffers (and graph) of ``key`` for the graph loop, the
+        ``GRAPH_CACHE`` most recently used kept; fresh ones for the eager
+        loop.  The key holds every shape and constant a captured step
+        depends on: streams, self-cache length, cross window, int8 caches,
+        the ``Sampling`` scalars, last (the params are the generator's own)."""
+        if loop != "graph":
+            return LoopBuffers()
+        buffers = self._graphs.pop(key, None) or LoopBuffers(self.device)
+        self._graphs[key] = buffers
+        while len(self._graphs) > GRAPH_CACHE:
+            self._graphs.popitem(last=False)
+        return buffers
 
     @torch.no_grad()
     def generate_tokens(
@@ -351,10 +573,17 @@ class DiaGenerator:
         verbose: bool = False,
         cache_len: int | None = None,
         kv_int8: bool | None = None,
+        loop: str | None = None,
     ) -> np.ndarray:
         """Text → undelayed codec tokens [T, C] (delay reverted, tail trimmed,
         out-of-codebook values clamped to 0).  ``kv_int8``: int8 self and
-        cross caches; None = on iff the decoder's kernels are packed."""
+        cross caches; None = on iff the decoder's kernels are packed.
+        ``loop``: ``"graph"`` (the default on the card) replays the decode
+        loop from CUDA graphs, captured once per key (streams, cache length,
+        cross window, int8 caches, sampling scalars) and kept for later calls
+        of that key; ``"eager"`` (the default on the CPU) steps from Python.
+        Both run the same kernels in the same order (``loop_step``).  The
+        call's ``GenerationStats`` land in ``last_stats``."""
         cfg = self.config
         d = cfg.data
         dtype = DTYPES[self.compute_dtype]
@@ -371,30 +600,34 @@ class DiaGenerator:
         window = _bucket(prefill_step - 1, 128, d.audio_length) if prefill_step > 1 else None
         cache_len = _cache_len_for(max_tokens if cache_len is None else cache_len,
                                    window or 0, cfg)
-        generator = None
-        if temperature != 0.0:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(_resolve_seed(seed))
-
-        t0 = time.perf_counter()
-        cross_cache, padding_mask, cross_ends = conditioning(
-            self.params, cfg, torch.from_numpy(enc_input).to(self.device), dtype,
-            _cross_window_for(enc_input, cfg))
+        loop = self._loop(loop)
+        cross_window = _cross_window_for(enc_input, cfg)
         if kv_int8 is None:
             kv_int8 = decoder_is_packed(self.params)
-        self_cache = new_self_cache(cfg, CFG_BATCH, cache_len, dtype, self.device, quant=kv_int8)
+        buffers = self._buffers(loop, (1, cache_len, cross_window, kv_int8, Sampling(
+            cfg_scale, temperature, top_p, cfg_filter_top_k)))
+        generator = None
+        if temperature != 0.0:
+            generator = buffers.generators(self.device, [_resolve_seed(seed)])[0]
+
+        stats = GenerationStats()
+        cross_cache, padding_mask, cross_ends = conditioning(
+            self.params, cfg, torch.from_numpy(enc_input).to(self.device), dtype, cross_window)
+        self_cache = buffers.put("self", new_self_cache(cfg, CFG_BATCH, cache_len, dtype,
+                                                        self.device, quant=kv_int8))
         if window is not None:
             run_prefill(self.params, cfg, tokens_buf[None], window, np.zeros(1, np.int64),
                         np.asarray([prefill_step]), cross_cache, padding_mask, self_cache, dtype)
         if kv_int8:  # prefill's flash attention reads the float cross cache
             cross_cache = quantize_cache(cross_cache)
         final_step = decode_loop(
-            self.params, cfg, tokens_buf, self_cache, cross_cache, cross_ends, prefill_step,
-            max_tokens, cfg_scale, temperature, top_p, cfg_filter_top_k, generator, dtype)
+            self.params, cfg, tokens_buf, self_cache, buffers.put("cross", cross_cache),
+            buffers.put("ends", cross_ends), prefill_step, max_tokens, cfg_scale, temperature,
+            top_p, cfg_filter_top_k, generator, dtype, loop=loop, buffers=buffers, stats=stats)
+        self.last_stats = stats.finish(stats.decode_steps, prefill_step - 1)
         if verbose:
-            dt = time.perf_counter() - t0
-            steps = final_step + 1 - prefill_step
-            print(f"generate: {steps} steps in {dt:.3f}s ({steps / max(dt, 1e-9):.2f} tokens/s)")
+            print(f"generate: {stats.decode_steps} steps in {stats.wall_seconds:.3f}s "
+                  f"({stats.tokens_per_second:.2f} tokens/s, {loop} loop)")
 
         return _undelay(tokens_buf[prefill_step: final_step + 1], cfg)  # (dia/model.py:831)
 
@@ -413,6 +646,7 @@ class DiaGenerator:
         seeds: list[int | None] | None = None,
         cache_len: int | None = None,
         kv_int8: bool | None = None,
+        loop: str | None = None,
     ) -> list[np.ndarray]:
         """N texts → N undelayed token arrays, decoded together in one loop
         over 2N CFG rows (the JAX ``generate_tokens_batch``, generate.py:1047,
@@ -425,7 +659,8 @@ class DiaGenerator:
         cache slots.  ``seeds`` gives each stream its own seed (None entries a
         fresh one), ``seed`` one seed to all; each stream samples from its own
         ``torch.Generator``.  So stream i repeats its single-stream run with
-        that seed whatever streams ride with it."""
+        that seed whatever streams ride with it.  ``loop`` as in
+        ``generate_tokens``: one loop over all streams, graphed on the card."""
         cfg = self.config
         d = cfg.data
         dtype = DTYPES[self.compute_dtype]
@@ -467,23 +702,30 @@ class DiaGenerator:
             seed_list = [_resolve_seed(s) for s in seeds]
         else:
             seed_list = [_resolve_seed(seed) for _ in range(N)]
-        generators = None
-        if temperature != 0.0:
-            generators = [torch.Generator(device=self.device).manual_seed(s) for s in seed_list]
-
-        cross_cache, padding_mask, cross_ends = conditioning_batch(
-            self.params, cfg, conds, dtype, self.device)
+        loop = self._loop(loop)
         if kv_int8 is None:
             kv_int8 = decoder_is_packed(self.params)
-        self_cache = new_self_cache(cfg, 2 * N, _cache_len_for(cache_len or int(caps.max()),
-                                                               start, cfg),
-                                    dtype, self.device, quant=kv_int8)
+        self_len = _cache_len_for(cache_len or int(caps.max()), start, cfg)
+        cross_window = max(_cross_window_for(c, cfg) or d.text_length for c in conds)
+        buffers = self._buffers(loop, (N, self_len, cross_window, kv_int8, Sampling(
+            cfg_scale, temperature, top_p, cfg_filter_top_k)))
+        generators = None
+        if temperature != 0.0:
+            generators = buffers.generators(self.device, seed_list)
+
+        stats = GenerationStats()
+        cross_cache, padding_mask, cross_ends = conditioning_batch(
+            self.params, cfg, conds, dtype, self.device)
+        self_cache = buffers.put("self", new_self_cache(cfg, 2 * N, self_len, dtype, self.device,
+                                                        quant=kv_int8))
         if window is not None:
             run_prefill(self.params, cfg, tokens_buf, window, offsets, prefill_steps,
                         cross_cache, padding_mask, self_cache, dtype)
         if kv_int8:
             cross_cache = quantize_cache(cross_cache)
         final_steps = decode_loop_batch(
-            self.params, cfg, tokens_buf, self_cache, cross_cache, cross_ends, start, offsets,
-            caps, cfg_scale, temperature, top_p, cfg_filter_top_k, generators, dtype)
+            self.params, cfg, tokens_buf, self_cache, buffers.put("cross", cross_cache),
+            buffers.put("ends", cross_ends), start, offsets, caps, cfg_scale, temperature, top_p,
+            cfg_filter_top_k, generators, dtype, loop=loop, buffers=buffers, stats=stats)
+        self.last_stats = stats.finish(stats.decode_steps, start - 1)
         return [_undelay(tokens_buf[i, start: int(final_steps[i]) + 1], cfg) for i in range(N)]

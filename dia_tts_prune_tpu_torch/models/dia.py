@@ -49,6 +49,7 @@ import torch
 
 from ..config import DiaConfig
 from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.fused_step import slot_tensor
 from ..ops.modules import (
     attention,
     attention_out,
@@ -387,12 +388,30 @@ def decoder_prefill(
     return dense_general(x, params["decoder"]["logits_dense"]["kernel"]).float()
 
 
+def _commit(cache: KVCache | QuantKVCache, layer: int | None, slot: torch.Tensor,
+            k: torch.Tensor, v: torch.Tensor) -> None:
+    """This token's K/V [B, Nkv, H] (``layer`` None: [L, B, Nkv, H], every
+    layer) into cache slot ``slot`` (int64 [1], on the device), in place and
+    quantized for an int8 cache.  ``index_copy_`` along the slot axis takes
+    the slot from device memory, so a captured CUDA graph's replays write
+    each step's own slot."""
+    at = slice(None) if layer is None else layer
+    axis = 2 if layer is None else 1  # the slot axis of cache.k[at]
+    if isinstance(cache, QuantKVCache):
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        for dst, src in ((cache.k, kq), (cache.ks, ks), (cache.v, vq), (cache.vs, vs)):
+            dst[at].index_copy_(axis, slot, src.unsqueeze(axis))
+    else:
+        for dst, src in ((cache.k, k), (cache.v, v)):
+            dst[at].index_copy_(axis, slot, src.to(dst.dtype).unsqueeze(axis))
+
+
 def decode_step(
     params: Params,
     config: DiaConfig,
     tgt_Bx1xC: torch.Tensor,  # [B, 1, C]
     position: torch.Tensor,  # [B, 1] RoPE position of this token
-    write_slot: int,  # cache slot to write (== #valid slots - 1)
+    write_slot,  # int or int [1] tensor: cache slot to write (== #valid slots - 1)
     self_cache: KVCache | QuantKVCache,
     cross_cache: KVCache | QuantKVCache,
     cross_ends: torch.Tensor,  # int32 [B]: text keys per row (0 = fully masked)
@@ -415,15 +434,21 @@ def decode_step(
     first would change the last token's share).  The JAX step's
     ``skip_uncond_cross`` has no counterpart: the CFG unconditional row has ``cross_ends == 0``, and for
     such a row every block of the kernel skips the cache and the combine pass
-    writes exact zeros, so that row already reads no keys or values."""
+    writes exact zeros, so that row already reads no keys or values.
+
+    ``write_slot`` may live on the device (the JAX ``decode_step_scan``'s
+    traced slot): the attention ends come from it and the K/V commits index
+    with it, so a CUDA graph that captures the step replays it at each
+    step's own slot.  An int is made such a tensor first: one path."""
     m = config.model
     eps = m.normalization_layer_epsilon
     B = tgt_Bx1xC.shape[0]
     dev = tgt_Bx1xC.device
     quant = isinstance(self_cache, QuantKVCache)
+    slot = slot_tensor(write_slot, dev).long()  # [1]
     self_start = (torch.zeros(B, dtype=torch.int32, device=dev) if valid_from is None
                   else valid_from.to(device=dev, dtype=torch.int32).contiguous())
-    self_end = torch.full((B,), write_slot + (0 if quant else 1), dtype=torch.int32, device=dev)
+    self_end = (slot + (0 if quant else 1)).to(torch.int32).expand(B).contiguous()
     cross_start = torch.zeros_like(cross_ends)
 
     x = _embed_channels(params, tgt_Bx1xC, compute_dtype)  # [B, 1, D]
@@ -438,11 +463,9 @@ def decode_step(
             sa = decode_attention(q[:, 0].contiguous(), self_cache.k[i], self_cache.v[i],
                                   self_start, self_end, self_cache.ks[i], self_cache.vs[i],
                                   k1, v1)[:, None]
-            self_cache.k[i, :, write_slot], self_cache.ks[i, :, write_slot] = quantize_kv(k1)
-            self_cache.v[i, :, write_slot], self_cache.vs[i, :, write_slot] = quantize_kv(v1)
+            _commit(self_cache, i, slot, k1, v1)
         else:
-            self_cache.k[i, :, write_slot] = k[:, 0].to(self_cache.k.dtype)
-            self_cache.v[i, :, write_slot] = v[:, 0].to(self_cache.v.dtype)
+            _commit(self_cache, i, slot, k[:, 0], v[:, 0])
             sa = decode_attention(q[:, 0].contiguous(), self_cache.k[i], self_cache.v[i],
                                   self_start, self_end)[:, None]
         x = x + attention_out(lp["self_attention"], sa)
@@ -466,7 +489,7 @@ def decode_step_fused(
     config: DiaConfig,
     tgt_Bx1xC: torch.Tensor,  # [B, 1, C]
     position: torch.Tensor,  # [B, 1] RoPE position of this token
-    write_slot: int,  # cache slot to write (== #valid slots - 1)
+    write_slot,  # int or int [1] tensor: cache slot to write (== #valid slots - 1)
     self_cache: KVCache | QuantKVCache,
     cross_cache: KVCache | QuantKVCache,
     cross_ends: torch.Tensor,  # int32 [B]: text keys per row (0 = fully masked)
@@ -495,11 +518,6 @@ def decode_step_fused(
         params["decoder"]["fused_pack"], x, position[:, 0], write_slot, self_cache.k,
         self_cache.v, cross_cache.k, cross_cache.v, cross_ends, eps, m.rope_min_timescale,
         m.rope_max_timescale, vf, *self_cache[2:], *cross_cache[2:])
-    if quant:
-        self_cache.k[:, :, write_slot], self_cache.ks[:, :, write_slot] = quantize_kv(k_new)
-        self_cache.v[:, :, write_slot], self_cache.vs[:, :, write_slot] = quantize_kv(v_new)
-    else:
-        self_cache.k[:, :, write_slot] = k_new
-        self_cache.v[:, :, write_slot] = v_new
+    _commit(self_cache, None, slot_tensor(write_slot, dev).long(), k_new, v_new)
     h = rms_norm(x_out[:, None].to(compute_dtype), params["decoder"]["norm"]["scale"], eps)
     return dense_general(h, params["decoder"]["logits_dense"]["kernel"]).float()

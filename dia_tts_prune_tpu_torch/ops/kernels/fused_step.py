@@ -43,8 +43,17 @@ Params = dict[str, Any]
 MLP_TILES = 4  # the JAX kernel's F tiling; int4 packs pair wm's rows per tile
 NEG = -1e30
 _CACHE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_ARGTYPES = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 14
+_ARGTYPES = ([ctypes.c_void_p] * 31 + [ctypes.c_int] * 13
              + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
+
+
+def slot_tensor(write_slot, device) -> torch.Tensor:
+    """The write slot as an int32 [1] tensor on ``device``: a tensor is
+    taken as it is (a CUDA graph's steps read theirs from device memory); an
+    int becomes one with a fill, which no queued work waits for."""
+    if torch.is_tensor(write_slot):
+        return write_slot.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.full((1,), int(write_slot), dtype=torch.int32, device=device)
 
 
 class FusedPack(NamedTuple):
@@ -207,7 +216,8 @@ def fused_decode_step_plain(
     pack: FusedPack,
     x_emb: torch.Tensor,       # [B, D] summed channel embeddings
     position: torch.Tensor,    # int [B] RoPE positions
-    write_slot: int,           # the slot this token's K/V go to (read: [valid_from, write_slot))
+    write_slot,                # int, or an int [1] tensor: the slot this token's K/V go to
+                               # (read: [valid_from, write_slot))
     self_k: torch.Tensor,      # [L, B, T, Nkv, H] float, or int8 codes
     self_v: torch.Tensor,
     cross_k: torch.Tensor,     # [L, B, S, Ncq, H]
@@ -246,7 +256,8 @@ def fused_decode_step_plain(
     slots = torch.arange(T, device=dev)[None, :]
     vf = (torch.zeros(B, dtype=torch.int32, device=dev) if valid_from is None
           else valid_from.to(dev))
-    prefix = (slots < write_slot) & (slots >= vf[:, None])  # [B, T]
+    ws = slot_tensor(write_slot, dev)
+    prefix = (slots < ws) & (slots >= vf[:, None])  # [B, T]
     cmask = torch.arange(S, device=dev)[None, :] < cross_ends.to(dev)[:, None]  # [B, S]
     bf = torch.bfloat16
 
@@ -380,7 +391,7 @@ def fused_decode_step(
     pack: FusedPack,
     x_emb: torch.Tensor,
     position: torch.Tensor,
-    write_slot: int,
+    write_slot,
     self_k: torch.Tensor,
     self_v: torch.Tensor,
     cross_k: torch.Tensor,
@@ -397,7 +408,9 @@ def fused_decode_step(
 ):
     """The decoder stack for one token (see ``fused_decode_step_plain`` for
     the arguments and results).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise.  An int ``write_slot`` outside the
+    cache raises here; a tensor one is the caller's to keep inside (the
+    kernel reads it on the card and clamps it to the cache)."""
     if x_emb.device.type == "cpu":
         return fused_decode_step_plain(pack, x_emb, position, write_slot, self_k, self_v,
                                        cross_k, cross_v, cross_ends, eps, rope_min, rope_max,
@@ -413,10 +426,11 @@ def fused_decode_step(
     x_in = x_emb.float().contiguous()
     _check(pack, x_in, position, self_k, self_v, cross_k, cross_v, cross_ends, valid_from,
            scales)
-    if not 0 <= int(write_slot) < T:
+    if not torch.is_tensor(write_slot) and not 0 <= int(write_slot) < T:
         raise ValueError(f"fused_decode_step: write_slot {write_slot} outside [0, {T})")
+    ws = slot_tensor(write_slot, dev)
     with torch.cuda.device(dev):
-        x, kv = launch(pack, x_in, position, int(write_slot), self_k, self_v, cross_k, cross_v,
+        x, kv = launch(pack, x_in, position, ws, self_k, self_v, cross_k, cross_v,
                        cross_ends, valid_from, scales, eps, rope_min, rope_max,
                        torch.cuda.current_stream(dev).cuda_stream)
     fused_decode_step.launches += 1
@@ -446,11 +460,13 @@ def _static(shapes: tuple, rope_min, rope_max, dev) -> tuple[int, torch.Tensor]:
     return hit
 
 
-def launch(pack: FusedPack, x_in, position, write_slot: int, self_k, self_v, cross_k, cross_v,
-           cross_ends, valid_from, scales, eps, rope_min, rope_max, stream: int):
+def launch(pack: FusedPack, x_in, position, write_slot: torch.Tensor, self_k, self_v, cross_k,
+           cross_v, cross_ends, valid_from, scales, eps, rope_min, rope_max, stream: int):
     """One launch of the kernel on checked inputs (``fused_decode_step``
-    checks them): returns (x [B, D] fp32, kv [2, L, B, Nkv, H] fp32), fresh
-    tensors on every call."""
+    checks them; ``write_slot`` int32 [1] on the card): returns (x [B, D]
+    fp32, kv [2, L, B, Nkv, H] fp32), fresh tensors on every call (under
+    CUDA graph capture they come from the graph's pool and keep their
+    addresses on every replay)."""
     from ._build import kernel_function
 
     L, B, T, Nkv, H = self_k.shape
@@ -463,14 +479,13 @@ def launch(pack: FusedPack, x_in, position, write_slot: int, self_k, self_v, cro
     x = torch.empty(B, D, dtype=torch.float32, device=dev)
     kv = torch.empty(2, L, B, Nkv, H, dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in pack[:14]] + [
-        t.data_ptr() for t in (x_in, position, valid_from, cross_ends, inv_freq,
+        t.data_ptr() for t in (x_in, position, valid_from, cross_ends, write_slot, inv_freq,
                                self_k, self_v, cross_k, cross_v)]
     ptrs += [0 if s is None else s.data_ptr() for s in scales]
     ptrs += [x.data_ptr(), kv.data_ptr(), work.data_ptr()]
     fn = kernel_function("fused_step", "fused_step_fwd", _ARGTYPES)
-    err = fn(*ptrs, L, B, D, F, Nq, Nkv, Ncq, H, T, S, write_slot,
-             _CACHE_CODES[self_k.dtype], int(pack.mlp_int4), pack.mlp_tiles,
-             work.numel(), float(eps), stream)
+    err = fn(*ptrs, L, B, D, F, Nq, Nkv, Ncq, H, T, S, _CACHE_CODES[self_k.dtype],
+             int(pack.mlp_int4), pack.mlp_tiles, work.numel(), float(eps), stream)
     if err != 0:
         raise RuntimeError(f"fused_decode_step kernel launch failed (cudaError {err})")
     return x, kv

@@ -24,8 +24,9 @@ def cfg_combine(logits_2xCxV: torch.Tensor, cfg_scale: float) -> torch.Tensor:
 
 def apply_constraints(logits_CxV: torch.Tensor, eos_value: int, pad_value: int,
                       bos_value: int) -> torch.Tensor:
-    """Ban EOS outside channel 0 and PAD/BOS everywhere (reference: dia/model.py:460-478)."""
-    C, V = logits_CxV.shape
+    """Ban EOS outside channel 0 and PAD/BOS everywhere (reference: dia/model.py:460-478).
+    ``[..., C, V]``: leading axes (streams) take the same bans."""
+    C, V = logits_CxV.shape[-2:]
     col = torch.arange(V, device=logits_CxV.device)[None, :]
     chan = torch.arange(C, device=logits_CxV.device)[:, None]
     ban = ((col == eos_value) & (chan > 0)) | (col == pad_value) | (col == bos_value)

@@ -432,7 +432,7 @@ def _jax_driven(monkeypatch, jd):
         vf = None if valid_from is None else jnp.asarray(valid_from.numpy())
         j_logits, st["self"] = jax_step(
             jd.params, jnp.asarray(tgt.numpy()), jnp.asarray(position.numpy(), jnp.int32),
-            jnp.int32(ws), st["self"], st["cross"], st["mask"], valid_from=vf,
+            jnp.int32(int(ws)), st["self"], st["cross"], st["mask"], valid_from=vf,
             skip_uncond_cross=True)
         j_logits = _t(j_logits)
         d = config.data
@@ -447,13 +447,13 @@ def _jax_driven(monkeypatch, jd):
         records.append((mine, mine.argmax(-1), guided(j_logits).argmax(-1), logits, j_logits))
         return j_logits
 
-    def decode_loop(params, config, buf, *args):
+    def decode_loop(params, config, buf, *args, **kw):
         st["template"], st["first_row"], st["batched"] = buf[None].copy(), args[3], False
-        return real["decode_loop"](params, config, buf, *args)
+        return real["decode_loop"](params, config, buf, *args, **kw)
 
-    def decode_loop_batch(params, config, buf, *args):
+    def decode_loop_batch(params, config, buf, *args, **kw):
         st["template"], st["first_row"], st["batched"] = buf.copy(), args[3], True
-        return real["decode_loop_batch"](params, config, buf, *args)
+        return real["decode_loop_batch"](params, config, buf, *args, **kw)
 
     def forced(i, lane, c):
         """Whether iteration i wrote channel c of a lane from the delay

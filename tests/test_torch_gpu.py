@@ -796,3 +796,102 @@ def test_fused_batch_of_nine_streams_on_card(cuda_device):
     assert len(outs) == 9 and all(o.ndim == 2 and o.shape[1] == dia.config.data.channels
                                   for o in outs)
     assert counts["fused_decode_step"] > 0 and counts["decode_attention"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the decode loop replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_ROUTES = ["float", "int8", "int4", "fused_int8", "batched"]
+
+
+def _graph_model(device, route):
+    from pathlib import Path
+
+    from dia_tts_prune_tpu_torch import Dia
+
+    dia = Dia.from_pretrained(Path(__file__).parent / "fixtures" / "trained_small",
+                              compute_dtype="bfloat16", device=device)
+    if route == "int8":
+        dia.quantize_int8()
+    elif route == "int4":
+        dia.quantize_int4()
+    elif route == "fused_int8":
+        dia.quantize_int8(fused=True)
+    return dia
+
+
+def _graph_run(dia, route, loop, **kw):
+    texts = ["[S1] The birch canoe slid. [S2]", "[S2] Hello there, friend.", "[S1] Three."]
+    if route == "batched":
+        return dia.generator.generate_tokens_batch(texts, loop=loop, seeds=[3, 4, 5], **kw)
+    return [dia.generator.generate_tokens(texts[0], loop=loop, seed=3, **kw)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", GRAPH_ROUTES)
+@pytest.mark.parametrize("temperature", [0.0, 1.3])
+def test_graph_codes_equal_eager_codes(cuda_device, route, temperature):
+    """The graph loop (the default on the card) and the eager loop run the
+    same kernels in the same order: greedy and seeded-sampled codes equal
+    bit for bit, on every route, and each step's launches were made by the
+    host only while warming up and capturing."""
+    from dia_tts_prune_tpu_torch.generate import GRAPH_STEPS, WARMUP_STEPS
+
+    dia = _graph_model(cuda_device, route)
+    kw = dict(max_tokens=80, temperature=temperature)
+    eager = _graph_run(dia, route, "eager", **kw)
+    graph = _graph_run(dia, route, None, **kw)
+    stats = dia.generator.last_stats
+    assert stats.loop == "graph" and stats.replays > 0
+    assert stats.host_steps == WARMUP_STEPS + GRAPH_STEPS
+    assert all(e.shape[0] > 0 for e in eager)
+    for e, g in zip(eager, graph):
+        np.testing.assert_array_equal(g, e)
+
+
+@pytest.mark.gpu
+def test_graph_second_call_of_a_key_captures_nothing_new(cuda_device):
+    """A second call with the same key (streams, cache length, cross window,
+    caches, sampling scalars) replays the kept graph: no capture, no step
+    launched from the host, the same graph object, and the same codes; a
+    call with other sampling scalars captures its own."""
+    dia = _graph_model(cuda_device, "float")
+    kw = dict(max_tokens=80, temperature=0.0)
+    first = _graph_run(dia, "float", None, **kw)
+    graphs = dict(dia.generator._graphs)
+    again = _graph_run(dia, "float", None, **kw)
+    stats = dia.generator.last_stats
+    assert stats.host_steps == 0 and stats.capture_seconds == 0.0 and stats.replays > 0
+    assert dict(dia.generator._graphs) == graphs
+    assert all(dia.generator._graphs[k].graph is b.graph for k, b in graphs.items())
+    np.testing.assert_array_equal(again[0], first[0])
+    _graph_run(dia, "float", None, max_tokens=80, temperature=1.3)
+    assert len(dia.generator._graphs) == len(graphs) + 1
+
+
+@pytest.mark.gpu
+def test_host_read_inside_a_captured_step_raises(cuda_device, monkeypatch):
+    """A step that reads the device back (a planted ``.item()``) cannot be
+    captured: the graph loop raises instead of falling back to the eager
+    loop."""
+    import dia_tts_prune_tpu_torch.generate as gen
+
+    dia = _graph_model(cuda_device, "float")
+    real = gen.step_function
+
+    def reading_step(params):
+        step = real(params)
+
+        def step_with_read(*args, **kwargs):
+            logits = step(*args, **kwargs)
+            logits[0, 0, 0, 0].item()
+            return logits
+
+        return step_with_read
+
+    monkeypatch.setattr(gen, "step_function", reading_step)
+    with pytest.raises(Exception):
+        _graph_run(dia, "float", None, max_tokens=80, temperature=0.0)
+    monkeypatch.setattr(gen, "step_function", real)
+    torch.cuda.synchronize()

@@ -208,10 +208,11 @@ def caller(torch, lib, pack, inp):
     scales = [inp[k] for k in ("self_ks", "self_vs", "cross_ks", "cross_vs")]
     ptrs = [t.data_ptr() for t in pack[:14]] + [
         t.data_ptr() for t in (x_in, inp["position"], inp["valid_from"], inp["cross_ends"],
-                               inv_freq, sk, inp["self_v"], inp["cross_k"], inp["cross_v"])]
+                               inp["write_slot"], inv_freq, sk, inp["self_v"], inp["cross_k"],
+                               inp["cross_v"])]
     ptrs += [0 if s is None else s.data_ptr() for s in scales]
     ptrs += [x.data_ptr(), kv.data_ptr(), work.data_ptr()]
-    tail = [L, B, D, F, Nq, Nkv, Ncq, H, T, S, int(inp["write_slot"]), _CACHE_CODES[sk.dtype],
+    tail = [L, B, D, F, Nq, Nkv, Ncq, H, T, S, _CACHE_CODES[sk.dtype],
             int(pack.mlp_int4), pack.mlp_tiles, work.numel(), 1e-5]
     out_dt = torch.float32 if sk.dtype == torch.int8 else sk.dtype
 
