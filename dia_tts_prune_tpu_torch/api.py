@@ -9,6 +9,7 @@ a WAV file into codec tokens (voice-cloning prompts, fine-tuning data);
 ``prune_block_sparse()`` / ``sparsify_block()`` swap the decoder to
 block-sparse kernels (pruned blocks are never read); ``generate_batch``
 decodes N texts in one loop;
+``generate_stream`` yields audio chunks while the decode loop goes on;
 ``load_adapter_weights`` / ``unload_adapter`` / ``set_adapter`` fuse a LoRA
 adapter into the weights and take it out again; ``save_pretrained`` writes a
 model directory both packages load.  Everything runs on ``device``, ``"cuda"``
@@ -19,7 +20,6 @@ raises — nothing moves to the CPU on its own.
 from __future__ import annotations
 
 import json
-import wave
 from pathlib import Path
 
 import numpy as np
@@ -37,7 +37,7 @@ from .models.dac import (
     pad_audio,
 )
 from .ops.quant import quantize_params_int4_packed, quantize_params_int8_packed
-from .utils.audio_io import load_audio_mono
+from .utils.audio_io import load_audio_mono, write_wav
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -60,15 +60,35 @@ def load_dac_config(spec) -> DACConfig | None:
     return DACConfig(**data)
 
 
-def write_wav(path: str | Path, audio: np.ndarray, sample_rate: int = DEFAULT_SAMPLE_RATE) -> None:
-    """Mono float audio → 16-bit PCM WAV, clipped to [-1, 1]."""
-    pcm = np.round(np.clip(np.asarray(audio, np.float32), -1.0, 1.0) * 32767.0).astype("<i2")
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    with wave.open(str(path), "wb") as f:
-        f.setnchannels(1)
-        f.setsampwidth(2)
-        f.setframerate(sample_rate)
-        f.writeframes(pcm.tobytes())
+def stream_decode_wav(dac_params, dac_config: DACConfig, code_chunks,
+                      overlap_frames: int = 32, lookahead_frames: int = 32):
+    """Decode an iterator of undelayed code chunks [t, C] to audio chunks
+    incrementally (the JAX ``stream_decode_wav``, api.py:56).  Each emitted
+    span is decoded with ``overlap_frames`` of left context (trimmed) and
+    holds back ``lookahead_frames`` of right context, so every sample has the
+    codec decoder's receptive field on both sides and the concatenated
+    stream equals the offline decode up to the convolutions' summation
+    order (their lengths differ).  Runs where ``dac_params`` lie."""
+    device = dac_params["decoder"]["stem"]["weight"].device
+    hop = dac_config.hop_length
+    codes_all = np.zeros((0, dac_config.n_codebooks), np.int32)
+    emitted = 0  # frames already emitted as audio
+
+    def decode_span(start: int, end: int) -> np.ndarray:
+        ctx_start = max(0, start - overlap_frames)
+        ctx = codes_all[ctx_start: min(codes_all.shape[0], end + lookahead_frames)]
+        codes = torch.from_numpy(np.ascontiguousarray(ctx)).to(device)[None]
+        wav = decode_codes(dac_params, dac_config, codes)[0].float().cpu().numpy()
+        return wav[(start - ctx_start) * hop: (end - ctx_start) * hop]
+
+    for new_codes in code_chunks:
+        codes_all = np.concatenate([codes_all, new_codes], axis=0)
+        emit_until = codes_all.shape[0] - lookahead_frames
+        if emit_until > emitted:
+            yield decode_span(emitted, emit_until).astype(np.float32)
+            emitted = emit_until
+    if codes_all.shape[0] > emitted:
+        yield decode_span(emitted, codes_all.shape[0]).astype(np.float32)
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -150,6 +170,10 @@ class Dia:
 
     def _decode_waveform(self, codes_TxC: np.ndarray) -> np.ndarray:
         self._require_dac()
+        with self.generator.lock:  # see DiaGenerator: one call's device work at a time
+            return self._decode_chunks(codes_TxC)
+
+    def _decode_chunks(self, codes_TxC: np.ndarray) -> np.ndarray:
         hop = self.dac_config.hop_length
         T = codes_TxC.shape[0]
         body, ov, la = self._DEC_BODY, self._DEC_OV, self._DEC_LA
@@ -193,6 +217,37 @@ class Dia:
         if codes.shape[0] == 0:
             return None
         return self._decode_waveform(codes)
+
+    def generate_stream(self, text: str, segment_steps: int = 128, overlap_frames: int = 32,
+                        lookahead_frames: int = 32, audio_prompt: str | np.ndarray | None = None,
+                        **kwargs):
+        """Yield audio chunks (float32) while generation goes on (the JAX
+        ``generate_stream``, api.py:392): ``DiaGenerator.
+        generate_tokens_stream`` in segments of ``segment_steps`` decode
+        steps, each segment's new frames decoded by ``stream_decode_wav``.
+        ``kwargs`` as ``generate_tokens_stream`` takes them.  A chunk's
+        segment and codec work hold the generator's lock; closing the
+        stream early releases what it held."""
+        self._require_dac()
+        if isinstance(audio_prompt, (str, Path)):
+            kwargs["audio_prompt_codes"] = self.load_audio(audio_prompt)
+        elif audio_prompt is not None:
+            kwargs["audio_prompt_codes"] = np.asarray(audio_prompt)
+        lock = self.generator.lock
+        codes = self.generator.generate_tokens_stream(text, segment_steps=segment_steps, **kwargs)
+        chunks = stream_decode_wav(self.dac_params, self.dac_config, codes,
+                                   overlap_frames=overlap_frames,
+                                   lookahead_frames=lookahead_frames)
+        try:
+            while True:
+                with lock:
+                    chunk = next(chunks, None)
+                if chunk is None:
+                    return
+                yield chunk
+        finally:
+            chunks.close()
+            codes.close()  # gives the stream's buffers back now, not when collected
 
     def generate_batch(self, texts: list[str], max_tokens: int | None = None,
                        cfg_scale: float = 3.0, temperature: float = 1.3, top_p: float = 0.95,
@@ -291,9 +346,10 @@ class Dia:
         self._require_dac()
         mono = load_audio_mono(audio_path, self.dac_config.sample_rate)
         mono = pad_audio(mono[None, :], self.dac_config.hop_length)
-        codes = encode_audio(self.dac_params, self.dac_config,
-                             torch.from_numpy(np.ascontiguousarray(mono)).to(self.device))
-        return codes[0].cpu().numpy()
+        with self.generator.lock:
+            codes = encode_audio(self.dac_params, self.dac_config,
+                                 torch.from_numpy(np.ascontiguousarray(mono)).to(self.device))
+            return codes[0].cpu().numpy()
 
     # ---- adapters ----------------------------------------------------
 

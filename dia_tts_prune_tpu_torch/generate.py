@@ -1,7 +1,8 @@
 """Autoregressive generation (counterpart of ``dia_tts_prune_tpu/generate.py``:
 single-stream ``generate_fused`` :460 / ``DiaGenerator.generate_tokens`` :865,
-and N streams at once, ``generate_fused_batch`` :546 /
-``generate_tokens_batch`` :1047).
+N streams at once, ``generate_fused_batch`` :546 / ``generate_tokens_batch``
+:1047, and streaming, ``prepare_stream`` :713 / ``decode_segment`` :769 /
+``generate_tokens_stream`` :944).
 
 Conditioning (encoder + cross K/V, trimmed to a 128-bucket of the text
 length) and the voice-prompt prefill run as one eager call each.  The decode
@@ -22,9 +23,14 @@ On the CPU (and on the card with ``loop="eager"``) the body runs one step at
 a time, reading ``stop`` back after each.  On the card the default
 ``loop="graph"`` captures ``GRAPH_STEPS`` consecutive steps into one CUDA
 graph and replays it until ``stop`` is set, one read-back a replay — the
-JAX package's one-dispatch loop, a replay at a time.  The buffers a graph
-reads (tokens, state, caches) are kept per key by the ``DiaGenerator``, so a
-second call of the same key replays without a new capture.
+JAX package's one-dispatch loop, a replay at a time.  One method runs an
+exact number of steps (``DecodeRun.run``, ``segment_plan``: 16-step
+replays, then replays of a one-step graph for the rest): a stream asks for
+one segment at a time, its state kept on the device between them; a whole
+call asks for the steps left to its cap, rounded up to whole replays.  The
+buffers a graph reads (tokens, state, caches) are kept per key by the
+``DiaGenerator``, so a second call of the same key replays without a new
+capture.
 
 With a packed decoder (``Dia.quantize_int8`` / ``quantize_int4``) the loop
 also keeps both caches int8 (``models.dia.QuantKVCache``), as the JAX package
@@ -52,6 +58,7 @@ step computes a row in an order that does not depend on the other rows.
 from __future__ import annotations
 
 import random
+import threading
 import time
 from collections import OrderedDict
 from typing import NamedTuple
@@ -200,6 +207,8 @@ def run_prefill(params, config: DiaConfig, tokens_buf: np.ndarray, prefill_windo
 # at 4-6 ms a Dia-1.6B step on the H100), so the one read-back of ``stop`` a
 # replay costs ~0.1% of it, while the at most 15 steps a replay runs past the
 # stop cost <= 3% of a 512-step call, and capture time grows with the steps.
+# A stream's segment ends on its exact step: its rest below 16 steps replays
+# a one-step graph.
 GRAPH_STEPS = 16
 # Eager steps of the loop, run as real steps on the capture stream, before the
 # first capture of a key: they build the kernels, cuBLAS's workspace of that
@@ -343,18 +352,24 @@ def loop_step(s: LoopState, step, params, config: DiaConfig, self_cache, cross_c
 
 
 class LoopBuffers:
-    """The tensors a decode loop runs on, and the CUDA graph captured over
+    """The tensors a decode loop runs on, and the CUDA graphs captured over
     them.  A generator keeps one per key (``DiaGenerator._buffers``): the
     first call's tensors stay, later calls copy their data in (``put``), so
-    that the graph captured by the first call replays on every later one.
+    that the graphs captured by the first call replay on every later one.
     A fresh one (the eager loop) keeps nothing: ``put`` hands values back."""
 
     def __init__(self, device: torch.device | None = None):
         self.held: dict = {}
         self.keep = device is not None
         self.stream = torch.cuda.Stream(device) if self.keep else None
-        self.graph = None
+        self.graph = None  # GRAPH_STEPS steps
+        self.step_graph = None  # one step: the rest of a segment (``segment_plan``)
         self.gens: list | None = None
+
+    @property
+    def captured(self) -> bool:
+        """A graph of this key was captured: its warm-up steps have run."""
+        return self.graph is not None or self.step_graph is not None
 
     def put(self, name: str, value):
         """``value`` (a tensor or a tuple of tensors) as this key's static
@@ -380,113 +395,174 @@ class LoopBuffers:
         return self.gens
 
 
-def _run_eager(state: LoopState, body, stats: GenerationStats) -> None:
-    while not bool(state.stop):
+def segment_plan(steps: int, captured: bool) -> tuple[int, int, int]:
+    """How the graph loop runs exactly ``steps`` steps: (eager warm-up steps,
+    replays of the ``GRAPH_STEPS`` graph, replays of the one-step graph).
+    A key that has captured neither graph yet warms up first.  Every step draws
+    from each stream's generator, so a segment that ran past its end would
+    shift a seeded stream's later draws: the rest below ``GRAPH_STEPS`` runs
+    one step a replay."""
+    warm = 0 if captured else min(WARMUP_STEPS, steps)
+    replays, singles = divmod(steps - warm, GRAPH_STEPS)
+    return warm, replays, singles
+
+
+def _run_eager(state: LoopState, body, stats: GenerationStats, steps: int) -> None:
+    """``steps`` steps from Python, fewer once ``stop`` is set: the eager
+    loop, and the graph loop's warm-up."""
+    n = 0
+    while n < steps and not bool(state.stop):
         body()
+        n += 1
         stats.host_steps += 1
 
 
-def _run_graphs(state: LoopState, body, buffers: LoopBuffers, stats: GenerationStats) -> None:
-    """The loop as CUDA graph replays on the buffers' stream: the first call
-    of a key runs ``WARMUP_STEPS`` real steps, then captures
-    ``GRAPH_STEPS`` consecutive steps into one graph (the generators
-    registered with it: their Philox offsets advance on replay as in eager
-    calls); every call replays it until ``stop`` is read back set, one read a
-    replay.  A capture that fails raises."""
+def _capture(body, buffers: LoopBuffers, stats: GenerationStats, steps: int):
+    """``steps`` consecutive steps captured into one graph on the buffers'
+    stream, the generators registered with it: their Philox offsets advance
+    on replay as in eager calls.  A capture that fails raises."""
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    for g in buffers.gens or ():
+        graph.register_generator_state(g)
+    with torch.cuda.graph(graph, stream=buffers.stream):
+        for _ in range(steps):
+            body()
+    graph.instantiate()
+    stats.capture_seconds += time.perf_counter() - t0
+    stats.captures += 1
+    stats.host_steps += steps
+    return graph
+
+
+def _replay(graph, stats: GenerationStats, events: list, steps: int) -> None:
+    ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    t0 = time.perf_counter()
+    graph.replay()
+    stats.replay_launch_seconds += time.perf_counter() - t0
+    ev[1].record()
+    events.append((ev, steps))
+
+
+def _run_graphs(state: LoopState, body, buffers: LoopBuffers, stats: GenerationStats,
+                steps: int) -> None:
+    """Exactly ``steps`` steps (``segment_plan``), fewer only once ``stop``
+    is set, as CUDA graph replays on the buffers' stream: one read-back of
+    ``stop`` a ``GRAPH_STEPS`` replay, none between one-step replays (steps
+    past the stop change nothing).  Each graph is captured on the first
+    call of its key that needs it."""
     s = buffers.stream
     s.wait_stream(torch.cuda.current_stream())
-    events = []
+    events: list = []
     with torch.cuda.stream(s):
-        if buffers.graph is None:
-            for _ in range(WARMUP_STEPS):
-                if bool(state.stop):
-                    break
-                body()
-                stats.host_steps += 1
-            if not bool(state.stop):
-                t0 = time.perf_counter()
-                graph = torch.cuda.CUDAGraph(keep_graph=True)
-                for g in buffers.gens or ():
-                    graph.register_generator_state(g)
-                with torch.cuda.graph(graph, stream=s):
-                    for _ in range(GRAPH_STEPS):
-                        body()
-                graph.instantiate()
-                buffers.graph = graph
-                stats.capture_seconds = time.perf_counter() - t0
-                stats.host_steps += GRAPH_STEPS
-        limit = -(-int(state.caps.max() - state.t) // GRAPH_STEPS)  # every cap reached by then
-        while not bool(state.stop):
-            if len(events) == limit:
-                raise RuntimeError("decode loop: the graph replays did not reach the stop")
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            t0 = time.perf_counter()
-            buffers.graph.replay()
-            stats.replay_launch_seconds += time.perf_counter() - t0
-            ev[1].record()
-            events.append(ev)
+        warm, replays, singles = segment_plan(steps, buffers.captured)
+        _run_eager(state, body, stats, warm)
+        if replays and buffers.graph is None and not bool(state.stop):
+            buffers.graph = _capture(body, buffers, stats, GRAPH_STEPS)
+        for _ in range(replays):
+            if bool(state.stop):
+                break
+            _replay(buffers.graph, stats, events, GRAPH_STEPS)
+        if singles and not bool(state.stop):
+            if buffers.step_graph is None:
+                buffers.step_graph = _capture(body, buffers, stats, 1)
+            for _ in range(singles):
+                _replay(buffers.step_graph, stats, events, 1)
     torch.cuda.current_stream().wait_stream(s)
+    if events:  # a segment's last replays were not waited for
+        events[-1][0][1].synchronize()
     stats.graph_steps = GRAPH_STEPS
-    stats.replays = len(events)
-    stats.replay_device_seconds = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    stats.replays += sum(n == GRAPH_STEPS for _, n in events)
+    stats.step_replays += sum(n == 1 for _, n in events)
+    stats.replay_device_seconds += sum(a.elapsed_time(b) for (a, b), _ in events) / 1e3
 
 
-@torch.no_grad()
-def run_decode_loop(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cross_cache,
-                    cross_ends, start: int, offsets: np.ndarray, caps: np.ndarray,
-                    sampling: Sampling, generators: list | None, compute_dtype, loop: str,
-                    buffers: LoopBuffers | None, stats: GenerationStats | None,
-                    clamp_window: bool) -> np.ndarray:
-    """The decode loop over N streams from row ``start`` (the JAX
-    ``_decode_loop_core``, :290, and ``generate_fused_batch``'s loop): the
-    state on the device (``new_loop_state``), ``loop_step`` as its body,
-    ``loop="eager"`` one step at a time (a read of ``stop`` a step),
-    ``"graph"`` replayed from CUDA graphs (the card only).  Fills
-    ``tokens_buf`` [N, T, C] in place and returns each stream's last
-    completed step."""
-    if loop not in LOOPS:
-        raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
-    dev = cross_ends.device
-    if loop == "graph" and dev.type != "cuda":
-        raise ValueError("loop='graph' needs CUDA tensors")
-    buffers = buffers or LoopBuffers()
-    stats = stats if stats is not None else GenerationStats()
-    state = buffers.put("state", new_loop_state(config, tokens_buf, start, offsets, caps, dev,
-                                                clamp_window))
-    step = step_function(params)
+class DecodeRun:
+    """A decode loop over N streams from row ``start`` (the JAX
+    ``_decode_loop_core``, :290, ``generate_fused_batch``'s loop and
+    ``decode_segment``, :769), resumable: its state on the device
+    (``new_loop_state``) and ``loop_step`` as its body, on the buffers'
+    tensors.  ``run(steps)`` runs a segment of exactly ``steps`` steps,
+    ``run()`` the rest to the stop (one runner for streams and whole calls;
+    ``finish`` reads a whole call back); ``loop="eager"`` one
+    step at a time (a read of ``stop`` a step), ``"graph"`` replayed from
+    CUDA graphs (the card only)."""
 
-    def body():
-        loop_step(state, step, params, config, self_cache, cross_cache, cross_ends, sampling,
-                  generators, compute_dtype)
+    def __init__(self, params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cross_cache,
+                 cross_ends, start: int, offsets: np.ndarray, caps: np.ndarray,
+                 sampling: Sampling, generators: list | None, compute_dtype, loop: str,
+                 buffers: LoopBuffers | None, stats: GenerationStats | None,
+                 clamp_window: bool):
+        if loop not in LOOPS:
+            raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
+        dev = cross_ends.device
+        if loop == "graph" and dev.type != "cuda":
+            raise ValueError("loop='graph' needs CUDA tensors")
+        self.loop, self.start = loop, start
+        self.buffers = buffers or LoopBuffers()
+        self.stats = stats if stats is not None else GenerationStats()
+        self.stats.loop = loop
+        self.state = state = self.buffers.put(
+            "state", new_loop_state(config, tokens_buf, start, offsets, caps, dev, clamp_window))
+        step = step_function(params)
 
-    stats.loop = loop
-    if loop == "eager":
-        _run_eager(state, body, stats)
-    else:
-        _run_graphs(state, body, buffers, stats)
-    tokens_buf[...] = state.tokens.cpu().numpy()
-    stats.decode_steps = int(state.t.item()) - start + 1
-    return state.final_step.cpu().numpy()
+        def body():
+            loop_step(state, step, params, config, self_cache, cross_cache, cross_ends, sampling,
+                      generators, compute_dtype)
+
+        self.body = body
+
+    def run(self, steps: int | None = None) -> None:
+        """Exactly ``steps`` steps further, fewer only once ``stop`` is set.
+        None: the steps left to the largest cap, which stop every stream; on
+        the graph loop rounded up to whole ``GRAPH_STEPS`` replays (the steps
+        past the stop change nothing, and no one-step graph is captured)."""
+        whole = steps is None
+        if whole:
+            steps = max(0, int(self.state.caps.max() - 1 - self.state.t))
+            if self.loop == "graph":
+                steps += -segment_plan(steps, self.buffers.captured)[2] % GRAPH_STEPS
+        if self.loop == "eager":
+            _run_eager(self.state, self.body, self.stats, steps)
+        else:
+            _run_graphs(self.state, self.body, self.buffers, self.stats, steps)
+        if whole and not bool(self.state.stop):
+            raise RuntimeError("decode loop: the last cap was reached with a stream not stopped")
+        self.stats.decode_steps = int(self.state.t.item()) - self.start + 1
+
+    def finish(self, tokens_buf: np.ndarray) -> np.ndarray:
+        """Run to the stop, copy the rows back into ``tokens_buf`` (host,
+        the shape given at the start) and return each stream's last
+        completed step."""
+        self.run()
+        tokens_buf[...] = self.state.tokens.cpu().numpy().reshape(tokens_buf.shape)
+        return self.state.final_step.cpu().numpy()
 
 
-@torch.no_grad()
-def decode_loop(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cross_cache,
-                cross_ends, prefill_step: int, max_tokens: int, cfg_scale: float,
-                temperature: float, top_p: float, cfg_filter_top_k: int,
-                generator: torch.Generator | None, compute_dtype, loop: str = "eager",
-                buffers: LoopBuffers | None = None, stats: GenerationStats | None = None) -> int:
-    """The single-stream decode loop (``generate_fused``'s, :460): stream
-    one of ``run_decode_loop`` from row ``prefill_step`` up to ``max_tokens``
-    rows.  Fills ``tokens_buf`` [T, C] in place and returns the last
-    completed step."""
-    final = run_decode_loop(
+def single_run(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cross_cache,
+               cross_ends, prefill_step: int, max_tokens: int, cfg_scale: float,
+               temperature: float, top_p: float, cfg_filter_top_k: int,
+               generator: torch.Generator | None, compute_dtype, loop: str = "eager",
+               buffers: LoopBuffers | None = None,
+               stats: GenerationStats | None = None) -> DecodeRun:
+    """The single-stream ``DecodeRun`` (``generate_fused``'s loop, :460, or
+    ``prepare_stream``'s state, :713): stream one from row ``prefill_step``
+    up to ``max_tokens`` rows of ``tokens_buf`` [T, C]."""
+    return DecodeRun(
         params, config, tokens_buf[None], self_cache, cross_cache, cross_ends, prefill_step,
         np.zeros(1, np.int64), np.asarray([max_tokens]),
         Sampling(cfg_scale, temperature, top_p, cfg_filter_top_k),
         None if generator is None else [generator], compute_dtype, loop, buffers, stats,
         clamp_window=True)
-    return int(final[0])
+
+
+@torch.no_grad()
+def decode_loop(params, config: DiaConfig, tokens_buf: np.ndarray, *args, **kwargs) -> int:
+    """``single_run``'s loop run to the stop in one call: fills
+    ``tokens_buf`` [T, C] in place and returns the last completed step."""
+    run = single_run(params, config, tokens_buf, *args, **kwargs)
+    return int(run.finish(tokens_buf)[0])
 
 
 @torch.no_grad()
@@ -504,10 +580,10 @@ def decode_loop_batch(params, config: DiaConfig, tokens_buf: np.ndarray, self_ca
     being written; its rows keep running until every stream has stopped or
     the longest cap is reached.  Fills ``tokens_buf`` [N, T, C] in place and
     returns each stream's last completed step."""
-    return run_decode_loop(
-        params, config, tokens_buf, self_cache, cross_cache, cross_ends, start, offsets, caps,
-        Sampling(cfg_scale, temperature, top_p, cfg_filter_top_k), generators, compute_dtype,
-        loop, buffers, stats, clamp_window=False)
+    return DecodeRun(params, config, tokens_buf, self_cache, cross_cache, cross_ends, start,
+                     offsets, caps, Sampling(cfg_scale, temperature, top_p, cfg_filter_top_k),
+                     generators, compute_dtype, loop, buffers, stats,
+                     clamp_window=False).finish(tokens_buf)
 
 
 def _undelay(generated: np.ndarray, config: DiaConfig) -> np.ndarray:
@@ -524,7 +600,14 @@ def _undelay(generated: np.ndarray, config: DiaConfig) -> np.ndarray:
 
 
 class DiaGenerator:
-    """Generation orchestrator (reference API: dia/model.py:631-846)."""
+    """Generation orchestrator (reference API: dia/model.py:631-846).
+
+    Safe to call from many threads: ``lock`` lets one call at a time do its
+    device work (the ``Dia`` around it takes it for codec work too).  A
+    kept key's buffers are shared by its calls, and a CUDA graph capture
+    fails if another thread works on the card meanwhile.  A stream takes
+    the lock for each segment and owns its key's buffers, out of the kept
+    ones, from its first segment until it ends or is closed."""
 
     def __init__(self, params, config: DiaConfig, compute_dtype: str = "float32",
                  device: str | torch.device = "cuda"):
@@ -533,6 +616,7 @@ class DiaGenerator:
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
         self._graphs: OrderedDict[tuple, LoopBuffers] = OrderedDict()
+        self.lock = threading.RLock()
         self.last_stats: GenerationStats | None = None  # the last call's, for callers that report
 
     def _loop(self, loop: str | None) -> str:
@@ -544,19 +628,78 @@ class DiaGenerator:
             raise ValueError("loop='graph' needs CUDA tensors")
         return loop
 
-    def _buffers(self, loop: str, key: tuple) -> LoopBuffers:
-        """The kept buffers (and graph) of ``key`` for the graph loop, the
+    def _buffers(self, loop: str, key: tuple, own: bool = False) -> LoopBuffers:
+        """The kept buffers (and graphs) of ``key`` for the graph loop, the
         ``GRAPH_CACHE`` most recently used kept; fresh ones for the eager
         loop.  The key holds every shape and constant a captured step
         depends on: streams, self-cache length, cross window, int8 caches,
-        the ``Sampling`` scalars, last (the params are the generator's own)."""
+        the ``Sampling`` scalars, last (the params are the generator's own).
+        ``own``: taken out of the kept ones until ``_release``."""
         if loop != "graph":
             return LoopBuffers()
         buffers = self._graphs.pop(key, None) or LoopBuffers(self.device)
+        if not own:
+            self._keep(key, buffers)
+        return buffers
+
+    def _keep(self, key: tuple, buffers: LoopBuffers) -> None:
         self._graphs[key] = buffers
         while len(self._graphs) > GRAPH_CACHE:
             self._graphs.popitem(last=False)
-        return buffers
+
+    def _release(self, key: tuple, buffers: LoopBuffers) -> None:
+        """Owned buffers back among the kept ones, unless a call of the key
+        made its own meanwhile."""
+        if buffers.keep and key not in self._graphs:
+            self._keep(key, buffers)
+
+    def _start(self, text: str, max_tokens: int, cfg_scale: float, temperature: float,
+               top_p: float, cfg_filter_top_k: int, audio_prompt_codes: np.ndarray | None,
+               audio_prompt_text: str | None, seed: int | None, cache_len: int | None,
+               kv_int8: bool | None, loop: str | None, own: bool):
+        """One stream up to its decode loop: conditioning and the voice-prompt
+        prefill.  Returns (the arguments of ``decode_loop`` / ``single_run``
+        for the loop from row ``prefill_step``, key, buffers)."""
+        cfg = self.config
+        d = cfg.data
+        dtype = DTYPES[self.compute_dtype]
+        if audio_prompt_codes is not None and not audio_prompt_text:
+            raise ValueError(
+                "`audio_prompt_text` is required when `audio_prompt_codes` is provided.")
+        effective_text = build_effective_text(text, audio_prompt_text)
+        enc_input = encode_cfg_batch(effective_text, d.text_length, d.text_pad_value)
+
+        delayed, prefill_step = prepare_audio_prompt(cfg, audio_prompt_codes)
+        tokens_buf = np.full((d.audio_length, d.channels), -1, dtype=np.int32)
+        tokens_buf[: delayed.shape[0]] = delayed
+        window = _bucket(prefill_step - 1, 128, d.audio_length) if prefill_step > 1 else None
+        cache_len = _cache_len_for(max_tokens if cache_len is None else cache_len,
+                                   window or 0, cfg)
+        loop = self._loop(loop)
+        cross_window = _cross_window_for(enc_input, cfg)
+        if kv_int8 is None:
+            kv_int8 = decoder_is_packed(self.params)
+        key = (1, cache_len, cross_window, kv_int8, Sampling(
+            cfg_scale, temperature, top_p, cfg_filter_top_k))
+        buffers = self._buffers(loop, key, own)
+        generator = None
+        if temperature != 0.0:
+            generator = buffers.generators(self.device, [_resolve_seed(seed)])[0]
+
+        stats = GenerationStats()
+        cross_cache, padding_mask, cross_ends = conditioning(
+            self.params, cfg, torch.from_numpy(enc_input).to(self.device), dtype, cross_window)
+        self_cache = buffers.put("self", new_self_cache(cfg, CFG_BATCH, cache_len, dtype,
+                                                        self.device, quant=kv_int8))
+        if window is not None:
+            run_prefill(self.params, cfg, tokens_buf[None], window, np.zeros(1, np.int64),
+                        np.asarray([prefill_step]), cross_cache, padding_mask, self_cache, dtype)
+        if kv_int8:  # prefill's flash attention reads the float cross cache
+            cross_cache = quantize_cache(cross_cache)
+        args = (self.params, cfg, tokens_buf, self_cache, buffers.put("cross", cross_cache),
+                buffers.put("ends", cross_ends), prefill_step, max_tokens, cfg_scale,
+                temperature, top_p, cfg_filter_top_k, generator, dtype, loop, buffers, stats)
+        return args, key, buffers
 
     @torch.no_grad()
     def generate_tokens(
@@ -584,52 +727,88 @@ class DiaGenerator:
         of that key; ``"eager"`` (the default on the CPU) steps from Python.
         Both run the same kernels in the same order (``loop_step``).  The
         call's ``GenerationStats`` land in ``last_stats``."""
-        cfg = self.config
-        d = cfg.data
-        dtype = DTYPES[self.compute_dtype]
-        if audio_prompt_codes is not None and not audio_prompt_text:
-            raise ValueError(
-                "`audio_prompt_text` is required when `audio_prompt_codes` is provided.")
-        effective_text = build_effective_text(text, audio_prompt_text)
-        enc_input = encode_cfg_batch(effective_text, d.text_length, d.text_pad_value)
+        d = self.config.data
         max_tokens = d.audio_length if max_tokens is None else min(max_tokens, d.audio_length)
-
-        delayed, prefill_step = prepare_audio_prompt(cfg, audio_prompt_codes)
-        tokens_buf = np.full((d.audio_length, d.channels), -1, dtype=np.int32)
-        tokens_buf[: delayed.shape[0]] = delayed
-        window = _bucket(prefill_step - 1, 128, d.audio_length) if prefill_step > 1 else None
-        cache_len = _cache_len_for(max_tokens if cache_len is None else cache_len,
-                                   window or 0, cfg)
-        loop = self._loop(loop)
-        cross_window = _cross_window_for(enc_input, cfg)
-        if kv_int8 is None:
-            kv_int8 = decoder_is_packed(self.params)
-        buffers = self._buffers(loop, (1, cache_len, cross_window, kv_int8, Sampling(
-            cfg_scale, temperature, top_p, cfg_filter_top_k)))
-        generator = None
-        if temperature != 0.0:
-            generator = buffers.generators(self.device, [_resolve_seed(seed)])[0]
-
-        stats = GenerationStats()
-        cross_cache, padding_mask, cross_ends = conditioning(
-            self.params, cfg, torch.from_numpy(enc_input).to(self.device), dtype, cross_window)
-        self_cache = buffers.put("self", new_self_cache(cfg, CFG_BATCH, cache_len, dtype,
-                                                        self.device, quant=kv_int8))
-        if window is not None:
-            run_prefill(self.params, cfg, tokens_buf[None], window, np.zeros(1, np.int64),
-                        np.asarray([prefill_step]), cross_cache, padding_mask, self_cache, dtype)
-        if kv_int8:  # prefill's flash attention reads the float cross cache
-            cross_cache = quantize_cache(cross_cache)
-        final_step = decode_loop(
-            self.params, cfg, tokens_buf, self_cache, buffers.put("cross", cross_cache),
-            buffers.put("ends", cross_ends), prefill_step, max_tokens, cfg_scale, temperature,
-            top_p, cfg_filter_top_k, generator, dtype, loop=loop, buffers=buffers, stats=stats)
-        self.last_stats = stats.finish(stats.decode_steps, prefill_step - 1)
+        with self.lock:
+            args, _, _ = self._start(
+                text, max_tokens, cfg_scale, temperature, top_p, cfg_filter_top_k,
+                audio_prompt_codes, audio_prompt_text, seed, cache_len, kv_int8, loop, own=False)
+            final_step = decode_loop(*args)
+            tokens_buf, prefill_step, stats = args[2], args[6], args[-1]
+            self.last_stats = stats.finish(stats.decode_steps, prefill_step - 1)
         if verbose:
             print(f"generate: {stats.decode_steps} steps in {stats.wall_seconds:.3f}s "
-                  f"({stats.tokens_per_second:.2f} tokens/s, {loop} loop)")
+                  f"({stats.tokens_per_second:.2f} tokens/s, {stats.loop} loop)")
 
-        return _undelay(tokens_buf[prefill_step: final_step + 1], cfg)  # (dia/model.py:831)
+        return _undelay(tokens_buf[prefill_step: final_step + 1], self.config)  # (model.py:831)
+
+    @torch.no_grad()
+    def generate_tokens_stream(
+        self,
+        text: str,
+        segment_steps: int = 128,
+        max_tokens: int | None = None,
+        cfg_scale: float = 3.0,
+        temperature: float = 1.3,
+        top_p: float = 0.95,
+        cfg_filter_top_k: int = 35,
+        audio_prompt_codes: np.ndarray | None = None,
+        audio_prompt_text: str | None = None,
+        seed: int | None = None,
+        cache_len: int | None = None,
+        kv_int8: bool | None = None,
+        loop: str | None = None,
+    ):
+        """Stream undelayed codec frames as generation goes on (the JAX
+        ``generate_tokens_stream``, generate.py:944): the decode loop runs in
+        segments of exactly ``segment_steps`` steps on one kept state
+        (``DecodeRun.run(steps)``), and after each the newly final frames
+        are yielded (a frame is final once every delayed row it gathers from
+        exists: the last ``max_delay`` rows stay pending).  The yields
+        concatenate to ``generate_tokens``'s codes for the same arguments bit
+        for bit, voice prompts and seeded sampling included.
+
+        Each segment is run, and its new rows read back, before the next is
+        started (the JAX package's ``DIA_STREAM_PIPELINE=0``): the device
+        waits while the caller handles a chunk, and no step runs that the
+        caller may not want.  The stream owns its key's buffers until it ends
+        or is closed, and takes ``lock`` for each segment only."""
+        if segment_steps < 1:
+            raise ValueError(f"segment_steps must be positive, got {segment_steps}")
+        d = self.config.data
+        max_tokens = d.audio_length if max_tokens is None else min(max_tokens, d.audio_length)
+        owned = None  # (key, buffers) while the stream holds them
+        try:
+            with self.lock:
+                args, *owned = self._start(
+                    text, max_tokens, cfg_scale, temperature, top_p, cfg_filter_top_k,
+                    audio_prompt_codes, audio_prompt_text, seed, cache_len, kv_int8, loop,
+                    own=True)
+                run = single_run(*args)
+            tokens_buf, prefill_step = args[2], args[6]
+            emitted, read_to, t = 0, prefill_step, prefill_step - 1
+            seg_end = prefill_step - 1
+            while True:
+                seg_end = min(seg_end + segment_steps, max_tokens - 1)
+                with self.lock:
+                    run.run(max(0, seg_end - t))
+                    final, t, stop = (int(v) for v in torch.cat(
+                        [run.state.final_step, run.state.t, run.state.stop.long()]).cpu())
+                    if final + 1 > read_to:  # the rows this segment completed
+                        tokens_buf[read_to: final + 1] = \
+                            run.state.tokens[0, read_to: final + 1].cpu().numpy()
+                        read_to = final + 1
+                    self.last_stats = run.stats.finish(run.stats.decode_steps, prefill_step - 1)
+                n_final = max(0, final + 1 - prefill_step - d.max_delay)
+                if n_final > emitted:
+                    yield _undelay(tokens_buf[prefill_step + emitted: final + 1], self.config)
+                    emitted = n_final
+                if stop or t >= max_tokens - 1:
+                    return
+        finally:
+            if owned:
+                with self.lock:
+                    self._release(*owned)
 
     @torch.no_grad()
     def generate_tokens_batch(
@@ -702,30 +881,32 @@ class DiaGenerator:
             seed_list = [_resolve_seed(s) for s in seeds]
         else:
             seed_list = [_resolve_seed(seed) for _ in range(N)]
-        loop = self._loop(loop)
-        if kv_int8 is None:
-            kv_int8 = decoder_is_packed(self.params)
-        self_len = _cache_len_for(cache_len or int(caps.max()), start, cfg)
-        cross_window = max(_cross_window_for(c, cfg) or d.text_length for c in conds)
-        buffers = self._buffers(loop, (N, self_len, cross_window, kv_int8, Sampling(
-            cfg_scale, temperature, top_p, cfg_filter_top_k)))
-        generators = None
-        if temperature != 0.0:
-            generators = buffers.generators(self.device, seed_list)
+        with self.lock:
+            loop = self._loop(loop)
+            if kv_int8 is None:
+                kv_int8 = decoder_is_packed(self.params)
+            self_len = _cache_len_for(cache_len or int(caps.max()), start, cfg)
+            cross_window = max(_cross_window_for(c, cfg) or d.text_length for c in conds)
+            buffers = self._buffers(loop, (N, self_len, cross_window, kv_int8, Sampling(
+                cfg_scale, temperature, top_p, cfg_filter_top_k)))
+            generators = None
+            if temperature != 0.0:
+                generators = buffers.generators(self.device, seed_list)
 
-        stats = GenerationStats()
-        cross_cache, padding_mask, cross_ends = conditioning_batch(
-            self.params, cfg, conds, dtype, self.device)
-        self_cache = buffers.put("self", new_self_cache(cfg, 2 * N, self_len, dtype, self.device,
-                                                        quant=kv_int8))
-        if window is not None:
-            run_prefill(self.params, cfg, tokens_buf, window, offsets, prefill_steps,
-                        cross_cache, padding_mask, self_cache, dtype)
-        if kv_int8:
-            cross_cache = quantize_cache(cross_cache)
-        final_steps = decode_loop_batch(
-            self.params, cfg, tokens_buf, self_cache, buffers.put("cross", cross_cache),
-            buffers.put("ends", cross_ends), start, offsets, caps, cfg_scale, temperature, top_p,
-            cfg_filter_top_k, generators, dtype, loop=loop, buffers=buffers, stats=stats)
-        self.last_stats = stats.finish(stats.decode_steps, start - 1)
+            stats = GenerationStats()
+            cross_cache, padding_mask, cross_ends = conditioning_batch(
+                self.params, cfg, conds, dtype, self.device)
+            self_cache = buffers.put("self", new_self_cache(cfg, 2 * N, self_len, dtype,
+                                                            self.device, quant=kv_int8))
+            if window is not None:
+                run_prefill(self.params, cfg, tokens_buf, window, offsets, prefill_steps,
+                            cross_cache, padding_mask, self_cache, dtype)
+            if kv_int8:
+                cross_cache = quantize_cache(cross_cache)
+            final_steps = decode_loop_batch(
+                self.params, cfg, tokens_buf, self_cache, buffers.put("cross", cross_cache),
+                buffers.put("ends", cross_ends), start, offsets, caps, cfg_scale, temperature,
+                top_p, cfg_filter_top_k, generators, dtype, loop=loop, buffers=buffers,
+                stats=stats)
+            self.last_stats = stats.finish(stats.decode_steps, start - 1)
         return [_undelay(tokens_buf[i, start: int(final_steps[i]) + 1], cfg) for i in range(N)]

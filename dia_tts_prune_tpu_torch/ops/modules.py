@@ -6,7 +6,8 @@ in the JAX layout:
 
 * ``dense_general`` contracts the trailing axes of ``x`` against the leading
   axes of a kernel stored ``in_shapes + out_features`` (reference:
-  dia/layers.py:35-66), one ``tensordot``; a packed kernel
+  dia/layers.py:35-66), one ``tensordot`` (on the card, up to 64 rows at
+  exactly 64: ``fixed_rows_matmul``); a packed kernel
   (``ops/quant.py``) goes to the int8-matmul or int4-GEMV kernel, a
   block-sparse one (``ops/sparse.py``) to the block-sparse matmul;
 * GQA attention reshapes queries to [B, T, Nkv, G, H] and contracts them
@@ -49,9 +50,28 @@ def dense_general(x: torch.Tensor, kernel, axis: tuple[int, ...] = (-1,)) -> tor
         return _dense_general_packed(x, kernel, axis)
     if isinstance(kernel, BlockSparseKernel):
         return _dense_general_sparse(x, kernel, axis)
+    n_in = len(axis)
     norm_axis = [ax if ax >= 0 else x.dim() + ax for ax in axis]
-    return torch.tensordot(x.to(kernel.dtype), kernel,
-                           dims=(norm_axis, list(range(len(norm_axis)))))
+    x = x.to(kernel.dtype)
+    lead = x.shape[: x.dim() - n_in]
+    if x.is_cuda and norm_axis == list(range(x.dim() - n_in, x.dim())) \
+            and math.prod(lead) <= MAX_ROWS:
+        K = math.prod(x.shape[x.dim() - n_in:])
+        y = fixed_rows_matmul(x.reshape(-1, K), kernel.reshape(K, -1))
+        return y.reshape(*lead, *kernel.shape[n_in:])
+    return torch.tensordot(x, kernel, dims=(norm_axis, list(range(n_in))))
+
+
+def fixed_rows_matmul(x2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """``x2 @ w2`` for up to ``MAX_ROWS`` rows (every float contraction of a
+    decode step), computed at exactly ``MAX_ROWS`` rows, the rest zeros.
+    cuBLAS picks its algorithm, and with it the order in which each output
+    sums, by the row count: at 2 rows against 4 it sums Dia-1.6B's logits
+    head (2048 x 9252) in another order, so a batched stream's logits left
+    its single-stream run's by a bf16 step.  At one row count a row's bits do
+    not depend on the rows beside it, for any batch of up to 32 streams."""
+    rows = x2.shape[0]
+    return (F.pad(x2, (0, 0, 0, MAX_ROWS - rows)) @ w2)[:rows]
 
 
 def _dense_general_packed(x: torch.Tensor, qk, axis: tuple[int, ...]) -> torch.Tensor:

@@ -1,11 +1,11 @@
-"""Host-side audio reading and resampling (counterpart of the reading half of
-``dia_tts_prune_tpu/utils/audio_io.py``).
+"""Host-side audio I/O (counterpart of ``dia_tts_prune_tpu/utils/audio_io.py``).
 
 The reference uses torchaudio + soundfile (dia/model.py:546-595).  Here WAV
-files are read with the stdlib ``wave`` module (8/16/24/32-bit PCM) and
-resampled with scipy's polyphase filter — host work, no kernel.  The JAX
-package's FLAC/mp3/ogg readers and its native helpers are not ported: any
-other format raises, naming WAV.  (Writing: ``api.write_wav``.)
+files are read and written with the stdlib ``wave`` module (8/16/24/32-bit
+PCM in, 16-bit PCM out), resampled with scipy's polyphase filter and sped up
+or slowed down by linear interpolation (``speed_change``) — host work, no
+kernel.  The JAX package's FLAC/mp3/ogg readers and writers and its native
+helpers are not ported: any other format raises, naming WAV.
 """
 
 from __future__ import annotations
@@ -17,6 +17,25 @@ from pathlib import Path
 import numpy as np
 
 DEFAULT_SAMPLE_RATE = 44100
+
+
+def write_wav(path: str | Path, audio: np.ndarray,
+              sample_rate: int = DEFAULT_SAMPLE_RATE) -> None:
+    """Mono or [C, T] float audio → 16-bit PCM WAV, clipped to [-1, 1]
+    (reference save path semantics: dia/model.py:578-595); integer samples
+    are scaled by their type's maximum first."""
+    audio = np.asarray(audio)
+    if audio.ndim == 1:
+        audio = audio[None, :]
+    if not np.issubdtype(audio.dtype, np.floating):
+        audio = audio.astype(np.float32) / np.iinfo(audio.dtype).max
+    pcm = np.round(np.clip(audio, -1.0, 1.0).T * 32767.0).astype("<i2")  # [T, C]
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(pcm.shape[1])
+        f.setsampwidth(2)
+        f.setframerate(sample_rate)
+        f.writeframes(pcm.tobytes())
 
 
 def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
@@ -78,3 +97,17 @@ def load_audio_mono(path: str | Path, target_sr: int = DEFAULT_SAMPLE_RATE) -> n
     dia/model.py:546-562)."""
     data, sr = read_audio(path)
     return resample(to_mono(data), sr, target_sr)
+
+
+def speed_change(audio: np.ndarray, speed_factor: float) -> np.ndarray:
+    """Linear-interpolation speed adjustment (reference: app.py:259-268):
+    ``speed_factor`` clamped to [0.1, 5], the length divided by it."""
+    speed_factor = max(0.1, min(speed_factor, 5.0))
+    if speed_factor == 1.0 or audio.size == 0:
+        return audio
+    n_out = int(audio.shape[-1] / speed_factor)
+    if n_out <= 0:
+        return audio
+    x_out = np.linspace(0, audio.shape[-1] - 1, n_out)
+    x_in = np.arange(audio.shape[-1])
+    return np.interp(x_out, x_in, audio).astype(np.float32)

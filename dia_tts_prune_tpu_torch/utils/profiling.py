@@ -56,7 +56,9 @@ class GenerationStats:
     loop: str = ""  # "eager" or "graph"
     host_steps: int = 0  # steps whose kernels the host launched: eager, and captured
     graph_steps: int = 0  # steps a captured CUDA graph holds
-    replays: int = 0
+    replays: int = 0  # of the graph_steps graph
+    step_replays: int = 0  # of the one-step graph (the rest of a stream's segment)
+    captures: int = 0
     capture_seconds: float = 0.0
     # CUDA events around each replay; the stream is empty when one is launched,
     # so this includes the device's wait for the launch (replay_launch_seconds)
@@ -84,8 +86,8 @@ class GenerationStats:
     @property
     def device_ms_per_replayed_step(self) -> float | None:
         """Device time of one step inside a replay (a replay runs
-        ``graph_steps`` steps, those past the stop included)."""
-        steps = self.replays * self.graph_steps
+        ``graph_steps`` steps, those past the stop included, or one)."""
+        steps = self.replays * self.graph_steps + self.step_replays
         return 1e3 * self.replay_device_seconds / steps if steps else None
 
     def as_dict(self) -> dict:
@@ -99,6 +101,8 @@ class GenerationStats:
             "host_steps": self.host_steps,
             "graph_steps": self.graph_steps,
             "replays": self.replays,
+            "step_replays": self.step_replays,
+            "captures": self.captures,
             "capture_seconds": round(self.capture_seconds, 4),
             "replay_launch_seconds": round(self.replay_launch_seconds, 4),
             "device_ms_per_replayed_step": self.device_ms_per_replayed_step,

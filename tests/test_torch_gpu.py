@@ -508,6 +508,29 @@ def test_rms_norm_rows_do_not_depend_on_the_batch(cuda_device, D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [((2048,), (9, 1028)), ((2048,), (2048,)), ((2048,), (512,)),
+                                   ((2048,), (2, 8192)), ((8192,), (2048,)), ((16, 128), (2048,))])
+def test_float_dense_rows_do_not_depend_on_the_batch(cuda_device, dtype, shape):
+    """A float decode-step contraction (``dense_general``, up to 64 rows)
+    gives a row the same bits whether the call holds 1, 2, 4, 8, 16 or 64
+    rows: the Dia-1.6B decode shapes, the logits head (2048 x 9 x 1028)
+    first, whose cuBLAS sums at 4 rows once differed from those at 2."""
+    from dia_tts_prune_tpu_torch.ops.modules import dense_general
+
+    k_in, k_out = shape
+    rng = np.random.default_rng(31)
+    kernel = _t(_normal(rng, k_in + k_out) / np.sqrt(np.prod(k_in))).to(cuda_device, dtype)
+    x = _t(_normal(rng, (64, 1, *k_in))).to(cuda_device, dtype)
+    axis = tuple(range(-len(k_in), 0))
+    full = dense_general(x, kernel, axis)
+    assert full.shape == (64, 1, *k_out)
+    for B in (1, 2, 4, 8, 16, 64):
+        for i in (0, 6, 64 - B):
+            assert torch.equal(dense_general(x[i:i + B], kernel, axis), full[i:i + B]), (B, i)
+
+
+@pytest.mark.gpu
 def test_batched_lanes_equal_single_stream_runs_op_for_op(cuda_device):
     """``chip_smoke.batch_lane_probe`` on the card: each of four batched
     streams of ``trained_small`` (bf16) equals its single-stream run in every
@@ -895,3 +918,100 @@ def test_host_read_inside_a_captured_step_raises(cuda_device, monkeypatch):
         _graph_run(dia, "float", None, max_tokens=80, temperature=0.0)
     monkeypatch.setattr(gen, "step_function", real)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# streaming segments and concurrent calls on the graph loop
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 1.3])
+def test_graph_stream_codes_equal_generate_tokens(cuda_device, temperature):
+    """Streamed segments run exactly their steps on the graph loop (16-step
+    replays, then one-step replays): the chunks concatenate to
+    ``generate_tokens``'s codes bit for bit, seeded draws included, at every
+    segment length, on a cold key and on a warm one."""
+    dia = _graph_model(cuda_device, "float")
+    gen = dia.generator
+    kw = dict(max_tokens=200, temperature=temperature, seed=3)
+    text = "[S1] The birch canoe slid. [S2]"
+    for segment_steps in (16, 20, 24, 128, 7):
+        gen._graphs.clear()  # a cold key first
+        captures = []
+        for _ in range(2):
+            chunks = list(gen.generate_tokens_stream(text, segment_steps=segment_steps, **kw))
+            stats = gen.last_stats
+            assert stats.loop == "graph" and stats.replays + stats.step_replays > 0
+            captures.append(stats.captures)
+            np.testing.assert_array_equal(np.concatenate(chunks),
+                                          gen.generate_tokens(text, **kw))
+        assert captures[0] > 0 and captures[1] == 0  # the stream gave its buffers back
+
+
+@pytest.mark.gpu
+def test_threads_on_one_key_get_their_solo_results_on_card(cuda_device):
+    """Threads that call one key at once (codes, a stream of that key, a
+    stream closed after its first chunk), then the server: each gets the
+    result it gets alone (``DiaGenerator.lock``; a stream owns its key's
+    buffers until it ends)."""
+    import json
+    import threading
+    import urllib.request
+
+    from dia_tts_prune_tpu_torch.app import make_server
+
+    dia = _graph_model(cuda_device, "float")
+    gen = dia.generator
+    text = "[S1] The birch canoe slid. [S2]"
+    kw = dict(max_tokens=120, temperature=1.3)
+    solo = {s: gen.generate_tokens(text, seed=s, **kw) for s in range(3)}
+    results, errors = {}, []
+
+    def call(i):
+        try:
+            if i < 3:
+                results[i] = gen.generate_tokens(text, seed=i, **kw)
+            elif i == 3:
+                results[i] = np.concatenate(list(gen.generate_tokens_stream(
+                    text, segment_steps=20, seed=0, **kw)))
+            else:
+                stream = gen.generate_tokens_stream(text, segment_steps=20, seed=1, **kw)
+                next(stream)
+                stream.close()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(5)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for i in range(3):
+        np.testing.assert_array_equal(results[i], solo[i])
+    np.testing.assert_array_equal(results[3], solo[0])
+    np.testing.assert_array_equal(gen.generate_tokens(text, seed=1, **kw), solo[1])
+
+    server = make_server(dia, host="127.0.0.1", port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/generate"
+    body = json.dumps({"text": text, "max_new_tokens": 120, "temperature": 1.3,
+                       "seed": 2}).encode()
+    out = {}
+
+    def post(i):
+        req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out[i] = r.read()
+
+    try:
+        clients = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert len(out) == 2 and out[0] == out[1] and out[0][:4] == b"RIFF"

@@ -90,6 +90,18 @@ def test_dense_general_and_mlp(rng):
            atol=1e-5)
 
 
+@pytest.mark.parametrize("rows", [1, 2, 7, 64])
+def test_fixed_rows_matmul_equals_jax_dense(rng, rows):
+    """The card's route for float contractions of up to 64 rows (computed
+    at 64 rows, the padding cut off) against the JAX contraction."""
+    x = rng.normal(size=(rows, 48)).astype(np.float32)
+    w = rng.normal(size=(48, 3, 20)).astype(np.float32)
+    out = tmod.fixed_rows_matmul(_t(x), _t(w).reshape(48, -1))
+    assert out.shape == (rows, 60)
+    _close(out.reshape(rows, 3, 20), jmod.dense_general(jnp.asarray(x), jnp.asarray(w)),
+           atol=1e-5)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_sdpa(rng, causal):
     B, T, Nq, Nkv, H = 2, 12, 4, 2, 16

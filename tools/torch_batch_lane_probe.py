@@ -3,8 +3,9 @@
 
 Builds ``chip_smoke.py``'s pruned full-width model (``dia_1_6b_config()`` in
 bf16 with the seed weights, ``prune_block_sparse(0.5, (256, 256),
-scope="module")``) and, for each named lane of the four texts of its
-``batched`` path, runs ``chip_smoke.batch_lane_probe``: the greedy batched run
+scope="module")``; with ``--float`` the float model, unpruned) and, for each
+named lane of the first ``--streams`` of the four texts of its ``batched``
+path, runs ``chip_smoke.batch_lane_probe``: the greedy batched run
 and the lane's single-stream run recorded op by op over the conditioning and
 the first decode steps, the lane's rows compared bit for bit.  Prints one JSON
 line per lane (the first differing op, its largest difference, every op that
@@ -17,7 +18,8 @@ name and power limit.
 directory), so the parent's and this tree's runs can share one call.
 
 Run on the card from the repository root:
-``python3 tools/torch_batch_lane_probe.py [--root _parent] [--lanes 2] [--frames]``.
+``python3 tools/torch_batch_lane_probe.py [--root _parent] [--float] [--streams 2]
+[--lanes 0 1] [--frames]``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ def main() -> int:
     ap.add_argument("--frames", action="store_true",
                     help="also compare every lane's codes with its single-stream run")
     ap.add_argument("--max-tokens", type=int, default=192)
+    ap.add_argument("--float", action="store_true", help="the float model, not pruned")
+    ap.add_argument("--streams", type=int, default=4, choices=(2, 3, 4))
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
     import chip_smoke  # noqa: E402  (the probe, the seed weights, the texts' settings)
@@ -57,13 +61,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dia_1_6b_config()
     dia = Dia(cfg, chip_smoke.seed_weights(torch, cfg), "bfloat16", device="cuda")
-    dia.prune_block_sparse(0.5, chip_smoke.SPARSE_BLOCK, scope="module")
-    texts = [chip_smoke.FULL_WIDTH_TEXT, *chip_smoke.BATCHED_TEXTS]
+    if not args.float:
+        dia.prune_block_sparse(0.5, chip_smoke.SPARSE_BLOCK, scope="module")
+    texts = [chip_smoke.FULL_WIDTH_TEXT, *chip_smoke.BATCHED_TEXTS][: args.streams]
     root = str(Path(dia_tts_prune_tpu_torch.__file__).resolve().parents[1])
     for lane in args.lanes:
         kw = {} if args.steps is None else {"steps": args.steps}
         rec = chip_smoke.batch_lane_probe(torch, dia, texts, lane, **kw)
-        print(json.dumps({"root": root, **rec}), flush=True)
+        print(json.dumps({"root": root, "float": args.float, "streams": len(texts), **rec}),
+              flush=True)
     if args.frames:
         kw = dict(max_tokens=args.max_tokens, temperature=0.0)
         batch = dia.generator.generate_tokens_batch(texts, **kw)
