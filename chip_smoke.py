@@ -102,7 +102,20 @@ script exits non-zero:
                that leaves after one chunk, then the same request again, equal
                to the first; one long-form ``/generate`` whose second batch is
                prompted with the first's audio through ``load_audio``;
-6. training  — teacher-forced fine-tuning at the same full width (bf16
+6. cbatch    — continuous batching at the same full width
+               (``cbatch.ContinuousBatcher``: 4 lanes, 64-step segments,
+               256 tokens, a 256-byte text window; a fresh batcher a group,
+               built inside its group's launch count, one capture each): six
+               requests in two waves (greedy and seeded lanes with their own
+               sampling values, a voice prompt, a shorter cap so that a
+               queued request swaps in mid-run), a cancelled lane whose slot
+               a queued request takes, the HTTP app with the batcher (two
+               ``/generate``, one ``/stream``), and two lanes after
+               ``quantize_int8()`` with int8 caches: every lane's codes
+               equal its solo graph-loop run bit for bit, the served PCM
+               equals the solo waveform, the ``/stream`` bytes the in-process
+               ``generate_stream``'s;
+7. training  — teacher-forced fine-tuning at the same full width (bf16
                compute, ``audio_length`` 3072, batch 2, every layer
                rematerialized): three LoRA steps, two full fine-tune steps
                (fp32 master weights and AdamW moments), one QAT-int8 step,
@@ -173,7 +186,7 @@ PCM_LSB_TOL = math.ceil(WAV_TOL * 32767)
 
 
 # after the build, in this order
-PHASES = ("kernels", "fixtures", "full_width", "serving", "training")
+PHASES = ("kernels", "fixtures", "full_width", "serving", "cbatch", "training")
 
 
 def emit(obj) -> None:
@@ -1239,6 +1252,9 @@ def phase_fused_kernels(torch, faults: dict) -> dict:
     return picked
 
 
+MIXED_ENDS = [1, 17, 300, 700, 1537, 2048, 3000, 3071]  # eight self rows, each its own end
+
+
 def phase_kernels(torch, faults: dict) -> dict:
     """Every kernel at the main paths' shapes; returns the bf16 record of
     each kernel's heaviest use for the final ``kernels`` line."""
@@ -1254,6 +1270,10 @@ def phase_kernels(torch, faults: dict) -> dict:
         decode_case(torch, "self_B8", dtype, 8, 3072, 16, 4, 128, [1537] * 8)
         decode_case(torch, "start_gt_0", dtype, 4, 1024, 16, 16, 128, [700, 1024, 61, 5],
                     starts=[100, 1000, 0, 5])
+        # four continuous-batching lanes, each on its own timeline: rows at mixed ends
+        mixed = decode_case(torch, "self_B8_mixed_ends", dtype, 8, 3072, 16, 4, 128, MIXED_ENDS)
+        mixed8 = decode_int8_case(torch, "self_int8_B8_mixed_ends", dtype, 8, 3072, 16, 4, 128,
+                                  MIXED_ENDS, True)
         for ends in ([0, 3071], [1537, 1537]):
             rec8 = decode_int8_case(torch, "self_int8", dtype, 2, 3072, 16, 4, 128, ends, True)
         decode_int8_case(torch, "self_int8_B8", dtype, 8, 3072, 16, 4, 128, [1537] * 8, True)
@@ -1297,6 +1317,7 @@ def phase_kernels(torch, faults: dict) -> dict:
         flash_train_case(torch, "h64", dtype, 2, 77, 77, 8, 2, 64, True, [77, 50], [77, 50],
                          time_it=False)
         picked = {"flash_attention": enc, "decode_attention": rec, "decode_attention_int8": rec8,
+                  "decode_attention_mixed_ends": mixed, "decode_attention_int8_mixed_ends": mixed8,
                   "int8_matmul": mlp8, "int4_gemv": mlp4, **train}
     picked["block_sparse_matmul"] = phase_sparse_kernels(torch)
     picked["fused_decode_step"] = phase_fused_kernels(torch, faults)
@@ -1704,8 +1725,8 @@ def step_and_loop_nodes(torch, dia, key, buffers) -> dict:
                          device=cache.k.device)
 
     def rest():  # the default generator: graph_ms registers no other
-        gen.loop_step(copy, lambda *a, **k: logits, dia.params, d, cache, cross, ends, key[-1],
-                      None, dtype)
+        gen.loop_step(copy, lambda *a, **k: logits, dia.params, d, cache, cross, ends,
+                      key[-1].cfg_filter_top_k, None, dtype)
 
     return {"decode_step_nodes": kernels_per_call(torch, one),
             "loop_nodes": kernels_per_call(torch, rest),
@@ -2459,6 +2480,259 @@ def phase_serving(torch) -> dict:
     return rec
 
 
+CB_TOKENS = 256  # the continuous batcher's max_tokens (its self-cache length)
+CB_PROMPT_FRAMES = 100  # the voice-prompted request's prompt: codes from a numpy seed
+# the cbatch phase's six requests: (text, max_tokens, temperature, top_p, cfg_scale, seed,
+# voice-prompted); the first four fill the four lanes, the last two queue behind them
+CB_REQUESTS = ((FULL_WIDTH_TEXT, CB_TOKENS, 0.0, 0.95, 3.0, 0, False),
+               (BATCHED_TEXTS[0], 96, 0.0, 0.95, 3.0, 1, False),  # the shorter cap
+               (BATCHED_TEXTS[1], CB_TOKENS, 1.3, 0.95, 3.0, 5, False),
+               (BATCHED_TEXTS[2], CB_TOKENS, 1.1, 0.9, 2.5, 9, True),
+               (BATCHED_TEXTS[1], CB_TOKENS, 0.0, 0.95, 3.0, 2, False),
+               (FULL_WIDTH_TEXT, CB_TOKENS, 0.9, 0.8, 4.0, 13, False))
+
+
+def phase_cbatch(torch) -> dict:
+    """Continuous batching at full width (``dia_1_6b_config()``, bf16, seed
+    weights, ``DACConfig()``): ``ContinuousBatcher(n_slots=4,
+    segment_steps=64, max_tokens=256, text_window=256)``, a fresh batcher a
+    group, each built inside its group's launch count (its warm-up and
+    capture are the decode steps the host issues; segments are replays).
+    (a) The six ``CB_REQUESTS`` in two waves, the second after the first
+    segment: three greedy, three seeded with their own temperature, top_p and
+    cfg_scale, one voice-prompted, one with a shorter cap so that a queued
+    request swaps in mid-run; each lane's codes equal its solo graph-loop
+    ``generate_tokens`` bit for bit.  (c) A running lane cancelled: the
+    queued request that takes its slot equals its solo run, as do the
+    others.  (d) The HTTP app with a batcher: two concurrent ``/generate``
+    whose PCM equals their solo waveforms, one ``/stream`` whose bytes equal
+    the in-process ``generate_stream``'s.  (b) After ``quantize_int8()``,
+    int8 KV caches: a greedy and a seeded lane equal their solo runs.  One
+    capture a batcher; flash and decode attention launched in each group,
+    ``int8_matmul`` in (b).  Recorded: capture seconds, device and host ms a
+    step with four live lanes, aggregate tokens/s, admission delay, request
+    latencies, occupancy, graph nodes a step, and beside them the same
+    width in lockstep (``generate_tokens_batch``, four streams) and one
+    stream alone."""
+    import threading
+
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia, dia_1_6b_config
+    from dia_tts_prune_tpu_torch.app import SAMPLE_RATE, _wav_bytes, _wav_stream_header, make_server
+    from dia_tts_prune_tpu_torch.cbatch import ContinuousBatcher
+    from dia_tts_prune_tpu_torch.generate import GRAPH_STEPS
+    from dia_tts_prune_tpu_torch.models.dac import DACConfig, init_dac_decoder_params
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    cfg = dia_1_6b_config()
+    dac_cfg = DACConfig()
+    dia = Dia(cfg, seed_weights(torch, cfg), "bfloat16",
+              dac_params=init_dac_decoder_params(dac_cfg, seed=1, device="cuda"),
+              dac_config=dac_cfg, device="cuda")
+    max_delay = cfg.data.max_delay
+    prompt = np.random.default_rng(3).integers(0, 1024, (CB_PROMPT_FRAMES, cfg.data.channels))
+    prompt_text = "[S1] A voice to follow, its codes from a seed."
+    shape = dict(n_slots=4, segment_steps=64, max_tokens=CB_TOKENS, text_window=256)
+    rec = {"phase": "cbatch", "config": "dia_1_6b_config() bf16, DACConfig(), seed weights; "
+           f"ContinuousBatcher({', '.join(f'{k}={v}' for k, v in shape.items())})"}
+
+    def kwargs(r):
+        text, mt, temp, top_p, cfg_scale, seed, prompted = r
+        return dict(max_tokens=mt, temperature=temp, top_p=top_p, cfg_scale=cfg_scale, seed=seed,
+                    audio_prompt_codes=prompt if prompted else None,
+                    audio_prompt_text=prompt_text if prompted else None)
+
+    def solo_codes(requests):
+        return [dia.generator.generate_tokens(r[0], **kwargs(r)) for r in requests]
+
+    def step_ms(stats):  # a graph-loop call's device and host ms a step
+        return {"device_ms_per_step": stats.device_ms_per_replayed_step,
+                "host_ms_per_step": 1e3 * stats.wall_seconds / stats.decode_steps}
+
+    def new_batcher(n_slots=4):
+        reset_launch_counts()
+        cb = ContinuousBatcher(dia, **{**shape, "n_slots": n_slots})
+        if cb.stats["captures"] != 1 or cb.loop != "graph":
+            raise RuntimeError(f"cbatch: a batcher captured {cb.stats['captures']} graphs "
+                               f"on the {cb.loop} loop")
+        return cb
+
+    def submit(cb, r, times):
+        t = time.perf_counter()
+        fut = cb.submit(r[0], **kwargs(r))
+        fut.add_done_callback(lambda f: times.append(time.perf_counter() - t))
+        return fut
+
+    def wait_segments(cb, n):
+        while cb.stats["segments"] < n:
+            time.sleep(0.005)
+
+    def report(group, cb, futs, solo, wall, need, **extra):
+        counts = launch_counts()
+        outs = [f.result() if not f.cancelled() else None for f in futs]
+        equal = [o is not None and np.array_equal(o, s) for o, s in zip(outs, solo)
+                 if s is not None]
+        log = [e for e in cb.segment_log if e[0] == cb.n_slots]
+        steps = sum(e[1] for e in log)
+        st = dict(cb.stats)
+        out = {"lanes_equal_solo": equal, "frames": [None if o is None else int(o.shape[0])
+                                                     for o in outs],
+               "captures": st["captures"], "capture_s": st["capture_seconds"],
+               "full_lanes_host_ms_per_step": 1e3 * sum(e[2] for e in log) / steps if steps
+               else None,
+               "full_lanes_device_ms_per_step": 1e3 * sum(e[3] for e in log) / steps if steps
+               else None,
+               "wall_s": wall,
+               "aggregate_tokens_per_s": sum(o.shape[0] + max_delay for o in outs
+                                             if o is not None) / wall,
+               "admission_wait_mean_s": st["admission_wait_s"] / max(1, st["admitted"]),
+               "admission_wait_max_s": st["admission_wait_max_s"],
+               "occupancy": st["lane_segments_occupied"] / max(1, st["lane_segments_capacity"]),
+               "batcher_stats": st, "launches": counts, **extra}
+        emit({"phase": "cbatch", "part": group, "record": out})
+        missing = [k for k in need if counts[k] <= 0]
+        if not all(equal) or missing or st["captures"] != 1 or st["replays"] <= 0:
+            raise RuntimeError(f"cbatch {group}: a lane differs from its solo run, a kernel "
+                               f"never launched ({missing}), or captures are off: {out}")
+        return out
+
+    attention = ("flash_attention", "decode_attention")
+    solo = solo_codes(CB_REQUESTS)
+    solo_codes(CB_REQUESTS[5:])  # again, from its kept graph: one seeded stream's step
+    solo_step = step_ms(dia.generator.last_stats)
+    # (a) six requests through four lanes, in two waves
+    cb = new_batcher()
+    times: list = []
+    t = time.perf_counter()
+    futs = [submit(cb, r, times) for r in CB_REQUESTS[:4]]
+    wait_segments(cb, 1)
+    futs += [submit(cb, r, times) for r in CB_REQUESTS[4:]]
+    for f in futs:
+        f.result(600)
+    rec["mixed"] = report("mixed", cb, futs, solo, time.perf_counter() - t, attention,
+                          latency_s=sorted(times))
+    rec["mixed"]["nodes_per_step"] = graph_nodes(torch, cb._buffers.graph) / GRAPH_STEPS
+    cb.shutdown()
+    # beside the lanes: the same width in lockstep (four streams of one call,
+    # the second call of its key) and one stream alone
+    texts = [r[0] for r in CB_REQUESTS[:4]]
+    for _ in range(2):
+        dia.generator.generate_tokens_batch(texts, max_tokens=CB_TOKENS, temperature=0.0)
+    rec["mixed"]["lockstep_4_streams"] = {
+        **step_ms(dia.generator.last_stats),
+        "nodes_per_step": graph_nodes(torch, next(reversed(
+            dia.generator._graphs.values())).graph) / GRAPH_STEPS}
+    rec["mixed"]["one_seeded_stream"] = solo_step
+    emit({"phase": "cbatch", "part": "mixed_beside", "record": {
+        k: rec["mixed"][k] for k in ("nodes_per_step", "lockstep_4_streams",
+                                     "one_seeded_stream")}})
+
+    # (c) a running lane cancelled; the queued request takes its slot
+    cb = new_batcher()
+    order = (0, 2, 4, 5, 1)  # four lanes, then the queued one
+    t = time.perf_counter()
+    futs = [submit(cb, CB_REQUESTS[i], []) for i in order]
+    wait_segments(cb, 1)
+    cancelled = cb.cancel(futs[2])
+    for i, f in enumerate(futs):
+        if i != 2:
+            f.result(600)
+    rec["cancel"] = report("cancel", cb, futs, [solo[i] if k != 2 else None
+                                               for k, i in enumerate(order)],
+                           time.perf_counter() - t, attention)
+    rec["cancel"]["cancel_returned"] = cancelled
+    if not cancelled or not futs[2].cancelled() or cb.stats["cancelled"] != 1:
+        raise RuntimeError(f"cbatch cancel: the running lane was not cancelled: {rec['cancel']}")
+    cb.shutdown()
+
+    # (d) the HTTP app: two concurrent /generate and one /stream
+    cb = new_batcher()
+    server = make_server(dia, "127.0.0.1", 0, batcher=cb)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+
+    def pcm16(wav):
+        return (np.clip(wav, -1, 1) * 32767).astype(np.int16)
+
+    def payload(i):
+        r = CB_REQUESTS[i]
+        return {"text": r[0], "max_new_tokens": r[1], "temperature": r[2], "top_p": r[3],
+                "cfg_scale": r[4], "seed": r[5], "chunk_size": 256}
+
+    try:
+        served = {}
+
+        def client(name, path, i):
+            served[name] = _post(port, path, payload(i))
+
+        t = time.perf_counter()
+        clients = [threading.Thread(target=client, args=args)
+                   for args in (("g1", "/generate", 1), ("g2", "/generate", 2),
+                                ("s0", "/stream", 0))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=900)
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        stats = dict(cb.stats)
+        r0 = CB_REQUESTS[0]
+        in_process = list(cb.generate_stream(r0[0], **{k: v for k, v in kwargs(r0).items()
+                                                       if not k.startswith("audio")}))
+        streamed = np.concatenate(in_process)
+        offline = {i: dia._decode_waveform(solo[i]) for i in (0, 1, 2)}
+        wav_err = (float(np.abs(streamed - offline[0]).max())
+                   if streamed.shape == offline[0].shape else None)
+        rec["http"] = {
+            "status": {k: v["status"] for k, v in served.items()},
+            "generate_pcm_equal_solo": [served[k]["body"] == _wav_bytes(SAMPLE_RATE,
+                                                                        pcm16(offline[i]))
+                                        for k, i in (("g1", 1), ("g2", 2))],
+            "stream_bytes_equal_in_process": served["s0"]["body"] == _wav_stream_header(
+                SAMPLE_RATE) + pcm16(streamed).tobytes(),
+            "stream_wav_max_abs_diff_offline": wav_err, "wav_tol": WAV_TOL,
+            "latency_s": {k: v["seconds"] for k, v in served.items()},
+            "stream_first_audio_s": served["s0"]["first_audio_s"], "wall_s": wall,
+            "batcher_stats": stats, "launches": counts}
+        emit({"phase": "cbatch", "part": "http", "record": rec["http"]})
+        h = rec["http"]
+        if any(v != 200 for v in h["status"].values()) or not all(h["generate_pcm_equal_solo"]) \
+                or not h["stream_bytes_equal_in_process"] or wav_err is None \
+                or wav_err > WAV_TOL or stats["captures"] != 1 \
+                or any(counts[k] <= 0 for k in attention):
+            raise RuntimeError(f"cbatch http: served audio differs or a kernel never "
+                               f"launched: {h}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        cb.shutdown()
+    del cb, server
+    torch.cuda.empty_cache()
+
+    # (b) int8 weights and KV caches: a greedy and a seeded lane
+    dia.quantize_int8()
+    pair = (CB_REQUESTS[0], CB_REQUESTS[2])
+    solo8 = solo_codes(pair)
+    cb = new_batcher(n_slots=2)
+    t = time.perf_counter()
+    futs = [submit(cb, r, []) for r in pair]
+    for f in futs:
+        f.result(600)
+    rec["int8"] = report("int8", cb, futs, solo8, time.perf_counter() - t,
+                         attention + ("int8_matmul",))
+    rec["int8"]["kv_int8"] = cb.kv_int8
+    cb.shutdown()
+    if not cb.kv_int8:
+        raise RuntimeError("cbatch int8: the batcher's caches are not int8")
+    rec["seconds"] = time.perf_counter() - t0
+    emit({k: v for k, v in rec.items() if k in ("phase", "config", "seconds")})
+    del dia, cb
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _decoder_kernels(params):
     """(dotted path, kernel) of every decoder kernel."""
     from dia_tts_prune_tpu_torch.prune import prunable_items
@@ -2753,6 +3027,9 @@ def main() -> int:
     if wanted("serving"):
         phase_serving(torch)
         lap("serving")
+    if wanted("cbatch"):
+        phase_cbatch(torch)
+        lap("cbatch")
     if wanted("training"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             training = phase_training(torch, Path(tmp))

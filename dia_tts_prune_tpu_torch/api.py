@@ -61,15 +61,19 @@ def load_dac_config(spec) -> DACConfig | None:
 
 
 def stream_decode_wav(dac_params, dac_config: DACConfig, code_chunks,
-                      overlap_frames: int = 32, lookahead_frames: int = 32):
+                      overlap_frames: int = 32, lookahead_frames: int = 32, lock=None):
     """Decode an iterator of undelayed code chunks [t, C] to audio chunks
     incrementally (the JAX ``stream_decode_wav``, api.py:56).  Each emitted
     span is decoded with ``overlap_frames`` of left context (trimmed) and
     holds back ``lookahead_frames`` of right context, so every sample has the
     codec decoder's receptive field on both sides and the concatenated
     stream equals the offline decode up to the convolutions' summation
-    order (their lengths differ).  Runs where ``dac_params`` lie."""
+    order (their lengths differ).  Runs where ``dac_params`` lie; ``lock``
+    (a generator's) is held for each decode, not while a chunk is awaited."""
+    import contextlib
+
     device = dac_params["decoder"]["stem"]["weight"].device
+    held = lock if lock is not None else contextlib.nullcontext()
     hop = dac_config.hop_length
     codes_all = np.zeros((0, dac_config.n_codebooks), np.int32)
     emitted = 0  # frames already emitted as audio
@@ -77,8 +81,9 @@ def stream_decode_wav(dac_params, dac_config: DACConfig, code_chunks,
     def decode_span(start: int, end: int) -> np.ndarray:
         ctx_start = max(0, start - overlap_frames)
         ctx = codes_all[ctx_start: min(codes_all.shape[0], end + lookahead_frames)]
-        codes = torch.from_numpy(np.ascontiguousarray(ctx)).to(device)[None]
-        wav = decode_codes(dac_params, dac_config, codes)[0].float().cpu().numpy()
+        with held:
+            codes = torch.from_numpy(np.ascontiguousarray(ctx)).to(device)[None]
+            wav = decode_codes(dac_params, dac_config, codes)[0].float().cpu().numpy()
         return wav[(start - ctx_start) * hop: (end - ctx_start) * hop]
 
     for new_codes in code_chunks:

@@ -8,15 +8,15 @@ become the next batch's voice prompt, :221-226), per-batch max-token scaling
 (:216-218), speed-factor resampling (:259-268), optional int8 weights.
 
 Run on the card: ``python -m dia_tts_prune_tpu_torch.app --model-path DIR
-[--dynamic-batch] [--quantize-int8] [--port 7860]`` (``--device cpu`` runs on
-the CPU).  The API:
+[--dynamic-batch | --continuous-batch] [--quantize-int8] [--port 7860]``
+(``--device cpu`` runs on the CPU).  The API:
 
 * ``POST /generate`` {"text", "max_new_tokens", "cfg_scale", "temperature",
   "top_p", "cfg_filter_top_k", "speed_factor", "chunk_size", "seed",
   "audio_prompt", "audio_prompt_text"} → a WAV file;
 * ``POST /stream`` (the same keys but the chunking ones) → a live WAV:
   header, then 16-bit PCM as each decode segment's audio is ready;
-* ``GET /health``, ``GET /stats`` (the dynamic batcher's counters).
+* ``GET /health``, ``GET /stats`` (the batcher's counters).
 
 Only the stdlib HTTP API is served: the JAX package's Gradio UI needs
 ``gradio``, which this package does not depend on.  A ``Dia`` serves
@@ -225,11 +225,14 @@ def make_server(dia, host: str = "0.0.0.0", port: int = 7860, batcher=None):
     """The JSON → WAV server: POST /generate and /stream, GET /health and
     /stats.  Each request runs in its own thread.
 
-    With ``batcher`` (``serving.DynamicBatcher``), single-chunk requests
-    from concurrent clients are coalesced into one batched decode loop;
-    multi-chunk long-form requests keep the rolling-prompt pipeline
-    (``run_inference``), and ``/stream`` generates on its own, since a
-    dynamic batch's streams end together."""
+    With ``batcher``, single-chunk ``/generate`` requests from concurrent
+    clients go to ``batcher.generate``: a ``serving.DynamicBatcher``
+    coalesces them into one batched decode loop, a
+    ``cbatch.ContinuousBatcher`` gives each a resident lane.  Multi-chunk
+    long-form requests keep the rolling-prompt pipeline (``run_inference``).
+    ``/stream`` goes to ``batcher.generate_stream`` where the batcher has one
+    (a continuous batcher's lane streams as it decodes); with a dynamic
+    batcher, whose streams end together, it generates on its own."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     class Handler(BaseHTTPRequestHandler):
@@ -254,7 +257,7 @@ def make_server(dia, host: str = "0.0.0.0", port: int = 7860, batcher=None):
             if self.path == "/health":
                 body = {"status": "ok"}
             elif self.path == "/stats" and batcher is not None:
-                body = batcher.stats
+                body = dict(batcher.stats)
             else:
                 self.send_error(404)
                 return
@@ -268,7 +271,8 @@ def make_server(dia, host: str = "0.0.0.0", port: int = 7860, batcher=None):
             gets a JSON error status."""
             try:
                 req = self._request()
-                chunks = dia.generate_stream(
+                streamer = getattr(batcher, "generate_stream", dia.generate_stream)
+                chunks = streamer(
                     req.get("text", ""),
                     max_tokens=int(req.get("max_new_tokens", 1024)),
                     cfg_scale=float(req.get("cfg_scale", 3.0)),
@@ -357,7 +361,7 @@ def serve_http(dia, host: str = "0.0.0.0", port: int = 7860, batcher=None) -> No
     import threading
 
     server = make_server(dia, host, port, batcher=batcher)
-    mode = "serial" if batcher is None else "dynamic-batched"
+    mode = "serial" if batcher is None else type(batcher).__name__
     print(f"Serving Dia TTS API on http://{host}:{server.server_address[1]} "
           f"(POST /generate, POST /stream, {mode})", flush=True)
 
@@ -397,7 +401,21 @@ def main(argv=None) -> int:
                         help="most requests in one batched decode loop")
     parser.add_argument("--batch-wait-ms", type=float, default=50.0,
                         help="longest wait for companions of a request")
+    parser.add_argument("--continuous-batch", action="store_true",
+                        help="resident decode lanes: a request joins the running batch at the "
+                             "next segment boundary, and /stream streams from its lane")
+    parser.add_argument("--cb-slots", type=int, default=4,
+                        help="resident decode lanes for --continuous-batch")
+    parser.add_argument("--cb-segment-steps", type=int, default=64,
+                        help="decode steps between admissions (a multiple of 16 on the card)")
+    parser.add_argument("--cb-max-tokens", type=int, default=1024,
+                        help="per-request token cap (sets the self-cache length)")
+    parser.add_argument("--cb-text-window", type=int, default=256,
+                        help="cross-attention text window (encoded bytes) of every lane; a "
+                             "longer request gets a 400")
     args = parser.parse_args(argv)
+    if args.dynamic_batch and args.continuous_batch:
+        parser.error("--dynamic-batch and --continuous-batch exclude each other")
 
     from .api import Dia
 
@@ -406,7 +424,14 @@ def main(argv=None) -> int:
     if args.quantize_int8:
         dia.quantize_int8()
     batcher = None
-    if args.dynamic_batch:
+    if args.continuous_batch:
+        from .cbatch import ContinuousBatcher
+
+        batcher = ContinuousBatcher(dia, n_slots=args.cb_slots,
+                                    segment_steps=args.cb_segment_steps,
+                                    max_tokens=args.cb_max_tokens,
+                                    text_window=args.cb_text_window)
+    elif args.dynamic_batch:
         from .serving import DynamicBatcher
 
         batcher = DynamicBatcher(dia, max_batch=args.max_batch, max_wait_ms=args.batch_wait_ms)

@@ -220,7 +220,8 @@ LOOPS = ("eager", "graph")
 
 
 class Sampling(NamedTuple):
-    """The sampling scalars of a call: constants of its captured graph."""
+    """The sampling scalars of a call (its graph key's last entry): the
+    values of its streams' ``LoopState`` sampling fields, and the top-k."""
 
     cfg_scale: float
     temperature: float
@@ -230,10 +231,16 @@ class Sampling(NamedTuple):
 
 class LoopState(NamedTuple):
     """The decode loop's carry, on the device (the JAX ``state.py::
-    DecodeLoopState``, :52, and ``generate.py::BatchLoopState``, :522, for
-    N streams; one stream is N = 1).  The loop body updates it in place, so a
-    CUDA graph that captured steps replays them on the same tensors.  The
-    last five fields are the call's constants."""
+    DecodeLoopState``, :52, ``generate.py::BatchLoopState``, :522, for
+    N streams, and ``cbatch.py::CBState``, :78, for N lanes on their own
+    timelines; one stream is N = 1).  The loop body updates it in place, so
+    a CUDA graph that captured steps replays them on the same tensors.
+
+    ``t`` and ``start`` are [1] when the streams run in lockstep (one call's
+    streams: every prompt ends on row ``start - 1``) and [N] when each
+    stream has its own timeline (``cbatch.ContinuousBatcher``'s lanes).  The
+    fields from ``caps`` on are constants of a stream: a call's for its
+    whole run, a lane's from its admission (``cbatch.swap_in``)."""
 
     tokens: torch.Tensor         # int32 [N, T, C] delayed rows (template, -1 beyond)
     prev_tok: torch.Tensor       # int32 [N, C]: each stream's last written row (its next input)
@@ -242,22 +249,28 @@ class LoopState(NamedTuple):
     eos_countdown: torch.Tensor  # int32 [N] (-1 inactive)
     stopped: torch.Tensor        # bool [N]
     final_step: torch.Tensor     # int64 [N]: each stream's last completed step
-    t: torch.Tensor              # int64 [1]: the step run last (the row it wrote)
+    t: torch.Tensor              # int64 [1] or [N]: the step run last (the row it wrote)
     stop: torch.Tensor           # bool [1]: every stream stopped; a step then changes nothing
-    start: torch.Tensor          # int64 [1]: the first loop row (every prompt ends on start - 1)
+    start: torch.Tensor          # int64 [1] or [N]: the first loop row
     caps: torch.Tensor           # int64 [N]: each stream's total-row cap
     offsets2: torch.Tensor       # int64 [2N]: the CFG rows' RoPE offsets ([uncond × N; cond × N])
     valid_from: torch.Tensor     # int32 [2N]: the rows' first valid self-cache slots
     delay: torch.Tensor          # int32 [C]: the delay pattern
+    cfg_scale: torch.Tensor      # fp32 [N]
+    temperature: torch.Tensor    # fp32 [N] (a greedy stream's is not read)
+    top_p: torch.Tensor          # fp32 [N]
+    greedy: torch.Tensor         # bool [N]: argmax, the sampler's draw discarded
 
 
 def new_loop_state(config: DiaConfig, tokens_buf: np.ndarray, start: int, offsets: np.ndarray,
-                   caps: np.ndarray, device, clamp_window: bool) -> LoopState:
+                   caps: np.ndarray, device, clamp_window: bool,
+                   sampling: Sampling) -> LoopState:
     """The state entering the loop at row ``start`` (host numbers, moved to
-    the device once per call).  ``clamp_window``: the single-stream
-    ``_loop_entry_carries`` (:279), whose ``dynamic_slice`` clamps the
-    template window's start to ``T - max_delay``; else the batched loop's
-    plain slice (:702), which ends at the buffer's end."""
+    the device once per call), every stream with ``sampling``'s values.
+    ``clamp_window``: the single-stream ``_loop_entry_carries`` (:279), whose
+    ``dynamic_slice`` clamps the template window's start to
+    ``T - max_delay``; else the batched loop's plain slice (:702), which
+    ends at the buffer's end."""
     d = config.data
     N, T, C = tokens_buf.shape
     w0 = min(start, T - d.max_delay) if clamp_window else start
@@ -266,6 +279,9 @@ def new_loop_state(config: DiaConfig, tokens_buf: np.ndarray, start: int, offset
 
     def dev(a, dtype):  # a copy: no field may share memory with tokens_buf or another
         return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+    def per_stream(value, dtype=torch.float32):
+        return torch.full((N,), value, dtype=dtype, device=device)
 
     return LoopState(
         tokens=dev(tokens_buf, torch.int32),
@@ -281,41 +297,69 @@ def new_loop_state(config: DiaConfig, tokens_buf: np.ndarray, start: int, offset
         caps=dev(caps, torch.int64),
         offsets2=dev(np.concatenate([off, off]), torch.int64),
         valid_from=dev(np.concatenate([off, off]), torch.int32),
-        delay=dev(np.asarray(d.delay_pattern), torch.int32))
+        delay=dev(np.asarray(d.delay_pattern), torch.int32),
+        cfg_scale=per_stream(sampling.cfg_scale),
+        temperature=per_stream(sampling.temperature),
+        top_p=per_stream(sampling.top_p),
+        greedy=per_stream(sampling.temperature == 0.0, torch.bool))
+
+
+def sample_streams(guided: torch.Tensor, s: LoopState, top_k: int,
+                   generators: list | None) -> torch.Tensor:
+    """Each stream's next tokens [N, C] from its guided logits [N, C, V] and
+    its ``LoopState`` sampling fields, with no host read (the JAX
+    ``cb_segment``'s sampling, cbatch.py:302-311).  Without generators every
+    stream is greedy (argmax).  Otherwise every stream runs the sampler on
+    its own generator, with its temperature as a device tensor (the one form
+    of ``ops.sampling``), and a greedy stream takes the argmax, its draw run
+    at temperature 1 and discarded."""
+    argmax = torch.argmax(guided, dim=-1)
+    if generators is None:
+        return argmax
+    temperature = torch.where(s.greedy, 1.0, s.temperature)
+    sampled = torch.stack([
+        sample_next_token(guided[i], temperature[i], s.top_p[i], top_k, generator=generators[i])
+        for i in range(guided.shape[0])])
+    return torch.where(s.greedy[:, None], argmax, sampled)
 
 
 def loop_step(s: LoopState, step, params, config: DiaConfig, self_cache, cross_cache,
-              cross_ends, sampling: Sampling, generators: list | None, compute_dtype) -> None:
+              cross_ends, top_k: int, generators: list | None, compute_dtype) -> None:
     """One step of the decode loop, in place on ``s`` and the self cache, all
     on the device: no host read, so a CUDA graph can hold it.  The JAX loop
     bodies (``_make_loop_body``, :207-276; ``generate_fused_batch``'s,
-    :625-698) in their order: the step at row ``t = s.t + 1`` (RoPE position
-    ``t - offset``, K/V slot ``t - 1``), CFG, the constraint bans, one
-    sampling call per stream with that stream's generator, the EOS state
-    machine (reference: dia/model.py:771-797), the BOS-window masked write
-    (:790-792), the per-stream stop and the near-max trigger (:800-804).
+    :625-698; ``cb_segment``'s, cbatch.py:284-379) in their order: the step
+    at row ``t = s.t + 1`` (RoPE position ``t - offset``, K/V slot
+    ``t - 1``), CFG, the constraint bans, one sampling call per stream with
+    that stream's generator, the EOS state machine (reference:
+    dia/model.py:771-797), the BOS-window masked write (:790-792), the
+    per-stream stop and the near-max trigger (:800-804).
     A stopped stream is still stepped and sampled but never written, and
-    keeps its last token as input (its rows touch no other row's numbers).
-    Once ``s.stop`` is set a step changes nothing that is read later: every
-    field keeps its value, the tokens row is rewritten with itself, the K/V
-    slot (clamped into the cache) is past every stream's last step."""
+    keeps its last token as input (its rows touch no other row's numbers);
+    on its own timeline it also keeps its ``t``, so that its steps re-run
+    one row and its K/V commit stays in its own last slot.  With ``t`` [N]
+    the step gets one write slot a row, with ``t`` [1] one for every row
+    (which the fused step needs); the tokens are written a row a stream
+    either way.  Once ``s.stop`` is set a step
+    changes nothing that is read later: every field keeps its value, the
+    tokens rows are rewritten with themselves, the K/V slots (clamped into
+    the cache) are past every stream's last step."""
     d = config.data
     max_delay, eos, pad = d.max_delay, d.audio_eos_value, d.audio_pad_value
     N, T = s.tokens.shape[:2]
+    lanes = s.t.shape[0] != 1  # each stream on its own timeline
     halt = s.stop
-    t = s.t + 1
+    t = s.t + 1  # [1] or [N]
+    t2 = torch.cat([t, t]) if lanes else t  # the CFG rows' steps
     tgt = torch.cat([s.prev_tok, s.prev_tok])[:, None]  # [2N, 1, C]: the CFG pair per stream
-    position = (t - s.offsets2)[:, None]  # [2N, 1] row-local RoPE positions
-    slot = (t - 1).clamp(0, self_cache.k.shape[2] - 1)
+    position = (t2 - s.offsets2)[:, None]  # [2N, 1] row-local RoPE positions
+    slot = (t2 - 1).clamp(0, self_cache.k.shape[2] - 1)
     logits = step(params, config, tgt, position, slot, self_cache, cross_cache, cross_ends,
                   compute_dtype, valid_from=s.valid_from)  # [2N, 1, C, V]
-    guided = apply_constraints(cfg_combine(logits[:, 0].unflatten(0, (2, N)), sampling.cfg_scale),
+    guided = apply_constraints(cfg_combine(logits[:, 0].unflatten(0, (2, N)),
+                                           s.cfg_scale[:, None, None]),
                                eos, pad, d.audio_bos_value)  # [N, C, V]
-    pred = torch.stack([
-        sample_next_token(guided[i], sampling.temperature, sampling.top_p,
-                          sampling.cfg_filter_top_k,
-                          generator=None if generators is None else generators[i])
-        for i in range(N)]).to(torch.int32)  # [N, C]
+    pred = sample_streams(guided, s, top_k, generators).to(torch.int32)  # [N, C]
 
     newly_eos = ~s.eos_detected & (pred[:, 0] == eos)
     eos_detected = s.eos_detected | newly_eos
@@ -326,15 +370,15 @@ def loop_step(s: LoopState, step, params, config: DiaConfig, self_cache, cross_c
                        torch.where(active & (step_after > s.delay) & (pred != eos), pad, pred))
     countdown = torch.where(countdown > 0, countdown - 1, countdown)
 
-    # every prompt ends on row start - 1: the write-protected window is the
-    # first max_delay - 1 steps for all, and row is the template at t
-    k = t - s.start
+    # each prompt ends on row start - 1: the write-protected window is a
+    # stream's first max_delay - 1 steps, and row is the template at t
+    k = (t - s.start)[:, None]
     row = torch.where(k < max_delay, s.bos_rows[:, 0], -1)
     write = torch.where((k < max_delay - 1) & (row != -1), row, pred)
-    at = t.clamp(max=T - 1)
+    rows, at = torch.arange(N, device=t.device), t.expand(N).clamp(max=T - 1)
     live = ~(s.stopped | halt)[:, None]
-    kept = s.tokens.index_select(1, at)[:, 0]
-    s.tokens.index_copy_(1, at, torch.where(live, write, kept)[:, None])
+    kept = s.tokens[rows, at]  # one row a stream, at its t
+    s.tokens.index_put_((rows, at), torch.where(live, write, kept))
 
     stop_now = (countdown == 0) & ~s.stopped
     hit_cap = (t >= s.caps - 1) & ~s.stopped & ~stop_now
@@ -345,7 +389,9 @@ def loop_step(s: LoopState, step, params, config: DiaConfig, self_cache, cross_c
                bos_rows=torch.roll(s.bos_rows, -1, dims=1),
                eos_detected=eos_detected | near_max,
                eos_countdown=torch.where(near_max, max_delay, countdown),
-               stopped=stopped, final_step=final_step, t=t, stop=stopped.all().reshape(1))
+               stopped=stopped, final_step=final_step,
+               t=torch.where(s.stopped, s.t, t) if lanes else t,
+               stop=stopped.all().reshape(1))
     for name, value in new.items():
         held = getattr(s, name)
         held.copy_(torch.where(halt, held, value))
@@ -504,12 +550,13 @@ class DecodeRun:
         self.stats = stats if stats is not None else GenerationStats()
         self.stats.loop = loop
         self.state = state = self.buffers.put(
-            "state", new_loop_state(config, tokens_buf, start, offsets, caps, dev, clamp_window))
+            "state", new_loop_state(config, tokens_buf, start, offsets, caps, dev, clamp_window,
+                                    sampling))
         step = step_function(params)
 
         def body():
-            loop_step(state, step, params, config, self_cache, cross_cache, cross_ends, sampling,
-                      generators, compute_dtype)
+            loop_step(state, step, params, config, self_cache, cross_cache, cross_ends,
+                      sampling.cfg_filter_top_k, generators, compute_dtype)
 
         self.body = body
 

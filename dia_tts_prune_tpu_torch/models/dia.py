@@ -388,22 +388,41 @@ def decoder_prefill(
     return dense_general(x, params["decoder"]["logits_dense"]["kernel"]).float()
 
 
-def _commit(cache: KVCache | QuantKVCache, layer: int | None, slot: torch.Tensor,
+def _commit(cache: KVCache | QuantKVCache, layer: int | None, flat_slots: torch.Tensor,
             k: torch.Tensor, v: torch.Tensor) -> None:
     """This token's K/V [B, Nkv, H] (``layer`` None: [L, B, Nkv, H], every
-    layer) into cache slot ``slot`` (int64 [1], on the device), in place and
-    quantized for an int8 cache.  ``index_copy_`` along the slot axis takes
-    the slot from device memory, so a captured CUDA graph's replays write
-    each step's own slot."""
+    layer) into the cache, row b at its own slot, in place and quantized for
+    an int8 cache.  ``flat_slots`` (``write_slots``; int64 [B] on the
+    device) indexes the cache's row and slot axes viewed as one, so that
+    one ``index_copy_`` a cache tensor writes every row, with the slots read
+    from device memory: a captured CUDA graph's replays write each step's
+    own slots.  The indices are distinct, so the write is deterministic."""
     at = slice(None) if layer is None else layer
-    axis = 2 if layer is None else 1  # the slot axis of cache.k[at]
+    axis = 1 if layer is None else 0  # the merged (row, slot) axis of flat[at]
     if isinstance(cache, QuantKVCache):
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-        for dst, src in ((cache.k, kq), (cache.ks, ks), (cache.v, vq), (cache.vs, vs)):
-            dst[at].index_copy_(axis, slot, src.unsqueeze(axis))
+        pairs = ((cache.k, kq), (cache.ks, ks), (cache.v, vq), (cache.vs, vs))
     else:
-        for dst, src in ((cache.k, k), (cache.v, v)):
-            dst[at].index_copy_(axis, slot, src.to(dst.dtype).unsqueeze(axis))
+        pairs = ((cache.k, k), (cache.v, v))
+    for dst, src in pairs:  # view, never a copy: it raises where the axes do not merge
+        flat = dst.view(dst.shape[0], -1, *dst.shape[3:])
+        flat[at].index_copy_(axis, flat_slots, src.to(dst.dtype))
+
+
+def write_slots(write_slot, batch: int, cache_len: int,
+                device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``write_slot`` as one int64 slot a row [B] on ``device``, and the
+    same slots as ``_commit``'s indices into a cache's row and slot axes
+    viewed as one (``b * cache_len + slot[b]``).  An int or a one-element
+    tensor is every row's slot (``slot_tensor``, expanded), a [B] tensor row
+    b's own (the JAX ``decode_step_scan``'s ``[B]`` ``write_slot``)."""
+    if torch.is_tensor(write_slot) and write_slot.numel() > 1:
+        if write_slot.numel() != batch:
+            raise ValueError(f"write_slot has {write_slot.numel()} slots for {batch} rows")
+        slots = write_slot.reshape(batch).to(device=device, dtype=torch.int64)
+    else:
+        slots = slot_tensor(write_slot, device).long().expand(batch)
+    return slots, slots + torch.arange(0, batch * cache_len, cache_len, device=device)
 
 
 def decode_step(
@@ -411,7 +430,7 @@ def decode_step(
     config: DiaConfig,
     tgt_Bx1xC: torch.Tensor,  # [B, 1, C]
     position: torch.Tensor,  # [B, 1] RoPE position of this token
-    write_slot,  # int or int [1] tensor: cache slot to write (== #valid slots - 1)
+    write_slot,  # int, int [1] or int [B] tensor: cache slot to write (== #valid slots - 1)
     self_cache: KVCache | QuantKVCache,
     cross_cache: KVCache | QuantKVCache,
     cross_ends: torch.Tensor,  # int32 [B]: text keys per row (0 = fully masked)
@@ -439,16 +458,22 @@ def decode_step(
     ``write_slot`` may live on the device (the JAX ``decode_step_scan``'s
     traced slot): the attention ends come from it and the K/V commits index
     with it, so a CUDA graph that captures the step replays it at each
-    step's own slot.  An int is made such a tensor first: one path."""
+    step's own slot.  The slot is one a row (``write_slots``; the JAX
+    ``decode_step_scan``'s per-row ``write_slot``): row b attends
+    ``[valid_from[b], slot[b]]`` (``[.., slot[b])`` and its own K/V with an
+    int8 cache) and commits at ``slot[b]``.  An int or a one-element tensor
+    is every row's slot (streams in lockstep), a [B] tensor gives each row
+    its own (continuous batching: each stream on its own timeline): one
+    path."""
     m = config.model
     eps = m.normalization_layer_epsilon
     B = tgt_Bx1xC.shape[0]
     dev = tgt_Bx1xC.device
     quant = isinstance(self_cache, QuantKVCache)
-    slot = slot_tensor(write_slot, dev).long()  # [1]
+    slots, flat_slots = write_slots(write_slot, B, self_cache.k.shape[2], dev)
     self_start = (torch.zeros(B, dtype=torch.int32, device=dev) if valid_from is None
                   else valid_from.to(device=dev, dtype=torch.int32).contiguous())
-    self_end = (slot + (0 if quant else 1)).to(torch.int32).expand(B).contiguous()
+    self_end = (slots + (0 if quant else 1)).to(torch.int32).contiguous()
     cross_start = torch.zeros_like(cross_ends)
 
     x = _embed_channels(params, tgt_Bx1xC, compute_dtype)  # [B, 1, D]
@@ -463,9 +488,9 @@ def decode_step(
             sa = decode_attention(q[:, 0].contiguous(), self_cache.k[i], self_cache.v[i],
                                   self_start, self_end, self_cache.ks[i], self_cache.vs[i],
                                   k1, v1)[:, None]
-            _commit(self_cache, i, slot, k1, v1)
+            _commit(self_cache, i, flat_slots, k1, v1)
         else:
-            _commit(self_cache, i, slot, k[:, 0], v[:, 0])
+            _commit(self_cache, i, flat_slots, k[:, 0], v[:, 0])
             sa = decode_attention(q[:, 0].contiguous(), self_cache.k[i], self_cache.v[i],
                                   self_start, self_end)[:, None]
         x = x + attention_out(lp["self_attention"], sa)
@@ -518,6 +543,7 @@ def decode_step_fused(
         params["decoder"]["fused_pack"], x, position[:, 0], write_slot, self_cache.k,
         self_cache.v, cross_cache.k, cross_cache.v, cross_ends, eps, m.rope_min_timescale,
         m.rope_max_timescale, vf, *self_cache[2:], *cross_cache[2:])
-    _commit(self_cache, None, slot_tensor(write_slot, dev).long(), k_new, v_new)
+    _, flat_slots = write_slots(write_slot, x.shape[0], self_cache.k.shape[2], dev)
+    _commit(self_cache, None, flat_slots, k_new, v_new)
     h = rms_norm(x_out[:, None].to(compute_dtype), params["decoder"]["norm"]["scale"], eps)
     return dense_general(h, params["decoder"]["logits_dense"]["kernel"]).float()

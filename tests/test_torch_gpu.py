@@ -1015,3 +1015,114 @@ def test_threads_on_one_key_get_their_solo_results_on_card(cuda_device):
         server.shutdown()
         server.server_close()
     assert len(out) == 2 and out[0] == out[1] and out[0][:4] == b"RIFF"
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: resident lanes, one graph a batcher
+# ---------------------------------------------------------------------------
+
+CB_TEXTS = ["[S1] The birch canoe slid. [S2]", "[S2] Hello there, friend.", "[S1] Three.",
+            "[S2] A fourth request, admitted late. [S1] Yes.", "[S1] And a fifth."]
+
+
+def _cb_requests():
+    """(text, kwargs) of five requests: greedy and seeded lanes with their own
+    temperature, top_p and cfg_scale, one voice-prompted, one shorter cap."""
+    from pathlib import Path
+
+    golden = np.load(Path(__file__).parent / "fixtures" / "trained_small" / "golden.npz")
+    prompted = dict(audio_prompt_codes=golden["tokens"][:20], audio_prompt_text="[S1] A voice.")
+    kws = [dict(temperature=0.0, seed=0), dict(temperature=1.3, seed=5, max_tokens=60),
+           dict(temperature=1.1, top_p=0.9, cfg_scale=2.5, seed=9, **prompted),
+           dict(temperature=0.0, seed=1, **prompted), dict(temperature=0.9, top_p=0.8,
+                                                          cfg_scale=4.0, seed=13)]
+    return [(t, {"max_tokens": 128, **kw}) for t, kw in zip(CB_TEXTS, kws)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["float", "int8"])
+def test_cbatch_lanes_equal_their_solo_runs_on_card(cuda_device, route):
+    """Five requests through three lanes, the last two queued behind the
+    first: each lane's codes equal its solo graph-loop ``generate_tokens``
+    bit for bit, greedy and seeded, float and int8 caches; the batcher
+    captured one graph."""
+    import time
+
+    from dia_tts_prune_tpu_torch.cbatch import ContinuousBatcher
+
+    dia = _graph_model(cuda_device, route)
+    reqs = _cb_requests()
+    solo = [dia.generator.generate_tokens(t, **kw) for t, kw in reqs]
+    cb = ContinuousBatcher(dia, n_slots=3, segment_steps=32, max_tokens=128, text_window=128)
+    try:
+        futs = [cb.submit(t, **kw) for t, kw in reqs[:3]]
+        while cb.stats["segments"] < 1:
+            time.sleep(0.005)
+        futs += [cb.submit(t, **kw) for t, kw in reqs[3:]]
+        outs = [f.result(600) for f in futs]
+    finally:
+        cb.shutdown()
+    assert cb.kv_int8 == (route == "int8") and cb.stats["captures"] == 1
+    for i, (out, ref) in enumerate(zip(outs, solo)):
+        assert ref.shape[0] > 0
+        np.testing.assert_array_equal(out, ref, err_msg=f"request {i}")
+
+
+@pytest.mark.gpu
+def test_sampler_one_form_draws_equal_on_card(cuda_device):
+    """The trap of two sampler forms: on CUDA ATen divides by a Python float
+    as a multiply by its reciprocal and by a device tensor as a true
+    division.  Every route passes the temperature as a device tensor
+    (``generate.sample_streams``): a lane of four draws what the one stream
+    of a solo call draws, over many steps, and the scaled logits are the
+    correctly rounded quotients."""
+    from types import SimpleNamespace
+
+    from dia_tts_prune_tpu_torch.generate import sample_streams
+
+    rng = np.random.default_rng(4)
+    temps, top_p = [0.0, 0.9, 1.3, 1.1], [1.0, 0.95, 0.9, 0.8]
+
+    def state(idx):
+        return SimpleNamespace(
+            temperature=torch.tensor([temps[i] for i in idx], device=cuda_device),
+            top_p=torch.tensor([top_p[i] for i in idx], device=cuda_device),
+            greedy=torch.tensor([temps[i] == 0.0 for i in idx], device=cuda_device))
+
+    lanes, solo = state(range(4)), state([2])
+    gens = [torch.Generator(device=cuda_device).manual_seed(s) for s in (1, 2, 7, 3)]
+    one = [torch.Generator(device=cuda_device).manual_seed(7)]
+    for _ in range(400):
+        guided = _t(rng.normal(size=(4, 9, 1028)).astype(np.float32) * 4).to(cuda_device)
+        batch = sample_streams(guided, lanes, 35, gens)
+        alone = sample_streams(guided[2:3], solo, 35, one)
+        assert torch.equal(batch[2], alone[0])
+        assert torch.equal(batch[0], guided[0].argmax(-1))  # the greedy lane
+    quotient = guided / lanes.temperature[2]
+    assert torch.equal(quotient, (guided.double() / lanes.temperature[2].double()).float())
+
+
+@pytest.mark.gpu
+def test_cbatch_captures_one_graph_and_replays_it(cuda_device):
+    """The batcher captures its graph at construction (every lane idle) and
+    never again: later segments, mixed greedy and seeded lanes, replay that
+    graph; no step is issued from the host after the capture.  A segment
+    that is not whole replays raises."""
+    from dia_tts_prune_tpu_torch.cbatch import ContinuousBatcher
+    from dia_tts_prune_tpu_torch.generate import GRAPH_STEPS, WARMUP_STEPS
+
+    dia = _graph_model(cuda_device, "float")
+    with pytest.raises(ValueError, match="multiple"):
+        ContinuousBatcher(dia, n_slots=2, segment_steps=20)
+    cb = ContinuousBatcher(dia, n_slots=2, segment_steps=16, max_tokens=128, text_window=128)
+    graph = cb._buffers.graph
+    try:
+        assert cb.stats["captures"] == 1 and graph is not None
+        reqs = _cb_requests()
+        outs = [cb.submit(t, **kw).result(600) for t, kw in reqs[:2]]
+    finally:
+        cb.shutdown()
+    assert cb.stats["segments"] >= 4 and cb.stats["replays"] == cb.stats["steps"] // GRAPH_STEPS
+    assert cb._buffers.graph is graph and cb.run_stats.captures == 1
+    assert cb.run_stats.host_steps == WARMUP_STEPS + GRAPH_STEPS
+    assert all(o.shape[0] > 0 for o in outs)

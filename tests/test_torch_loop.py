@@ -199,14 +199,14 @@ def test_steps_after_the_stop_change_nothing(monkeypatch):
     buf, prefill_step = _template(cfg, 0, seed=0)
     table = _table(cfg, 2, seed=3, eos_at=[(30, 0)])
     step = _port_step(table)
-    state = tgen.new_loop_state(cfg, buf[None], prefill_step, np.zeros(1, np.int64),
-                                np.asarray([128]), "cpu", clamp_window=True)
-    cache = _dummy_cache(2, T)
     sampling = tgen.Sampling(CFG_SCALE, 0.0, TOP_P, TOP_K)
+    state = tgen.new_loop_state(cfg, buf[None], prefill_step, np.zeros(1, np.int64),
+                                np.asarray([128]), "cpu", clamp_window=True, sampling=sampling)
+    cache = _dummy_cache(2, T)
     ends = torch.zeros(2, dtype=torch.int32)
 
     def body():
-        tgen.loop_step(state, step, {}, cfg, cache, None, ends, sampling, None, torch.float32)
+        tgen.loop_step(state, step, {}, cfg, cache, None, ends, TOP_K, None, torch.float32)
 
     while not bool(state.stop):
         body()
