@@ -115,7 +115,21 @@ script exits non-zero:
                equal its solo graph-loop run bit for bit, the served PCM
                equals the solo waveform, the ``/stream`` bytes the in-process
                ``generate_stream``'s;
-7. training  — teacher-forced fine-tuning at the same full width (bf16
+7. files     — the files a user brings to the model and takes away, at
+               the same full width (``Dia.random_init`` weights): a torch
+               DAC checkpoint with weight norm (``dac.pth``) through
+               ``Dia.load_dac`` — the checkpoint's own weights (g·v/‖v‖,
+               within 2 ulp of the original params) and their decode, codes
+               equal to the original params' —; a model directory (a bf16
+               ``pytorch_model.bin``) and a LoRA adapter; a FLAC voice
+               prompt written and read back equal as 16-bit PCM; the
+               generation CLI in a subprocess with ``--dac-checkpoint``,
+               ``--adapter-path`` and the FLAC ``--audio-prompt``, its FLAC
+               within PCM_LSB_TOL of the same call made in process, flash
+               and decode attention launched in it; the prompt cache (a
+               second ``load_audio`` encodes nothing); three ``datagen``
+               samples read back and encoded by ``data.FineTuneDataset``;
+8. training  — teacher-forced fine-tuning at the same full width (bf16
                compute, ``audio_length`` 3072, batch 2, every layer
                rematerialized): three LoRA steps, two full fine-tune steps
                (fp32 master weights and AdamW moments), one QAT-int8 step,
@@ -186,7 +200,7 @@ PCM_LSB_TOL = math.ceil(WAV_TOL * 32767)
 
 
 # after the build, in this order
-PHASES = ("kernels", "fixtures", "full_width", "serving", "cbatch", "training")
+PHASES = ("kernels", "fixtures", "full_width", "serving", "cbatch", "files", "training")
 
 
 def emit(obj) -> None:
@@ -1672,15 +1686,22 @@ def fused_fixture(torch, d, name, meta, tokens, steps=64) -> None:
 _SEED_WEIGHTS = {}
 
 
-def seed_weights(torch, cfg):
-    """Fresh Dia-1.6B bf16 weights on the card, ``init_params(cfg, seed=0)``:
-    drawn once on the host (numpy's normals for 1.6 G weights take ~30 s),
-    then copied to the card for every model that needs fresh ones."""
-    from dia_tts_prune_tpu_torch.models.dia import init_params
+def seed_host_weights(cfg):
+    """Dia-1.6B bf16 weights on the host, ``Dia.random_init(cfg, seed=0,
+    compute_dtype="bfloat16", device="cpu")``'s: drawn once (numpy's normals
+    for 1.6 G weights take ~30 s) and kept for every phase."""
+    from dia_tts_prune_tpu_torch import Dia
 
     if "host" not in _SEED_WEIGHTS:
-        _SEED_WEIGHTS["host"] = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
-    return params_to(_SEED_WEIGHTS["host"], "cuda")
+        _SEED_WEIGHTS["host"] = Dia.random_init(cfg, seed=0, compute_dtype="bfloat16",
+                                                device="cpu").params
+    return _SEED_WEIGHTS["host"]
+
+
+def seed_weights(torch, cfg):
+    """Fresh Dia-1.6B bf16 weights on the card: ``seed_host_weights``
+    copied there for every model that needs fresh ones."""
+    return params_to(seed_host_weights(cfg), "cuda")
 
 
 FULL_WIDTH_TEXT = ("[S1] Dia is an open weights text to dialogue model. [S2] You get full "
@@ -1724,9 +1745,11 @@ def step_and_loop_nodes(torch, dia, key, buffers) -> dict:
     logits = torch.zeros(2 * copy.caps.shape[0], 1, d.data.channels, d.model.tgt_vocab_size,
                          device=cache.k.device)
 
+    top_k = key[-1][1]  # the key ends in Sampling.graph_key(): (greedy, top-k)
+
     def rest():  # the default generator: graph_ms registers no other
         gen.loop_step(copy, lambda *a, **k: logits, dia.params, d, cache, cross, ends,
-                      key[-1].cfg_filter_top_k, None, dtype)
+                      top_k, None, dtype)
 
     return {"decode_step_nodes": kernels_per_call(torch, one),
             "loop_nodes": kernels_per_call(torch, rest),
@@ -2212,6 +2235,7 @@ def batch_lane_probe(torch, dia, texts, lane, steps=PROBE_STEPS, max_tokens=192)
 SERVING_TOKENS = 512  # max_new_tokens of the served single-chunk requests
 # the four concurrent /generate requests: two greedy, two seeded (another batcher key)
 SERVING_SEEDS = ((0.0, 0), (0.0, 0), (1.3, 5), (1.3, 9))
+COLD_TOP_K = 30  # the cold /stream key's top-k: every other serving call keeps 35
 # a long-form request: eight chunks of at most 48 effective characters, two
 # batches of four.  A batch's token budget counts its voice prompt's rows (as in
 # the JAX package) and random weights never emit EOS, so the first batch's
@@ -2386,9 +2410,9 @@ def phase_serving(torch) -> dict:
 
         # (c) /stream on a cold key and again warm, then a client that leaves after
         # its first chunk and the same request again; a key no call has captured:
-        # greedy with another top_p
+        # greedy with another top-k (the sampling values alone share a key)
         stream_req = {"text": FULL_WIDTH_TEXT, "max_new_tokens": n, "temperature": 0.0,
-                      "top_p": 0.9, "seed": 0}
+                      "cfg_filter_top_k": COLD_TOP_K, "seed": 0}
         reset_launch_counts()
         cold = _post(port, "/stream", stream_req)
         cold_stats = gen.last_stats
@@ -2397,11 +2421,12 @@ def phase_serving(torch) -> dict:
         left = _post(port, "/stream", stream_req, stop_after=44 + 2 * 81 * dac_cfg.hop_length)
         again = _post(port, "/stream", stream_req)
         launched["stream"] = served_kernels("stream", launch_counts())
-        offline = dia.generate(FULL_WIDTH_TEXT, max_tokens=n, temperature=0.0, top_p=0.9)
+        offline = dia.generate(FULL_WIDTH_TEXT, max_tokens=n, temperature=0.0,
+                               cfg_filter_top_k=COLD_TOP_K)
         t = time.perf_counter()
         marks, chunks = [], []
         for chunk in dia.generate_stream(FULL_WIDTH_TEXT, max_tokens=n, temperature=0.0,
-                                         top_p=0.9, seed=0):
+                                         cfg_filter_top_k=COLD_TOP_K, seed=0):
             marks.append(time.perf_counter() - t)
             chunks.append(chunk)
         streamed = np.concatenate(chunks)
@@ -2733,6 +2758,308 @@ def phase_cbatch(torch) -> dict:
     return rec
 
 
+# the voice prompt: a greedy run's whole waveform (~1.3 s).  The CLI's --max-tokens
+# counts the prompt's rows too, so a longer prompt would leave it fewer to generate
+FILES_PROMPT_TOKENS = 128
+FILES_PROMPT_TEXT = "[S1] Dia is an open weights text to dialogue model."
+FILES_CLI_TEXT = "[S2] You get full control over scripts and voices. [S1] Wow. Amazing."
+FILES_CLI_TOKENS = 256
+FILES_DATAGEN = {"num_samples": 3, "max_tokens": 172}
+
+
+def _weight_norm_state_dict(torch, sd):
+    """A plain DAC state dict re-expressed as the published checkpoints store
+    it: every conv as ``weight_g`` / ``weight_v``, as ``torch.nn.utils.
+    weight_norm`` leaves a conv whose weight it wraps (v = W, g = ‖W‖ over
+    every axis but 0)."""
+    import numpy as np
+
+    out = {}
+    for k, v in sd.items():
+        if k.endswith(".weight") and not k.endswith("codebook.weight"):
+            base = k[: -len(".weight")]
+            out[f"{base}.weight_v"] = torch.from_numpy(v)
+            out[f"{base}.weight_g"] = torch.from_numpy(np.sqrt(np.sum(
+                v ** 2, axis=tuple(range(1, v.ndim)), keepdims=True)).astype(np.float32))
+        else:
+            out[k] = torch.from_numpy(v)
+    return out
+
+
+def phase_files(torch, tmp: Path) -> dict:
+    """The files a user brings to the model and takes away, at full width
+    (``dia_1_6b_config()``, bf16, ``Dia.random_init``'s seed weights;
+    ``DACConfig()``): (1) a torch DAC checkpoint — seeded ``init_dac_params``
+    exported by ``to_dac_torch_state_dict`` with weight norm on every conv,
+    ``dac.pth`` — loaded by ``Dia.load_dac`` on the card: it holds exactly
+    the checkpoint's weights g·v/‖v‖ (within 2 ulp of the original params)
+    and decodes within WAV_TOL of a codec built from them, and its codes
+    equal the original params' on the original decode's waveform; (2) a model directory (config.json, a bf16 ``pytorch_model.bin``
+    in the reference key schema, ~3.2 GB) and a LoRA adapter (``q_proj``,
+    ``v_proj``, r = 8, seeded non-zero B); (3) a FLAC prompt, a 128-token
+    greedy waveform, written by ``write_flac`` and read back equal as int16
+    PCM; (4) the generation CLI in a subprocess, as ``python -m`` runs it,
+    with ``--dac-checkpoint``, ``--adapter-path`` and the FLAC
+    ``--audio-prompt``: exit 0, its FLAC within PCM_LSB_TOL of the same call
+    made here (``from_pretrained(..., dac_checkpoint=...)``,
+    ``load_adapter_weights``, ``generate``), flash and decode attention
+    launched in it; (5) the prompt cache: a second ``load_audio`` of the
+    prompt encodes nothing and gives equal codes; (6) ``datagen``: three
+    samples that ``data.FineTuneDataset`` reads and encodes on the card.  The
+    directory is deleted when the phase ends."""
+    import os
+
+    import numpy as np
+
+    import dia_tts_prune_tpu_torch.api as api
+    from dia_tts_prune_tpu_torch import Dia, dia_1_6b_config
+    from dia_tts_prune_tpu_torch.checkpoint import to_torch_state_dict
+    from dia_tts_prune_tpu_torch.data import FineTuneDataset
+    from dia_tts_prune_tpu_torch.datagen import generate_dataset
+    from dia_tts_prune_tpu_torch.lora import LoraConfig, init_lora, save_adapter
+    from dia_tts_prune_tpu_torch.models.dac import (
+        DACConfig,
+        convert_dac_torch_state_dict,
+        decode_codes,
+        encode_audio,
+        init_dac_params,
+        to_dac_torch_state_dict,
+    )
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dia_tts_prune_tpu_torch.utils.flac import read_flac, write_flac
+
+    t0 = time.perf_counter()
+    cfg, dac_cfg = dia_1_6b_config(), DACConfig()
+    rec = {"phase": "files", "config": "dia_1_6b_config() bf16, Dia.random_init seed 0; "
+           "DACConfig(), init_dac_params seed 1", "wav_tol": WAV_TOL, "pcm_lsb_tol": PCM_LSB_TOL}
+    failures = []
+
+    # (2) the model directory and the adapter, (1) the DAC checkpoint, all on the host
+    t = time.perf_counter()
+    host = seed_host_weights(cfg)
+    drawn_s = time.perf_counter() - t
+    model_dir, adapter_dir, pth = tmp / "model", tmp / "adapter", tmp / "dac.pth"
+    model_dir.mkdir()
+    t = time.perf_counter()
+    torch.save({k: torch.from_numpy(v).to(torch.bfloat16)
+                for k, v in to_torch_state_dict(host, cfg).items()},
+               model_dir / "pytorch_model.bin")
+    cfg.save(model_dir / "config.json")
+    adapter = init_lora(host, LoraConfig(r=8, alpha=16.0, target_modules=("q_proj", "v_proj")),
+                        generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+
+    def seeded_b(tree):
+        for v in tree.values():
+            if "b" in v:
+                v["b"] = torch.from_numpy(
+                    (0.02 * rng.standard_normal(tuple(v["b"].shape))).astype(np.float32))
+            else:
+                seeded_b(v)
+
+    seeded_b(adapter["weights"])
+    save_adapter(adapter_dir, adapter)
+    del adapter
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    plain = to_dac_torch_state_dict(init_dac_params(dac_cfg, seed=1, device="cpu"), dac_cfg)
+    wn = _weight_norm_state_dict(torch, plain)
+    torch.save({"state_dict": wn}, pth)
+    rec["write"] = {"weights_drawn_s": drawn_s, "model_and_adapter_s": write_s,
+                    "dac_pth_s": time.perf_counter() - t,
+                    "model_bytes": (model_dir / "pytorch_model.bin").stat().st_size,
+                    "dac_pth_bytes": pth.stat().st_size}
+
+    t = time.perf_counter()
+    dia = Dia.from_pretrained(model_dir, compute_dtype="bfloat16", dac_checkpoint=pth,
+                              device="cuda")
+    torch.cuda.synchronize()
+    rec["write"]["from_pretrained_s"] = time.perf_counter() - t
+
+    # (1) the converted codec.  The checkpoint defines each conv weight as
+    # g·v/‖v‖ (torch's weight norm), which in float32 is the original weight
+    # up to a rounding: the loaded codec must hold exactly those weights
+    # (against a codec built from them here, on the plain-weight path) and
+    # decode as that codec does; against the original params it must encode
+    # to equal codes.  Its decode is compared with the original params' too,
+    # beside the same comparison for the original with one-ulp nudges: a
+    # random-weight codec at full width turns such roundings into ~1e-3.
+    t = time.perf_counter()
+    dia.load_dac(pth)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t
+    folded = dict(plain)
+    for k in plain:
+        if f"{k}_g" in wn:  # k = "<conv>.weight"
+            g, v = wn[f"{k}_g"].numpy(), wn[f"{k}_v"].numpy()
+            norm = np.sqrt(np.sum(v ** 2, axis=tuple(range(1, v.ndim)), keepdims=True))
+            folded[k] = (g * v / np.maximum(norm, 1e-12)).astype(np.float32)
+    loaded = to_dac_torch_state_dict(dia.dac_params, dac_cfg)
+    leaves_equal = loaded.keys() == folded.keys() and all(
+        np.array_equal(loaded[k], folded[k]) for k in folded)
+    ulps = max(float(np.max(np.abs(folded[k] - plain[k]) / np.spacing(np.abs(plain[k]))))
+               for k in plain if k.endswith(".weight"))
+    reference = convert_dac_torch_state_dict(folded, dac_cfg, "cuda")
+    original = init_dac_params(dac_cfg, seed=1, device="cuda")  # the same draws
+    nudge = torch.Generator(device="cuda").manual_seed(6)
+
+    def nudged(tree):  # one ulp toward zero at a seeded 1% of each conv weight
+        if isinstance(tree, list):
+            return [nudged(v) for v in tree]
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, (dict, list)):
+                out[k] = nudged(v)
+            elif k == "weight":
+                pick = torch.rand(v.shape, generator=nudge, device=v.device) < 0.01
+                out[k] = torch.where(pick, torch.nextafter(v, torch.zeros_like(v)), v)
+            else:
+                out[k] = v
+        return out
+
+    codes = torch.from_numpy(np.random.default_rng(5).integers(
+        0, dac_cfg.codebook_size, size=(1, 192, dac_cfg.n_codebooks)).astype(np.int32)).cuda()
+    want = decode_codes(original, dac_cfg, codes)
+    got = decode_codes(dia.dac_params, dac_cfg, codes)
+    dec_err = float((got - decode_codes(reference, dac_cfg, codes)).abs().max())
+    enc_want = encode_audio(original, dac_cfg, want)
+    enc_diff = int((encode_audio(dia.dac_params, dac_cfg, want) != enc_want).sum())
+    rec["dac"] = {"convert_s": convert_s, "leaves_equal_checkpoint_weights": leaves_equal,
+                  "max_ulps_from_original": ulps,
+                  "decode_max_abs_err_checkpoint_weights": dec_err,
+                  "encode_codes_differing_original": enc_diff,
+                  "encode_codes": int(enc_want.numel()),
+                  "decode_max_abs_diff_original": float((got - want).abs().max()),
+                  "decode_max_abs_diff_original_nudged": float(
+                      (decode_codes(nudged(original), dac_cfg, codes) - want).abs().max())}
+    emit({"phase": "files", "part": "dac", "record": rec["dac"]})
+    if not leaves_equal or not ulps <= 2.0 or not dec_err <= WAV_TOL or enc_diff:
+        failures.append("dac")
+    del original, reference, want, got, plain, wn, folded, loaded
+
+    # (3) a FLAC prompt: a greedy waveform
+    prompt_wav = dia.generate(FILES_PROMPT_TEXT, max_tokens=FILES_PROMPT_TOKENS,
+                              temperature=0.0)
+    prompt = tmp / "prompt.flac"
+    write_flac(prompt, prompt_wav, dac_cfg.sample_rate)
+    t = time.perf_counter()
+    back, sr = read_flac(prompt)
+    read_s = time.perf_counter() - t
+    pcm = np.round(np.clip(prompt_wav, -1, 1) * 32767.0).astype(np.int16)
+    flac_equal = bool(sr == dac_cfg.sample_rate and np.array_equal(
+        np.round(back[0] * 32768.0).astype(np.int16), pcm))
+    rec["flac"] = {"audio_s": prompt_wav.shape[0] / dac_cfg.sample_rate,
+                   "bytes": prompt.stat().st_size, "read_s": read_s, "pcm16_equal": flac_equal}
+    emit({"phase": "files", "part": "flac", "record": rec["flac"]})
+    if not flac_equal:
+        failures.append("flac")
+
+    # (5) the prompt cache: the first load_audio encodes, the second does not
+    encodes = []
+    real_encode = api.encode_audio
+
+    def counted_encode(*a, **kw):
+        encodes.append(1)
+        return real_encode(*a, **kw)
+
+    api.encode_audio = counted_encode
+    try:
+        timed = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prompt_codes = dia.load_audio(prompt)
+            timed.append((time.perf_counter() - t, len(encodes), prompt_codes))
+    finally:
+        api.encode_audio = real_encode
+    rec["cache"] = {"first_s": timed[0][0], "hit_s": timed[1][0],
+                    "encodes": [timed[0][1], timed[1][1] - timed[0][1]],
+                    "prompt_frames": int(timed[0][2].shape[0]),
+                    "hit_codes_equal": bool(np.array_equal(timed[0][2], timed[1][2]))}
+    emit({"phase": "files", "part": "cache", "record": rec["cache"]})
+    if rec["cache"]["encodes"] != [1, 0] or not rec["cache"]["hit_codes_equal"]:
+        failures.append("cache")
+
+    # (4) the CLI as users run it, in a subprocess, and the same call here
+    out = tmp / "out.flac"
+    cli_args = [FILES_CLI_TEXT, "--output", str(out), "--model-path", str(model_dir),
+                "--dac-checkpoint", str(pth), "--adapter-path", str(adapter_dir),
+                "--audio-prompt", str(prompt), "--audio-prompt-text", FILES_PROMPT_TEXT,
+                "--max-tokens", str(FILES_CLI_TOKENS), "--seed", "7",
+                "--compute-dtype", "bfloat16"]
+    # ``python -m dia_tts_prune_tpu_torch.cli ARGS``, run by runpy as -m runs
+    # it, its launch counts printed as it exits
+    runner = ("import json, runpy, sys\n"
+              "from dia_tts_prune_tpu_torch.ops.kernels import launch_counts\n"
+              "sys.argv = ['dia_tts_prune_tpu_torch.cli', *sys.argv[1:]]\n"
+              "try:\n"
+              "    runpy.run_module('dia_tts_prune_tpu_torch.cli', run_name='__main__',"
+              " alter_sys=True)\n"
+              "finally:\n"
+              "    print('LAUNCHES ' + json.dumps(launch_counts()), file=sys.stderr, flush=True)\n")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", runner, *cli_args], capture_output=True,
+                          text=True, timeout=600, cwd=str(Path(__file__).resolve().parent),
+                          env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    cli_s = time.perf_counter() - t
+    launched = next((json.loads(line[len("LAUNCHES "):]) for line in proc.stderr.splitlines()
+                     if line.startswith("LAUNCHES ")), {})
+    dia.load_adapter_weights(adapter_dir)
+    reset_launch_counts()
+    ref = dia.generate(FILES_CLI_TEXT, max_tokens=FILES_CLI_TOKENS, audio_prompt=str(prompt),
+                       audio_prompt_text=FILES_PROMPT_TEXT, seed=7)
+    in_process_launches = launch_counts()
+    lsb = None
+    if proc.returncode == 0 and out.exists():
+        got, sr = read_flac(out)
+        got16 = np.round(got[0] * 32768.0).astype(np.int32)
+        want16 = np.round(np.clip(ref, -1, 1) * 32767.0).astype(np.int32)
+        lsb = int(np.abs(got16 - want16).max()) if got16.shape == want16.shape else None
+    rec["cli"] = {"rc": proc.returncode, "wall_s": cli_s, "max_lsb_diff_in_process": lsb,
+                  "audio_s": None if ref is None else ref.shape[0] / dac_cfg.sample_rate,
+                  "launches": launched, "in_process_launches": in_process_launches,
+                  "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""}
+    emit({"phase": "files", "part": "cli", "record": rec["cli"]})
+    if proc.returncode != 0 or lsb is None or lsb > PCM_LSB_TOL or any(
+            counts.get(k, 0) <= 0 for counts in (launched, in_process_launches)
+            for k in ("flash_attention", "decode_attention")):
+        failures.append("cli")
+    dia.unload_adapter()
+
+    # (6) datagen: three samples, read back and encoded by the dataset
+    data_dir = tmp / "data"
+    reset_launch_counts()
+    t = time.perf_counter()
+    rows = generate_dataset(dia, data_dir, **FILES_DATAGEN)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    datagen_launches = launch_counts()
+    ds = FineTuneDataset(data_dir / "metadata.csv", data_dir / "wavs", dia.config,
+                         dia.dac_params, dia.dac_config)
+    t = time.perf_counter()
+    frames = [None if c is None else int(c.shape[0])
+              for c in (ds.encode_item_audio(it) for it in ds.items)]
+    encode_s = time.perf_counter() - t
+    rec["datagen"] = {"samples": len(rows), "wavs": len(list((data_dir / "wavs").iterdir())),
+                      "dataset_items": len(ds.items), "encoded_frames": frames,
+                      "s_per_sample": gen_s / max(1, len(rows)), "encode_s": encode_s,
+                      "launches": datagen_launches}
+    emit({"phase": "files", "part": "datagen", "record": rec["datagen"]})
+    if len(rows) != FILES_DATAGEN["num_samples"] or rec["datagen"]["wavs"] != len(rows) \
+            or len(ds.items) != len(rows) or None in frames or min(frames) <= 0 \
+            or datagen_launches.get("decode_attention", 0) <= 0:
+        failures.append("datagen")
+
+    del dia, ds
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    emit({k: v for k, v in rec.items() if k in ("phase", "config", "write", "seconds")})
+    if failures:
+        raise RuntimeError(f"files: {failures} failed: "
+                           f"{ {k: rec.get(k) for k in ('dac', 'flac', 'cache', 'cli', 'datagen')} }")
+    return rec
+
+
 def _decoder_kernels(params):
     """(dotted path, kernel) of every decoder kernel."""
     from dia_tts_prune_tpu_torch.prune import prunable_items
@@ -3030,6 +3357,10 @@ def main() -> int:
     if wanted("cbatch"):
         phase_cbatch(torch)
         lap("cbatch")
+    if wanted("files"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as tmp:
+            phase_files(torch, Path(tmp))
+        lap("files")
     if wanted("training"):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             training = phase_training(torch, Path(tmp))

@@ -1,11 +1,14 @@
 """Top-level user API: class ``Dia`` (counterpart of ``dia_tts_prune_tpu/api.py``;
 reference: dia/model.py:101-846).
 
-``Dia.from_pretrained(local_dir)`` / ``Dia.from_local(config, checkpoint)``,
-``generate_codes(text)`` → codec tokens, ``generate(text)`` → waveform and
-``save_audio`` (16-bit PCM WAV); ``quantize_int8()`` / ``quantize_int4()``
-switch the decoder to packed weights before generating; ``load_audio`` turns
-a WAV file into codec tokens (voice-cloning prompts, fine-tuning data);
+``Dia.from_pretrained(local_dir)`` / ``Dia.from_local(config, checkpoint)``
+(each with an optional torch DAC checkpoint, ``dac_checkpoint=``) /
+``Dia.random_init(config, seed)``, ``generate_codes(text)`` → codec tokens,
+``generate(text)`` → waveform and ``save_audio`` (16-bit PCM WAV or FLAC, by
+extension); ``quantize_int8()`` / ``quantize_int4()`` switch the decoder to
+packed weights before generating; ``load_audio`` turns a WAV or FLAC file
+into codec tokens (voice-cloning prompts, fine-tuning data), keeping the
+last 16 encodings; ``load_dac`` loads a published torch DAC checkpoint;
 ``prune_block_sparse()`` / ``sparsify_block()`` swap the decoder to
 block-sparse kernels (pruned blocks are never read); ``generate_batch``
 decodes N texts in one loop;
@@ -20,24 +23,27 @@ raises — nothing moves to the CPU on its own.
 from __future__ import annotations
 
 import json
+from collections import OrderedDict
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .checkpoint import load_checkpoint, to_torch_state_dict
-from .config import DiaConfig
+from .config import DiaConfig, dia_1_6b_config
 from .generate import DTYPES, DiaGenerator
 from .models.dac import (
     DEFAULT_SAMPLE_RATE,
     DACConfig,
+    convert_dac_torch_state_dict,
     decode_codes,
     encode_audio,
+    init_dac_params,
     load_dac_safetensors,
     pad_audio,
 )
 from .ops.quant import quantize_params_int4_packed, quantize_params_int8_packed
-from .utils.audio_io import load_audio_mono, write_wav
+from .utils.audio_io import load_audio_mono, write_audio, write_wav  # noqa: F401 (re-exported)
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -111,6 +117,9 @@ def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
+AUDIO_CACHE = 16  # encoded voice prompts a Dia keeps (the JAX api.py:150, :465-488)
+
+
 class Dia:
     """Model params + generator + codec (reference: dia/model.py:101)."""
 
@@ -124,28 +133,40 @@ class Dia:
         self.dac_config = dac_config or DACConfig()
         self.dac_params = dac_params
         self._active_adapter = None
+        self._audio_cache: OrderedDict = OrderedDict()  # (path, mtime_ns, size) → codes
         self.generator = DiaGenerator(params, config, compute_dtype, self.device)
 
     @classmethod
     def from_local(cls, config_path: str | Path, checkpoint_path: str | Path,
-                   compute_dtype: str = "float32", dac_config=None,
-                   device: str | torch.device = "cuda") -> "Dia":
+                   compute_dtype: str = "float32", dac_checkpoint: str | Path | None = None,
+                   dac_config=None, device: str | torch.device = "cuda") -> "Dia":
         """Load a reference-format config.json + checkpoint (safetensors, or a
-        torch ``.bin`` / ``.pth`` state dict)."""
+        torch ``.bin`` / ``.pth`` state dict), and the codec from a torch DAC
+        checkpoint when ``dac_checkpoint`` is given (``load_dac``).
+        ``dac_config``: a ``DACConfig``, a JSON path, or None (the published
+        44.1 kHz model)."""
         dev = resolve_device(device)
         config = DiaConfig.load(config_path)
         if config is None:
             raise FileNotFoundError(f"Config file not found at {config_path}")
         params = load_checkpoint(checkpoint_path, config, DTYPES[compute_dtype], dev)
-        return cls(config, params, compute_dtype, dac_config=load_dac_config(dac_config),
-                   device=dev)
+        dia = cls(config, params, compute_dtype, dac_config=load_dac_config(dac_config),
+                  device=dev)
+        if dac_checkpoint is not None:
+            dia.load_dac(dac_checkpoint)
+        return dia
 
     @classmethod
     def from_pretrained(cls, model_dir: str | Path, compute_dtype: str = "float32",
+                        dac_checkpoint: str | Path | None = None, dac_config=None,
                         device: str | torch.device = "cuda") -> "Dia":
         """Load a local model directory: config.json + model.safetensors (or
-        pytorch_model.bin, as the fine-tuning CLI writes), and, when present,
-        dac_config.json + dac.safetensors (the codec)."""
+        pytorch_model.bin, as the fine-tuning CLI writes), and the codec: a
+        torch DAC checkpoint when ``dac_checkpoint`` is given, else the
+        directory's dac.safetensors when present.  ``dac_config`` (a
+        ``DACConfig`` or a JSON path) overrides the directory's
+        dac_config.json.  A hub id is not downloaded: the directory must
+        exist."""
         dev = resolve_device(device)
         path = Path(model_dir)
         if not path.is_dir():
@@ -154,12 +175,44 @@ class Dia:
                      if (path / c).exists()), None)
         if ckpt is None:
             raise FileNotFoundError(f"No checkpoint found under {path}")
-        dac_cfg = path / "dac_config.json"
+        if dac_config is None and (path / "dac_config.json").exists():
+            dac_config = path / "dac_config.json"
         dia = cls.from_local(path / "config.json", ckpt, compute_dtype,
-                             dac_config=dac_cfg if dac_cfg.exists() else None, device=dev)
-        if (path / "dac.safetensors").exists():
+                             dac_checkpoint=dac_checkpoint, dac_config=dac_config, device=dev)
+        if dac_checkpoint is None and (path / "dac.safetensors").exists():
             dia.dac_params = load_dac_safetensors(path / "dac.safetensors", dev)
         return dia
+
+    @classmethod
+    def random_init(cls, config: DiaConfig | None = None, seed: int = 0,
+                    compute_dtype: str = "float32", with_dac: bool = False,
+                    device: str | torch.device = "cuda") -> "Dia":
+        """Random weights (benchmarks, tests, training from scratch; the JAX
+        ``random_init``, api.py:224): ``models.dia.init_params(config, seed)``
+        and, with ``with_dac``, ``models.dac.init_dac_params(seed + 1)`` for
+        the default codec.  The draws come from numpy, so one seed gives the
+        same weights on every device; they are not the JAX package's
+        ``jax.random`` draws for that seed."""
+        from .models.dia import init_params
+
+        dev = resolve_device(device)
+        config = config or dia_1_6b_config()
+        params = init_params(config, seed=seed, dtype=DTYPES[compute_dtype], device=dev)
+        dia = cls(config, params, compute_dtype, device=dev)
+        if with_dac:
+            dia.dac_params = init_dac_params(dia.dac_config, seed=seed + 1, device=dev)
+        return dia
+
+    def load_dac(self, checkpoint: str | Path) -> None:
+        """Codec weights from a torch DAC checkpoint: a ``.pth`` holding
+        ``{"state_dict": ...}`` or a flat state dict, in descript-audio-codec
+        naming (reference: dia/model.py:238-252), converted for
+        ``self.dac_config`` onto this model's device.  Prompts encoded with
+        the previous codec are forgotten."""
+        obj = torch.load(str(checkpoint), map_location="cpu", weights_only=False)
+        sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+        self.dac_params = convert_dac_torch_state_dict(sd, self.dac_config, self.device)
+        self._audio_cache.clear()
 
     # codec-decode chunking (api.py:276-310): each emitted sample keeps the
     # decoder's receptive field on both sides, so the result equals a
@@ -170,8 +223,8 @@ class Dia:
 
     def _require_dac(self) -> None:
         if self.dac_params is None:
-            raise RuntimeError("DAC weights not loaded: set dac_params or load a model "
-                               "directory with dac.safetensors")
+            raise RuntimeError("DAC weights not loaded: call load_dac(path), set dac_params "
+                               "or load a model directory with dac.safetensors")
 
     def _decode_waveform(self, codes_TxC: np.ndarray) -> np.ndarray:
         self._require_dac()
@@ -210,8 +263,8 @@ class Dia:
                  audio_prompt: np.ndarray | None = None, audio_prompt_text: str | None = None,
                  seed: int | None = None, verbose: bool = False) -> np.ndarray | None:
         """Text → waveform (float32 [T_audio]), None when nothing was generated.
-        ``audio_prompt`` is a WAV path (encoded by ``load_audio``) or a
-        pre-encoded [T, C] code array."""
+        ``audio_prompt`` is a WAV or FLAC path (encoded by ``load_audio``) or
+        a pre-encoded [T, C] code array."""
         if isinstance(audio_prompt, (str, Path)):
             audio_prompt = self.load_audio(audio_prompt)
         codes = self.generate_codes(
@@ -345,16 +398,34 @@ class Dia:
         return sparsity_summary(self.params)
 
     def load_audio(self, audio_path: str | Path) -> np.ndarray:
-        """WAV file → DAC codes int32 [T_codes, C] (reference:
+        """WAV or FLAC file → DAC codes int32 [T_codes, C] (reference:
         dia/model.py:546-576): mono, resampled to the codec's rate, padded to a
-        hop multiple, encoded on this model's device."""
+        hop multiple, encoded on this model's device.
+
+        The last ``AUDIO_CACHE`` encodings are kept, keyed by (resolved path,
+        ``st_mtime_ns``, ``st_size``), as the JAX package keeps them: a server
+        that gets the same prompt file again skips the encoder, and an edited
+        file (new mtime or size) encodes anew.  Each call returns its own
+        copy."""
         self._require_dac()
-        mono = load_audio_mono(audio_path, self.dac_config.sample_rate)
+        p = Path(audio_path).resolve()
+        st = p.stat()
+        key = (str(p), st.st_mtime_ns, st.st_size)
+        with self.generator.lock:
+            hit = self._audio_cache.get(key)
+            if hit is not None:
+                self._audio_cache.move_to_end(key)
+                return hit.copy()
+        mono = load_audio_mono(p, self.dac_config.sample_rate)  # host work, outside the lock
         mono = pad_audio(mono[None, :], self.dac_config.hop_length)
         with self.generator.lock:
             codes = encode_audio(self.dac_params, self.dac_config,
                                  torch.from_numpy(np.ascontiguousarray(mono)).to(self.device))
-            return codes[0].cpu().numpy()
+            codes = codes[0].cpu().numpy()
+            self._audio_cache[key] = codes
+            while len(self._audio_cache) > AUDIO_CACHE:
+                self._audio_cache.popitem(last=False)
+            return codes.copy()
 
     # ---- adapters ----------------------------------------------------
 
@@ -413,6 +484,6 @@ class Dia:
 
     def save_audio(self, path: str | Path, audio: np.ndarray | None,
                    sample_rate: int = DEFAULT_SAMPLE_RATE) -> None:
-        """Waveform → WAV file."""
+        """Waveform → file by extension: .wav or .flac (``write_audio``)."""
         if audio is not None:
-            write_wav(path, audio, sample_rate)
+            write_audio(path, audio, sample_rate)

@@ -8,7 +8,8 @@ become the next batch's voice prompt, :221-226), per-batch max-token scaling
 (:216-218), speed-factor resampling (:259-268), optional int8 weights.
 
 Run on the card: ``python -m dia_tts_prune_tpu_torch.app --model-path DIR
-[--dynamic-batch | --continuous-batch] [--quantize-int8] [--port 7860]``
+[--dac-checkpoint DAC.pth] [--dynamic-batch | --continuous-batch] [--quantize-int8]
+[--port 7860]``
 (``--device cpu`` runs on the CPU).  The API:
 
 * ``POST /generate`` {"text", "max_new_tokens", "cfg_scale", "temperature",
@@ -387,6 +388,9 @@ def main(argv=None) -> int:
     parser.add_argument("--model-path", type=str, required=True,
                         help="local model directory (config.json, model.safetensors, "
                              "dac_config.json, dac.safetensors)")
+    parser.add_argument("--dac-checkpoint", type=str, default=None,
+                        help="torch DAC checkpoint (.pth) for the codec, in place of the model "
+                             "directory's dac.safetensors")
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     parser.add_argument("--compute-dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
@@ -420,7 +424,7 @@ def main(argv=None) -> int:
     from .api import Dia
 
     dia = Dia.from_pretrained(args.model_path, compute_dtype=args.compute_dtype,
-                              device=args.device)
+                              dac_checkpoint=args.dac_checkpoint, device=args.device)
     if args.quantize_int8:
         dia.quantize_int8()
     batcher = None

@@ -10,9 +10,11 @@ codec files.  ``--prune-before unstructured|structured`` prunes the weights
 first (``prune.py``, as the JAX CLI at its finetune.py:119-128) and trains the
 masked dense weights.  Runs on CUDA unless ``--device cpu`` is given.
 
+The codec comes from the model directory's ``dac.safetensors``, or from a
+torch DAC checkpoint given by ``--dac-checkpoint``.
+
 Not here yet: sharding over several cards (``--mesh-data``, ``--mesh-model``,
-``--fsdp``) and a separate torch DAC checkpoint (``--dac-checkpoint``: the
-model directory must carry ``dac.safetensors``).
+``--fsdp``).
 
 Run: ``python -m dia_tts_prune_tpu_torch.finetune --model-path … --dataset-dir …
 --output-dir … --adapter-mode lora``
@@ -29,6 +31,9 @@ from pathlib import Path
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Fine-tune the PyTorch/CUDA Dia port")
     p.add_argument("--model-path", type=str, required=True)
+    p.add_argument("--dac-checkpoint", type=str, default=None,
+                   help="torch DAC checkpoint (.pth) for the codec, in place of the model "
+                        "directory's dac.safetensors")
     p.add_argument("--dataset-dir", type=str, required=True,
                    help="Directory containing metadata.csv and wavs/")
     p.add_argument("--output-dir", type=str, required=True)
@@ -105,7 +110,8 @@ def main(argv=None) -> int:
 
     # full fine-tuning trains float32 master weights: load them unrounded
     load_dtype = args.compute_dtype if args.adapter_mode == "lora" else "float32"
-    dia = Dia.from_pretrained(args.model_path, compute_dtype=load_dtype, device=args.device)
+    dia = Dia.from_pretrained(args.model_path, compute_dtype=load_dtype,
+                              dac_checkpoint=args.dac_checkpoint, device=args.device)
     params, config = dia.params, dia.config
 
     if args.merge_adapter:

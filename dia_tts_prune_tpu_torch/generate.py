@@ -220,13 +220,21 @@ LOOPS = ("eager", "graph")
 
 
 class Sampling(NamedTuple):
-    """The sampling scalars of a call (its graph key's last entry): the
-    values of its streams' ``LoopState`` sampling fields, and the top-k."""
+    """The sampling scalars of a call: the values of its streams'
+    ``LoopState`` sampling fields, and the top-k."""
 
     cfg_scale: float
     temperature: float
     top_p: float
     cfg_filter_top_k: int
+
+    def graph_key(self) -> tuple[bool, int]:
+        """What of these shapes a captured step: greedy or not (a greedy
+        call registers no generator and its body draws nothing) and the
+        top-k (a ``torch.topk`` size).  ``cfg_scale``, ``temperature`` and
+        ``top_p`` live in ``LoopState`` tensors that every call refills, so
+        calls that differ only in them replay one graph."""
+        return self.temperature == 0.0, int(self.cfg_filter_top_k)
 
 
 class LoopState(NamedTuple):
@@ -646,15 +654,34 @@ def _undelay(generated: np.ndarray, config: DiaConfig) -> np.ndarray:
     return np.where((reverted < 0) | (reverted > 1023), 0, reverted).astype(np.int32)
 
 
+_DEVICE_LOCKS: dict[tuple[str, int], threading.RLock] = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def device_lock(device: str | torch.device) -> threading.RLock:
+    """The one re-entrant lock of ``device`` that every ``DiaGenerator`` on it
+    holds for its device work: a graph capture fails if any other thread
+    works on the card meanwhile, whatever model that thread serves.
+    ``cuda`` without an index is the current CUDA device."""
+    dev = torch.device(device)
+    index = dev.index
+    if index is None:
+        index = torch.cuda.current_device() if dev.type == "cuda" else 0
+    with _DEVICE_LOCKS_GUARD:
+        return _DEVICE_LOCKS.setdefault((dev.type, index), threading.RLock())
+
+
 class DiaGenerator:
     """Generation orchestrator (reference API: dia/model.py:631-846).
 
     Safe to call from many threads: ``lock`` lets one call at a time do its
     device work (the ``Dia`` around it takes it for codec work too).  A
     kept key's buffers are shared by its calls, and a CUDA graph capture
-    fails if another thread works on the card meanwhile.  A stream takes
-    the lock for each segment and owns its key's buffers, out of the kept
-    ones, from its first segment until it ends or is closed."""
+    fails if another thread works on the card meanwhile, so every generator
+    on one device shares one lock (``device_lock``): two models in one
+    process take turns.  A stream takes the lock for each segment and owns
+    its key's buffers, out of the kept ones, from its first segment until it
+    ends or is closed."""
 
     def __init__(self, params, config: DiaConfig, compute_dtype: str = "float32",
                  device: str | torch.device = "cuda"):
@@ -663,7 +690,7 @@ class DiaGenerator:
         self.compute_dtype = compute_dtype
         self.device = torch.device(device)
         self._graphs: OrderedDict[tuple, LoopBuffers] = OrderedDict()
-        self.lock = threading.RLock()
+        self.lock = device_lock(self.device)
         self.last_stats: GenerationStats | None = None  # the last call's, for callers that report
 
     def _loop(self, loop: str | None) -> str:
@@ -680,7 +707,8 @@ class DiaGenerator:
         ``GRAPH_CACHE`` most recently used kept; fresh ones for the eager
         loop.  The key holds every shape and constant a captured step
         depends on: streams, self-cache length, cross window, int8 caches,
-        the ``Sampling`` scalars, last (the params are the generator's own).
+        and last ``Sampling.graph_key`` (greedy or not, top-k; the params
+        are the generator's own).
         ``own``: taken out of the kept ones until ``_release``."""
         if loop != "graph":
             return LoopBuffers()
@@ -727,7 +755,7 @@ class DiaGenerator:
         if kv_int8 is None:
             kv_int8 = decoder_is_packed(self.params)
         key = (1, cache_len, cross_window, kv_int8, Sampling(
-            cfg_scale, temperature, top_p, cfg_filter_top_k))
+            cfg_scale, temperature, top_p, cfg_filter_top_k).graph_key())
         buffers = self._buffers(loop, key, own)
         generator = None
         if temperature != 0.0:
@@ -770,8 +798,8 @@ class DiaGenerator:
         cross caches; None = on iff the decoder's kernels are packed.
         ``loop``: ``"graph"`` (the default on the card) replays the decode
         loop from CUDA graphs, captured once per key (streams, cache length,
-        cross window, int8 caches, sampling scalars) and kept for later calls
-        of that key; ``"eager"`` (the default on the CPU) steps from Python.
+        cross window, int8 caches, greedy or not, top-k) and kept for later
+        calls of that key; ``"eager"`` (the default on the CPU) steps from Python.
         Both run the same kernels in the same order (``loop_step``).  The
         call's ``GenerationStats`` land in ``last_stats``."""
         d = self.config.data
@@ -935,7 +963,7 @@ class DiaGenerator:
             self_len = _cache_len_for(cache_len or int(caps.max()), start, cfg)
             cross_window = max(_cross_window_for(c, cfg) or d.text_length for c in conds)
             buffers = self._buffers(loop, (N, self_len, cross_window, kv_int8, Sampling(
-                cfg_scale, temperature, top_p, cfg_filter_top_k)))
+                cfg_scale, temperature, top_p, cfg_filter_top_k).graph_key()))
             generators = None
             if temperature != 0.0:
                 generators = buffers.generators(self.device, seed_list)

@@ -15,8 +15,9 @@ Snake → Conv1d, then residual VQ with an L2-normalized nearest-neighbour
 lookup per codebook.  The same fp32 rule holds (TF32 off).
 
 Weights come from the flattened ``dac.safetensors`` a model directory
-carries (the JAX package's ``save_pretrained`` layout) or from a numpy seed.
-Converting a published torch DAC checkpoint is not ported yet.
+carries (the JAX package's ``save_pretrained`` layout), from a published
+torch DAC checkpoint (``convert_dac_torch_state_dict``: descript-audio-codec
+naming, weight norm folded on the host in float32) or from a numpy seed.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -271,3 +272,139 @@ def init_dac_params(config: DACConfig, seed: int = 0,
     for q in params["quantizer"]["quantizers"]:
         q["in_proj"] = init.conv(config.codebook_dim, config.latent_dim, 1)
     return params
+
+
+# ---------------------------------------------------------------------------
+# torch DAC checkpoints (the JAX package's models/dac.py:338-488)
+# ---------------------------------------------------------------------------
+
+
+def _host(v) -> np.ndarray:
+    """A checkpoint value (tensor of any float dtype, or array) as float32 numpy."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().float().numpy()
+    return np.asarray(v, np.float32)
+
+
+def _fold_weight_norm(sd: Mapping[str, np.ndarray], prefix: str) -> np.ndarray:
+    """torch ``weight_norm`` (``weight_g``, ``weight_v``) folded into one
+    kernel: W = g · v / max(‖v‖, 1e-12), the norm over every axis but 0, in
+    float32 (the JAX ``_fold_weight_norm``, :338)."""
+    g = np.asarray(sd[f"{prefix}.weight_g"])
+    v = np.asarray(sd[f"{prefix}.weight_v"])
+    norm = np.sqrt(np.sum(v ** 2, axis=tuple(range(1, v.ndim)), keepdims=True))
+    return (g * v / np.maximum(norm, 1e-12)).astype(np.float32)
+
+
+def _conv_from_sd(sd, prefix, t) -> Params:
+    w = (_fold_weight_norm(sd, prefix) if f"{prefix}.weight_g" in sd
+         else np.asarray(sd[f"{prefix}.weight"], np.float32))
+    bias_key = f"{prefix}.bias"
+    if bias_key not in sd:
+        # every conv of the published checkpoints has one; Conv1d and
+        # ConvTranspose1d keep their output channels on different axes, so a
+        # zero bias cannot be shaped from the kernel alone
+        raise KeyError(f"Missing DAC checkpoint key: {bias_key}")
+    return {"weight": t(w), "bias": t(sd[bias_key])}
+
+
+def _alpha_from_sd(sd, prefix, t) -> Params:
+    return {"alpha": t(sd[f"{prefix}.alpha"])}
+
+
+def _res_from_sd(sd, prefix, t) -> Params:
+    return {"snake1": _alpha_from_sd(sd, f"{prefix}.block.0", t),
+            "conv1": _conv_from_sd(sd, f"{prefix}.block.1", t),
+            "snake2": _alpha_from_sd(sd, f"{prefix}.block.2", t),
+            "conv2": _conv_from_sd(sd, f"{prefix}.block.3", t)}
+
+
+def convert_dac_torch_state_dict(state_dict: Mapping[str, Any], config: DACConfig,
+                                 device: str | torch.device = "cuda") -> Params:
+    """A published torch DAC checkpoint (descript-audio-codec naming:
+    ``encoder.block.{i}``, ``decoder.model.{i}``, ``quantizer.quantizers.{i}``;
+    plain or weight-norm convs) → this module's param tree, float32 tensors
+    on ``device`` in the layout ``decode_codes`` / ``encode_audio`` take (the
+    JAX ``convert_dac_torch_state_dict``, :429).  Weight norm is folded on
+    the host first."""
+    sd = {k: _host(v) for k, v in state_dict.items()}
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)  # a copy: writable, own
+
+    n_enc, n_dec = len(config.encoder_rates), len(config.decoder_rates)
+    enc_blocks = [{"res1": _res_from_sd(sd, f"encoder.block.{b + 1}.block.0", t),
+                   "res2": _res_from_sd(sd, f"encoder.block.{b + 1}.block.1", t),
+                   "res3": _res_from_sd(sd, f"encoder.block.{b + 1}.block.2", t),
+                   "snake": _alpha_from_sd(sd, f"encoder.block.{b + 1}.block.3", t),
+                   "conv": _conv_from_sd(sd, f"encoder.block.{b + 1}.block.4", t)}
+                  for b in range(n_enc)]
+    dec_blocks = [{"snake": _alpha_from_sd(sd, f"decoder.model.{b + 1}.block.0", t),
+                   "conv_t": _conv_from_sd(sd, f"decoder.model.{b + 1}.block.1", t),
+                   "res1": _res_from_sd(sd, f"decoder.model.{b + 1}.block.2", t),
+                   "res2": _res_from_sd(sd, f"decoder.model.{b + 1}.block.3", t),
+                   "res3": _res_from_sd(sd, f"decoder.model.{b + 1}.block.4", t)}
+                  for b in range(n_dec)]
+    quantizers = [{"in_proj": _conv_from_sd(sd, f"quantizer.quantizers.{i}.in_proj", t),
+                   "out_proj": _conv_from_sd(sd, f"quantizer.quantizers.{i}.out_proj", t),
+                   "codebook": {"embedding": t(sd[f"quantizer.quantizers.{i}.codebook.weight"])}}
+                  for i in range(config.n_codebooks)]
+    return {
+        "encoder": {"stem": _conv_from_sd(sd, "encoder.block.0", t), "blocks": enc_blocks,
+                    "snake": _alpha_from_sd(sd, f"encoder.block.{n_enc + 1}", t),
+                    "head": _conv_from_sd(sd, f"encoder.block.{n_enc + 2}", t)},
+        "decoder": {"stem": _conv_from_sd(sd, "decoder.model.0", t), "blocks": dec_blocks,
+                    "snake": _alpha_from_sd(sd, f"decoder.model.{n_dec + 1}", t),
+                    "head": _conv_from_sd(sd, f"decoder.model.{n_dec + 2}", t)},
+        "quantizer": {"quantizers": quantizers},
+    }
+
+
+def to_dac_torch_state_dict(params: Params, config: DACConfig) -> dict[str, np.ndarray]:
+    """The inverse of ``convert_dac_torch_state_dict``: this module's params
+    in descript-audio-codec naming, plain weights (no weight norm), float32
+    numpy (the JAX ``to_dac_torch_state_dict``, :379)."""
+    sd: dict[str, np.ndarray] = {}
+
+    def put_conv(prefix, p):
+        sd[f"{prefix}.weight"] = _host(p["weight"])
+        sd[f"{prefix}.bias"] = _host(p["bias"])
+
+    def put_res(prefix, p):
+        sd[f"{prefix}.block.0.alpha"] = _host(p["snake1"]["alpha"])
+        put_conv(f"{prefix}.block.1", p["conv1"])
+        sd[f"{prefix}.block.2.alpha"] = _host(p["snake2"]["alpha"])
+        put_conv(f"{prefix}.block.3", p["conv2"])
+
+    enc = params["encoder"]
+    put_conv("encoder.block.0", enc["stem"])
+    for b, blk in enumerate(enc["blocks"]):
+        pre = f"encoder.block.{b + 1}"
+        put_res(f"{pre}.block.0", blk["res1"])
+        put_res(f"{pre}.block.1", blk["res2"])
+        put_res(f"{pre}.block.2", blk["res3"])
+        sd[f"{pre}.block.3.alpha"] = _host(blk["snake"]["alpha"])
+        put_conv(f"{pre}.block.4", blk["conv"])
+    n_enc = len(config.encoder_rates)
+    sd[f"encoder.block.{n_enc + 1}.alpha"] = _host(enc["snake"]["alpha"])
+    put_conv(f"encoder.block.{n_enc + 2}", enc["head"])
+
+    dec = params["decoder"]
+    put_conv("decoder.model.0", dec["stem"])
+    for b, blk in enumerate(dec["blocks"]):
+        pre = f"decoder.model.{b + 1}"
+        sd[f"{pre}.block.0.alpha"] = _host(blk["snake"]["alpha"])
+        put_conv(f"{pre}.block.1", blk["conv_t"])
+        put_res(f"{pre}.block.2", blk["res1"])
+        put_res(f"{pre}.block.3", blk["res2"])
+        put_res(f"{pre}.block.4", blk["res3"])
+    n_dec = len(config.decoder_rates)
+    sd[f"decoder.model.{n_dec + 1}.alpha"] = _host(dec["snake"]["alpha"])
+    put_conv(f"decoder.model.{n_dec + 2}", dec["head"])
+
+    for i, q in enumerate(params["quantizer"]["quantizers"]):
+        pre = f"quantizer.quantizers.{i}"
+        put_conv(f"{pre}.in_proj", q["in_proj"])
+        put_conv(f"{pre}.out_proj", q["out_proj"])
+        sd[f"{pre}.codebook.weight"] = _host(q["codebook"]["embedding"])
+    return sd

@@ -17,9 +17,9 @@ requests are coalesced into one ``Dia.generate_batch`` call.
   events.
 * ``stats`` counts requests, groups, batched requests and the largest group,
   and the CUDA graph captures the groups made (``captures``,
-  ``capture_seconds``): a group's stream count and sampling scalars are part
-  of the decode loop's graph key, and only ``generate.GRAPH_CACHE`` keys
-  are kept.
+  ``capture_seconds``): a group's stream count, greedy or not and top-k are
+  part of the decode loop's graph key, and only ``generate.GRAPH_CACHE``
+  keys are kept.
 
 One worker is enough: the card runs one call's device work at a time
 (``DiaGenerator.lock``), so more workers would only queue there.

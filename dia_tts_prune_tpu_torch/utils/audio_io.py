@@ -2,10 +2,12 @@
 
 The reference uses torchaudio + soundfile (dia/model.py:546-595).  Here WAV
 files are read and written with the stdlib ``wave`` module (8/16/24/32-bit
-PCM in, 16-bit PCM out), resampled with scipy's polyphase filter and sped up
-or slowed down by linear interpolation (``speed_change``) — host work, no
-kernel.  The JAX package's FLAC/mp3/ogg readers and writers and its native
-helpers are not ported: any other format raises, naming WAV.
+PCM in, 16-bit PCM out), FLAC with the in-repo codec (``utils/flac.py``),
+resampled with scipy's polyphase filter and sped up or slowed down by linear
+interpolation (``speed_change``) — host work, no kernel.  mp3, ogg and m4a
+need the JAX package's native codec shim, which is not ported: reading or
+writing them raises a ``ValueError`` that says so.  The optional
+``soundfile`` and ``ffmpeg`` readers are not ported either.
 """
 
 from __future__ import annotations
@@ -64,14 +66,22 @@ def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
 
 
 def read_audio(path: str | Path) -> tuple[np.ndarray, int]:
-    """Read an audio file → (float32 [C, T] in [-1, 1], sample_rate).  WAV only."""
+    """Read an audio file → (float32 [C, T] in [-1, 1], sample_rate), by its
+    magic bytes as the JAX ``read_audio`` (:153-187): ``RIFF`` is WAV,
+    ``fLaC`` is FLAC; anything else raises."""
     p = Path(path)
     with p.open("rb") as f:
         head = f.read(4)
-    if head != b"RIFF":
-        raise ValueError(f"Unsupported audio format for {p}: this package reads WAV only; "
-                         "convert the file to .wav")
-    return read_wav(p)
+    if head == b"RIFF":
+        return read_wav(p)
+    if head == b"fLaC":
+        from .flac import read_flac
+
+        return read_flac(p)
+    suffix = p.suffix or "<no extension>"
+    raise ValueError(f"Unsupported audio format {suffix!r} for {p}: this package reads WAV and "
+                     "FLAC; mp3, ogg and m4a wait for the native codec shim, which is not "
+                     "ported. Convert the file to .wav or .flac.")
 
 
 def to_mono(audio_CxT: np.ndarray) -> np.ndarray:
@@ -111,3 +121,25 @@ def speed_change(audio: np.ndarray, speed_factor: float) -> np.ndarray:
     x_out = np.linspace(0, audio.shape[-1] - 1, n_out)
     x_in = np.arange(audio.shape[-1])
     return np.interp(x_out, x_in, audio).astype(np.float32)
+
+
+def write_audio(path: str | Path, audio: np.ndarray,
+                sample_rate: int = DEFAULT_SAMPLE_RATE) -> None:
+    """Write audio by extension (the JAX ``write_audio``, :229-260): .wav
+    (or none) as 16-bit PCM WAV, .flac with the in-repo codec.  .mp3, .ogg,
+    .opus, .m4a and .aac need the native codec shim, which is not ported;
+    they raise, as any other extension does."""
+    p = Path(path)
+    ext = p.suffix.lower()
+    if ext in ("", ".wav"):
+        write_wav(p, audio, sample_rate)
+        return
+    if ext == ".flac":
+        from .flac import write_flac
+
+        write_flac(p, np.asarray(audio), sample_rate)
+        return
+    if ext in (".mp3", ".ogg", ".opus", ".m4a", ".aac"):
+        raise ValueError(f"{ext} export needs the native codec shim, which this package does "
+                         f"not have; write {p.stem}.wav or {p.stem}.flac instead")
+    raise ValueError(f"Unsupported audio output format {ext!r}: use .wav or .flac")

@@ -127,9 +127,9 @@ def test_load_audio_mono_equals_jax(tmp_path, width, channels, rate):
 
 
 def test_other_formats_raise(tmp_path):
-    p = tmp_path / "x.flac"
-    p.write_bytes(b"fLaC" + bytes(40))
-    with pytest.raises(ValueError, match="WAV only"):
+    p = tmp_path / "x.ogg"  # WAV and FLAC read (tests/test_torch_files.py); ogg does not
+    p.write_bytes(b"OggS" + bytes(40))
+    with pytest.raises(ValueError, match="reads WAV and FLAC"):
         taudio.load_audio_mono(p)
 
 

@@ -876,9 +876,9 @@ def test_graph_codes_equal_eager_codes(cuda_device, route, temperature):
 @pytest.mark.gpu
 def test_graph_second_call_of_a_key_captures_nothing_new(cuda_device):
     """A second call with the same key (streams, cache length, cross window,
-    caches, sampling scalars) replays the kept graph: no capture, no step
-    launched from the host, the same graph object, and the same codes; a
-    call with other sampling scalars captures its own."""
+    caches, greedy or not, top-k) replays the kept graph: no capture, no
+    step launched from the host, the same graph object, and the same codes;
+    a sampled call captures its own."""
     dia = _graph_model(cuda_device, "float")
     kw = dict(max_tokens=80, temperature=0.0)
     first = _graph_run(dia, "float", None, **kw)
@@ -891,6 +891,67 @@ def test_graph_second_call_of_a_key_captures_nothing_new(cuda_device):
     np.testing.assert_array_equal(again[0], first[0])
     _graph_run(dia, "float", None, max_tokens=80, temperature=1.3)
     assert len(dia.generator._graphs) == len(graphs) + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["float", "batched"])
+def test_graph_key_spans_the_sampling_values(cuda_device, route):
+    """Calls that differ only in ``cfg_scale``, ``temperature`` and
+    ``top_p`` (one top-k) replay one graph: the second captures nothing and
+    launches no step from the host, and each call's codes equal those of a
+    fresh model's first call at its values, bit for bit."""
+    dia = _graph_model(cuda_device, route)
+    triples = [dict(cfg_scale=3.0, temperature=1.3, top_p=0.95),
+               dict(cfg_scale=2.0, temperature=0.9, top_p=0.8)]
+    codes, captures = [], []
+    for t in triples:
+        codes.append(_graph_run(dia, route, None, max_tokens=80, cfg_filter_top_k=35, **t))
+        captures.append(dia.generator.last_stats.captures)
+        assert dia.generator.last_stats.loop == "graph"
+    assert captures[0] > 0 and captures[1] == 0 and len(dia.generator._graphs) == 1
+    assert dia.generator.last_stats.host_steps == 0
+    for t, got in zip(triples, codes):
+        fresh = _graph_run(_graph_model(cuda_device, route), route, None, max_tokens=80,
+                           cfg_filter_top_k=35, **t)
+        for f, g in zip(fresh, got):
+            np.testing.assert_array_equal(g, f)
+    _graph_run(dia, route, None, max_tokens=80, cfg_filter_top_k=30, **triples[0])
+    assert dia.generator.last_stats.captures > 0 and len(dia.generator._graphs) == 2
+
+
+@pytest.mark.gpu
+def test_two_models_from_two_threads_get_their_solo_codes(cuda_device):
+    """Two models in one process share their device's lock, so their
+    captures never overlap: two threads a model, each on a cold key, get the
+    codes each call gets alone."""
+    import threading
+
+    models = [_graph_model(cuda_device, "float"), _graph_model(cuda_device, "int8")]
+    assert models[0].generator.lock is models[1].generator.lock
+    text = "[S1] The birch canoe slid. [S2]"
+    jobs = [(m, seed) for m in range(2) for seed in (1, 2)]
+    kw = dict(max_tokens=120, temperature=1.3)
+    solo = {(m, seed): models[m].generator.generate_tokens(text, seed=seed, **kw)
+            for m, seed in jobs}
+    for model in models:
+        model.generator._graphs.clear()  # every thread starts on a cold key
+    results, errors = {}, []
+
+    def call(job):
+        try:
+            m, seed = job
+            results[job] = models[m].generator.generate_tokens(text, seed=seed, **kw)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=(job,)) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    for job in jobs:
+        np.testing.assert_array_equal(results[job], solo[job])
 
 
 @pytest.mark.gpu

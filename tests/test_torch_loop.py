@@ -237,3 +237,47 @@ def test_graph_loop_needs_the_card():
         dia.generate_codes("[S1] Hi.", max_tokens=20, temperature=0.0, loop="graph")
     with pytest.raises(ValueError, match="loop"):
         dia.generate_codes("[S1] Hi.", max_tokens=20, temperature=0.0, loop="scan")
+
+
+@pytest.mark.parametrize("a,b,same", [
+    ((3.0, 1.3, 0.95, 35), (2.0, 0.9, 0.8, 35), True),  # sampled: only top-k shapes a step
+    ((3.0, 0.0, 0.95, 35), (1.0, 0.0, 0.5, 35), True),  # greedy
+    ((3.0, 1.3, 0.95, 35), (3.0, 1.3, 0.95, 30), False),
+    ((3.0, 1.3, 0.95, 35), (3.0, 0.0, 0.95, 35), False),
+])
+def test_graph_key_is_greedy_and_top_k(monkeypatch, a, b, same):
+    """A kept graph's key holds greedy-or-not and the top-k, not the
+    ``cfg_scale`` / ``temperature`` / ``top_p`` values, which ride in
+    ``LoopState`` tensors: the keys the solo and lockstep calls ask
+    ``_buffers`` for."""
+    assert tgen.Sampling(*a).graph_key() == (a[1] == 0.0, a[3])
+    assert (tgen.Sampling(*a).graph_key() == tgen.Sampling(*b).graph_key()) == same
+    dia = Dia.from_pretrained(FIXTURES / "trained_small", device="cpu")
+    gen = dia.generator
+    asked = []
+    buffers = gen._buffers
+    monkeypatch.setattr(gen, "_buffers", lambda loop, key, own=False: (
+        asked.append(key), buffers(loop, key, own))[1])
+    for cfg_scale, temperature, top_p, top_k in (a, b):
+        kw = dict(max_tokens=12, cfg_scale=cfg_scale, temperature=temperature, top_p=top_p,
+                  cfg_filter_top_k=top_k, seed=0)
+        gen.generate_tokens("[S1] Hi.", **kw)
+        gen.generate_tokens_batch(["[S1] Hi.", "[S2] Yo."], **kw)
+    solo_a, batch_a, solo_b, batch_b = asked
+    assert solo_a[-1] == batch_a[-1] == tgen.Sampling(*a).graph_key()
+    assert (solo_a == solo_b) == same and (batch_a == batch_b) == same
+
+
+def test_generators_on_one_device_share_one_lock():
+    """Two models in one process take turns on a device: a capture fails if
+    another thread works on the card meanwhile, whatever model it serves."""
+    a = Dia.from_pretrained(FIXTURES / "trained_small", device="cpu")
+    b = Dia.from_pretrained(FIXTURES / "trained_small", device="cpu")
+    assert a.generator.lock is b.generator.lock is tgen.device_lock("cpu")
+    assert tgen.device_lock(torch.device("cpu")) is tgen.device_lock("cpu")
+    assert tgen.device_lock("meta") is not tgen.device_lock("cpu")
+    a.quantize_int8()  # a rebuilt generator keeps the device's lock
+    assert a.generator.lock is b.generator.lock
+    with a.generator.lock:
+        assert b.generator.lock.acquire(blocking=False)  # re-entrant in the holding thread
+        b.generator.lock.release()

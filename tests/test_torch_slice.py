@@ -78,9 +78,9 @@ def test_cli_writes_wav(tmp_path):
     from dia_tts_prune_tpu_torch.cli import main
 
     out = tmp_path / "x.wav"
-    rc = main(["--model-path", str(FIXTURES / "trained_small"), "--text", "[S1] Hello.",
-               "--out", str(out), "--device", "cpu", "--compute-dtype", "float32",
-               "--temperature", "0", "--max-tokens", "64"])
+    rc = main(["[S1] Hello.", "--output", str(out), "--model-path", str(FIXTURES / "trained_small"),
+               "--device", "cpu", "--compute-dtype", "float32", "--temperature", "0",
+               "--max-tokens", "64"])
     assert rc == 0
     with wave.open(str(out)) as f:
         assert f.getframerate() == 44100 and f.getsampwidth() == 2 and f.getnframes() > 0
@@ -106,7 +106,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 for name in ("ops.quant", "ops.kernels.int8_matmul", "ops.kernels.int4_gemv", "train", "lora",
              "finetune", "data", "utils.audio_io", "utils.prefetch", "checkpoint", "prune",
-             "offline_prune", "ops.sparse", "ops.kernels.sparse_matmul"):
+             "offline_prune", "ops.sparse", "ops.kernels.sparse_matmul", "utils.flac", "datagen",
+             "cli"):
     assert pkg.__name__ + "." + name in sys.modules, name
 dia = pkg.Dia.from_pretrained("tests/fixtures/trained_small", device="cpu")
 from dia_tts_prune_tpu_torch.train import TrainConfig, Trainer, build_train_batch
