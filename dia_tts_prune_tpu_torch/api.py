@@ -13,6 +13,9 @@ last 16 encodings; ``load_dac`` loads a published torch DAC checkpoint;
 block-sparse kernels (pruned blocks are never read); ``generate_batch``
 decodes N texts in one loop;
 ``generate_stream`` yields audio chunks while the decode loop goes on;
+``generate_codes(speculative=W)`` / ``generate(speculative=W)`` decode with
+layer-skip drafts and a one-pass verify window (``speculative.py``; greedy
+codes equal the loop's), ``speculative_generator`` returns that generator;
 ``load_adapter_weights`` / ``unload_adapter`` / ``set_adapter`` fuse a LoRA
 adapter into the weights and take it out again; ``save_pretrained`` writes a
 model directory both packages load.  Everything runs on ``device``, ``"cuda"``
@@ -135,6 +138,7 @@ class Dia:
         self._active_adapter = None
         self._audio_cache: OrderedDict = OrderedDict()  # (path, mtime_ns, size) → codes
         self.generator = DiaGenerator(params, config, compute_dtype, self.device)
+        self._spec_key, self._spec_gen = None, None  # speculative_generator's cache
 
     @classmethod
     def from_local(cls, config_path: str | Path, checkpoint_path: str | Path,
@@ -254,24 +258,52 @@ class Dia:
         out[s * hop:] = w[(s - (T - W)) * hop:]
         return out
 
-    def generate_codes(self, text: str, **kwargs) -> np.ndarray:
-        """Text → undelayed codec tokens [T, C] (no codec decode)."""
+    def speculative_generator(self, window: int = 8, n_draft_layers: int | None = None):
+        """The speculative-decoding generator over the current params
+        (``speculative.SpeculativeGenerator``: the first ``n_draft_layers``
+        layers draft, default ``max(1, L // 3)``, one window pass verifies),
+        on this model's generator: its lock and its kept CUDA graphs.  Kept
+        for one (window, draft layers) until the params are swapped."""
+        from .speculative import SpeculativeGenerator
+
+        key = (int(window), n_draft_layers, id(self.params))
+        if self._spec_key != key:
+            self._spec_gen = SpeculativeGenerator(
+                self.params, self.config, self.compute_dtype, n_draft_layers=n_draft_layers,
+                window=int(window), device=self.device, generator=self.generator)
+            self._spec_key = key
+        return self._spec_gen
+
+    def generate_codes(self, text: str, speculative: bool | int = False,
+                       spec_draft_layers: int | None = None, **kwargs) -> np.ndarray:
+        """Text → undelayed codec tokens [T, C] (no codec decode).
+        ``speculative``: ``True`` (window 8) or an int window decodes through
+        ``speculative_generator`` (``spec_draft_layers`` drafting layers):
+        greedy codes equal the loop's, sampled ones are draws from the same
+        distribution.  ``kwargs`` as ``DiaGenerator.generate_tokens`` takes them."""
+        if speculative:
+            window = 8 if speculative is True else int(speculative)
+            gen = self.speculative_generator(window, spec_draft_layers)
+            return gen.generate_tokens(text, **kwargs)
         return self.generator.generate_tokens(text, **kwargs)
 
     def generate(self, text: str, max_tokens: int | None = None, cfg_scale: float = 3.0,
                  temperature: float = 1.3, top_p: float = 0.95, cfg_filter_top_k: int = 35,
                  audio_prompt: np.ndarray | None = None, audio_prompt_text: str | None = None,
-                 seed: int | None = None, verbose: bool = False) -> np.ndarray | None:
+                 seed: int | None = None, verbose: bool = False, speculative: bool | int = False,
+                 spec_draft_layers: int | None = None) -> np.ndarray | None:
         """Text → waveform (float32 [T_audio]), None when nothing was generated.
         ``audio_prompt`` is a WAV or FLAC path (encoded by ``load_audio``) or
-        a pre-encoded [T, C] code array."""
+        a pre-encoded [T, C] code array; ``speculative`` as in
+        ``generate_codes``."""
         if isinstance(audio_prompt, (str, Path)):
             audio_prompt = self.load_audio(audio_prompt)
         codes = self.generate_codes(
             text, max_tokens=max_tokens, cfg_scale=cfg_scale, temperature=temperature,
             top_p=top_p, cfg_filter_top_k=cfg_filter_top_k,
             audio_prompt_codes=None if audio_prompt is None else np.asarray(audio_prompt),
-            audio_prompt_text=audio_prompt_text, seed=seed, verbose=verbose)
+            audio_prompt_text=audio_prompt_text, seed=seed, verbose=verbose,
+            speculative=speculative, spec_draft_layers=spec_draft_layers)
         if codes.shape[0] == 0:
             return None
         return self._decode_waveform(codes)
@@ -336,6 +368,7 @@ class Dia:
         the replaced tensors alive: their device memory is freed here."""
         self.params = params
         self.generator = DiaGenerator(params, self.config, self.compute_dtype, self.device)
+        self._spec_key, self._spec_gen = None, None
 
     def quantize_int8(self, fused: bool = False, fused_mlp_int4: bool = False) -> None:
         """Swap the decoder's dense kernels to packed int8 (values +

@@ -9,6 +9,13 @@
 // length of the row), and a row with an empty range (the CFG unconditional
 // row, whose text is all padding) writes exact zeros.
 //
+// Window form (speculative decoding's verify pass, models/dia.py::
+// decode_step on W rows): W query rows per cache row.  q, start, end and out have
+// B*W rows, the caches B, and query row r reads cache row r / W — one index
+// in the kernel (grid (CLUSTER, Nkv, B*W)), so query row r computes what a
+// one-query call over the same cache row and range computes, bit for bit.
+// Float caches only, and no current token.
+//
 // What bounds it on the H100: bytes.  Per step and layer it reads the valid
 // K/V slots once (2 * valid * Nkv * H elements) and does ~4 FLOP per element
 // read per query head in the group — about 1-2 FLOP/byte, two orders of
@@ -157,8 +164,9 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// grid (CLUSTER, Nkv, B), clusters of (CLUSTER, 1, 1), NT threads.  C is the
-// cache's element type: T, or int8_t with the slot scales ks, vs [B, Tc, Nkv].
+// grid (CLUSTER, Nkv, B*W), clusters of (CLUSTER, 1, 1), NT threads: query row
+// r = blockIdx.z reads cache row r / W.  C is the cache's element type: T, or
+// int8_t with the slot scales ks, vs [B, Tc, Nkv] (then W == 1).
 // GT >= G = Nq / Nkv query heads per kv head are held in registers (heads
 // g >= G are zeros and never written).
 template <typename T, typename C, int H, int GT>
@@ -168,7 +176,7 @@ decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ kc,
                         const float* __restrict__ vs, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, const int* __restrict__ start,
                         const int* __restrict__ end, T* __restrict__ out, int Tc, int Nq,
-                        int Nkv, float scale) {
+                        int Nkv, int W, float scale) {
   using Gm = Geom<C, H>;
   using Sm = Smem<C, H, GT>;
   constexpr int EPL = Gm::EPL, LPS = Gm::LPS, SPI = Gm::SPI, SPS = Gm::SPS;
@@ -186,15 +194,15 @@ decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ kc,
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int nk = blockIdx.y, b = blockIdx.z;
+  const int nk = blockIdx.y, r = blockIdx.z, b = r / W;  // query row, its cache row
   const int G = Nq / Nkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int u = lane % LPS;    // the unit of a slot's row this lane copies
   const int sub = lane / LPS;  // its slot within a warp-wide copy
 
   // this warp's share of this block's share of the row's range
-  const int lo = max(start[b], 0);
-  const int n = max(min(end[b], Tc) - lo, 0);
+  const int lo = max(start[r], 0);
+  const int n = max(min(end[r], Tc) - lo, 0);
   const int r0 = lo + n * rank / CLUSTER, nb = lo + n * (rank + 1) / CLUSTER - r0;
   const int w0 = r0 + nb * warp / NWARPS, w1 = r0 + nb * (warp + 1) / NWARPS;
   const int nst = (w1 - w0 + SPS - 1) / SPS;
@@ -204,7 +212,7 @@ decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ kc,
   for (int g = 0; g < GT; ++g)
 #pragma unroll
     for (int e = 0; e < EPL; ++e)
-      qf[g][e] = g < G ? to_f(q[((size_t)b * Nq + nk * G + g) * H + u * EPL + e]) : 0.f;
+      qf[g][e] = g < G ? to_f(q[((size_t)r * Nq + nk * G + g) * H + u * EPL + e]) : 0.f;
 
   const size_t slot_stride = (size_t)Nkv * H;
   const C* kb = kc + ((size_t)b * Tc * Nkv + nk) * H + u * EPL;
@@ -327,7 +335,7 @@ decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ kc,
   }
   // rank 0: the current token's score for head g (warp g; G <= NWARPS)
   if (k_new != nullptr && rank == 0 && warp < G) {
-    const T* qg = q + ((size_t)b * Nq + nk * G + warp) * H;
+    const T* qg = q + ((size_t)r * Nq + nk * G + warp) * H;
     const T* kn = k_new + ((size_t)b * Nkv + nk) * H;
     float d = 0.f;
 #pragma unroll
@@ -389,7 +397,7 @@ decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ kc,
         den += e;
       }
       // empty range and no current token: num == 0 -> exact zero
-      out[((size_t)b * Nq + nk * G + g) * H + d] = from_f<T>(num / fmaxf(den, 1e-30f));
+      out[((size_t)r * Nq + nk * G + g) * H + d] = from_f<T>(num / fmaxf(den, 1e-30f));
     }
   }
   cluster.sync();  // no block leaves while rank 0 may still read its shared memory
@@ -398,7 +406,7 @@ decode_attention_kernel(const T* __restrict__ q, const C* __restrict__ kc,
 struct Args {
   const void *q, *kc, *vc, *ks, *vs, *k_new, *v_new, *start, *end;
   void* out;
-  int B, Tc, Nq, Nkv;
+  int B, Tc, Nq, Nkv, W;
   cudaStream_t stream;
 };
 
@@ -417,7 +425,7 @@ cudaError_t launch(const Args& a) {
     if (dev < 64) configured |= 1ull << dev;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER, a.Nkv, a.B);
+  cfg.gridDim = dim3(CLUSTER, a.Nkv, a.B * a.W);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
@@ -433,7 +441,7 @@ cudaError_t launch(const Args& a) {
                            static_cast<const float*>(a.vs), static_cast<const T*>(a.k_new),
                            static_cast<const T*>(a.v_new), static_cast<const int*>(a.start),
                            static_cast<const int*>(a.end), static_cast<T*>(a.out), a.Tc, a.Nq,
-                           a.Nkv, LOG2E / sqrtf((float)H));
+                           a.Nkv, a.W, LOG2E / sqrtf((float)H));
   const cudaError_t last = cudaGetLastError();  // clear it: the next entry's check reads it
   return err != cudaSuccess ? err : last;
 }
@@ -466,23 +474,26 @@ cudaError_t dispatch_cache(bool kv_int8, int H, int G, const Args& a) {
 
 }  // namespace
 
-// q [B,Nq,H] (dtype 0 = float32, 1 = bfloat16), start/end int32 [B], out
-// [B,Nq,H] in q's dtype.  Caches [B,Tc,Nkv,H], 16-byte aligned: in q's dtype
-// (kv_int8 = 0; ks, vs null), or int8 with fp32 slot scales ks, vs [B,Tc,Nkv]
-// (kv_int8 = 1).  k_new, v_new [B,Nkv,H] in q's dtype: one more token that
-// every row attends besides its slot range, or both null.  All contiguous.
-// Requires Nq / Nkv <= 4 (NWARPS).  One launch; returns its cudaError_t.
+// q [B*W,Nq,H] (dtype 0 = float32, 1 = bfloat16), start/end int32 [B*W], out
+// [B*W,Nq,H] in q's dtype: W query rows per cache row, query row r reading
+// cache row r / W (W = 1: one query a row).  Caches [B,Tc,Nkv,H], 16-byte
+// aligned: in q's dtype (kv_int8 = 0; ks, vs null), or int8 with fp32 slot
+// scales ks, vs [B,Tc,Nkv] (kv_int8 = 1, W = 1).  k_new, v_new [B,Nkv,H] in
+// q's dtype: one more token that every row attends besides its slot range, or
+// both null (W = 1 only).  All contiguous.  Requires Nq / Nkv <= 4 (NWARPS)
+// and B*W <= 65535.  One launch; returns its cudaError_t.
 extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* vc,
                                     const void* ks, const void* vs, const void* k_new,
                                     const void* v_new, const void* start, const void* end,
                                     void* out, int B, int Tc, int Nq, int Nkv, int H, int dtype,
-                                    int kv_int8, void* stream) {
-  if (B <= 0 || Tc <= 0 || Nkv <= 0 || Nq % Nkv != 0 || Nq / Nkv > NWARPS ||
+                                    int kv_int8, int W, void* stream) {
+  if (B <= 0 || Tc <= 0 || Nkv <= 0 || Nq % Nkv != 0 || Nq / Nkv > NWARPS || W <= 0 ||
+      (long long)B * W > 65535 || (W > 1 && (kv_int8 != 0 || k_new != nullptr)) ||
       (kv_int8 != 0) != (ks != nullptr) || (ks == nullptr) != (vs == nullptr) ||
       (k_new == nullptr) != (v_new == nullptr) ||
       ((reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) & 15) != 0)
     return cudaErrorInvalidValue;
-  const Args a{q, kc, vc, ks, vs, k_new, v_new, start, end, out, B, Tc, Nq, Nkv,
+  const Args a{q, kc, vc, ks, vs, k_new, v_new, start, end, out, B, Tc, Nq, Nkv, W,
                static_cast<cudaStream_t>(stream)};
   const int G = Nq / Nkv;
   if (dtype == 0) return dispatch_cache<float>(kv_int8 != 0, H, G, a);

@@ -409,7 +409,8 @@ class LoopBuffers:
     """The tensors a decode loop runs on, and the CUDA graphs captured over
     them.  A generator keeps one per key (``DiaGenerator._buffers``): the
     first call's tensors stay, later calls copy their data in (``put``), so
-    that the graphs captured by the first call replay on every later one.
+    that the graphs captured by the first call replay on every later one
+    (the loop's, and the speculative windows' of ``speculative.py``).
     A fresh one (the eager loop) keeps nothing: ``put`` hands values back."""
 
     def __init__(self, device: torch.device | None = None):
@@ -418,6 +419,8 @@ class LoopBuffers:
         self.stream = torch.cuda.Stream(device) if self.keep else None
         self.graph = None  # GRAPH_STEPS steps
         self.step_graph = None  # one step: the rest of a segment (``segment_plan``)
+        self.windows: dict = {}  # (window, draft layers) -> one speculative window's graph
+        self.warm_windows: set = set()  # the window keys whose warm-up window has run
         self.gens: list | None = None
 
     @property

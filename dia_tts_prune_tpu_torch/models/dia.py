@@ -29,6 +29,12 @@ the JAX package's ``decode_step_scan`` (:661-745), which the port needs no
 separate function for (it has no ``lax.scan``; ``decode_step`` is the one
 step for float and packed trees alike).
 
+``decode_step(n_layers=k)`` is the early-exit draft of speculative decoding
+(the first k layers, then the shared norm and head), and ``decode_step`` on
+W token rows a stream its verify pass (the JAX ``decode_window``): the W
+rows in one pass from a cache slot on, each row computing what the step at
+its slot computes, through the decode-attention kernel's window form.
+
 A decoder packed with ``quantize_params_int8_packed(fused=True)`` carries a
 ``fused_pack``, and ``decode_step_fused`` then runs each step's whole stack
 as one kernel (``ops/kernels/fused_step.py``); prefill stays on the packed
@@ -425,21 +431,30 @@ def write_slots(write_slot, batch: int, cache_len: int,
     return slots, slots + torch.arange(0, batch * cache_len, cache_len, device=device)
 
 
+MAX_WINDOW = 32  # query rows a stream of a decode window: 2W rows stay within fixed_rows_matmul's
+
+
 def decode_step(
     params: Params,
     config: DiaConfig,
-    tgt_Bx1xC: torch.Tensor,  # [B, 1, C]
-    position: torch.Tensor,  # [B, 1] RoPE position of this token
-    write_slot,  # int, int [1] or int [B] tensor: cache slot to write (== #valid slots - 1)
+    tgt_BxWxC: torch.Tensor,  # [B, W, C]: W = 1 the loop's step, W > 1 a window
+    position: torch.Tensor,  # [B, W] RoPE positions of these tokens
+    write_slot,  # int, int [1] or int [B] tensor: cache slot of the first row (== #valid slots - 1)
     self_cache: KVCache | QuantKVCache,
     cross_cache: KVCache | QuantKVCache,
     cross_ends: torch.Tensor,  # int32 [B]: text keys per row (0 = fully masked)
     compute_dtype=torch.float32,
     valid_from: torch.Tensor | None = None,  # int32 [B]: first valid self-cache slot
+    n_layers: int | None = None,  # run only the first n layers (early exit)
 ) -> torch.Tensor:
-    """Single autoregressive decode step (reference: dia/layers.py:671-720).
+    """Autoregressive decode step (reference: dia/layers.py:671-720).
     Writes this token's K/V into slot ``write_slot`` of every layer (in
-    place) and returns logits [B, 1, C, V] fp32.
+    place) and returns logits [B, W, C, V] fp32.
+
+    ``n_layers`` (the JAX ``decode_step_scan``'s, :577) truncates the stack
+    to an early-exit draft model (``speculative.py``): only the first
+    ``n_layers`` layers run and only their cache slots are written; the
+    shared final norm and logits head give the draft's logits.
 
     Self-attention reads slots [valid_from[b], write_slot] (``valid_from``
     None: from slot 0); cross-attention reads each row's first
@@ -464,49 +479,86 @@ def decode_step(
     int8 cache) and commits at ``slot[b]``.  An int or a one-element tensor
     is every row's slot (streams in lockstep), a [B] tensor gives each row
     its own (continuous batching: each stream on its own timeline): one
-    path."""
+    path.
+
+    W > 1 token rows a stream are a window, teacher-forced (speculative
+    decoding's verify pass, the JAX ``decode_window``, :755; with
+    ``n_layers`` its draft q pass, ``decode_step_scan_window_q``, :253):
+    row ``i`` writes slot ``slot[b] + i`` and attends through it, so it
+    computes what the step at that slot computes from the same cache — on
+    the card bit for bit: per layer the W rows' K/V are committed first,
+    then each query row attends its own range through the decode-attention
+    kernel's window form, and every float product goes through
+    ``fixed_rows_matmul`` at 2W <= 64 rows.  A window takes float self and
+    cross caches only (the JAX speculative path's ``kv_quant=False``); W
+    above ``MAX_WINDOW`` raises (the JAX function has no cap)."""
     m = config.model
     eps = m.normalization_layer_epsilon
-    B = tgt_Bx1xC.shape[0]
-    dev = tgt_Bx1xC.device
+    B, W = tgt_BxWxC.shape[:2]
+    dev = tgt_BxWxC.device
     quant = isinstance(self_cache, QuantKVCache)
+    if W > 1 and (quant or isinstance(cross_cache, QuantKVCache)):
+        raise ValueError("decode_step: a window (W > 1 rows) takes float self and cross caches")
+    if W > MAX_WINDOW:
+        raise ValueError(f"decode_step: window {W} > {MAX_WINDOW} rows")
     slots, flat_slots = write_slots(write_slot, B, self_cache.k.shape[2], dev)
-    self_start = (torch.zeros(B, dtype=torch.int32, device=dev) if valid_from is None
-                  else valid_from.to(device=dev, dtype=torch.int32).contiguous())
-    self_end = (slots + (0 if quant else 1)).to(torch.int32).contiguous()
-    cross_start = torch.zeros_like(cross_ends)
+    if W > 1:  # query row (b, i) writes slot slot[b] + i and attends through it
+        offs = torch.arange(W, device=dev)
+        slots, flat_slots = ((t[:, None] + offs).reshape(B * W) for t in (slots, flat_slots))
 
-    x = _embed_channels(params, tgt_Bx1xC, compute_dtype)  # [B, 1, D]
+    def per_query(t):  # [B] -> [B·W]: each stream's value for its W query rows
+        return t if W == 1 else t.repeat_interleave(W)
+
+    self_start = (torch.zeros(B * W, dtype=torch.int32, device=dev) if valid_from is None
+                  else per_query(valid_from.to(device=dev, dtype=torch.int32)).contiguous())
+    self_end = (slots + (0 if quant else 1)).to(torch.int32).contiguous()
+    cross_end = per_query(cross_ends)
+    cross_start = torch.zeros_like(cross_end)
+
+    def rows(t):  # [B, W, ...] -> the kernel's B·W query rows
+        return t.flatten(0, 1)
+
+    x = _embed_channels(params, tgt_BxWxC, compute_dtype)  # [B, W, D]
     layers = params["decoder"]["layers"]
-    for i in range(m.decoder.n_layer):
+    for i in range(_depth(m.decoder.n_layer, n_layers)):
         lp = _layer(layers, i)
         h = rms_norm(x, lp["pre_sa_norm"]["scale"], eps)
         q, k, v = attention_qkv(lp["self_attention"], h, h, position, position,
                                 m.rope_min_timescale, m.rope_max_timescale)
         if quant:
-            k1, v1 = k[:, 0].contiguous(), v[:, 0].contiguous()
-            sa = decode_attention(q[:, 0].contiguous(), self_cache.k[i], self_cache.v[i],
+            k1, v1 = rows(k).contiguous(), rows(v).contiguous()
+            sa = decode_attention(rows(q).contiguous(), self_cache.k[i], self_cache.v[i],
                                   self_start, self_end, self_cache.ks[i], self_cache.vs[i],
-                                  k1, v1)[:, None]
+                                  k1, v1)
             _commit(self_cache, i, flat_slots, k1, v1)
         else:
-            _commit(self_cache, i, flat_slots, k[:, 0], v[:, 0])
-            sa = decode_attention(q[:, 0].contiguous(), self_cache.k[i], self_cache.v[i],
-                                  self_start, self_end)[:, None]
-        x = x + attention_out(lp["self_attention"], sa)
+            _commit(self_cache, i, flat_slots, rows(k), rows(v))
+            sa = decode_attention(rows(q).contiguous(), self_cache.k[i], self_cache.v[i],
+                                  self_start, self_end, queries_per_row=W)
+        x = x + attention_out(lp["self_attention"], sa.unflatten(0, (B, W)))
 
         h = rms_norm(x, lp["pre_ca_norm"]["scale"], eps)
         cq = dense_general(h, lp["cross_attention"]["q_proj"]["kernel"])
-        cq = rope(cq, position, m.rope_min_timescale, m.rope_max_timescale)[:, 0].contiguous()
-        ca = decode_attention(cq, cross_cache.k[i], cross_cache.v[i], cross_start, cross_ends,
-                              *(t[i] for t in cross_cache[2:]))
-        x = x + attention_out(lp["cross_attention"], ca[:, None])
+        cq = rope(cq, position, m.rope_min_timescale, m.rope_max_timescale)
+        ca = decode_attention(rows(cq).contiguous(), cross_cache.k[i], cross_cache.v[i],
+                              cross_start, cross_end, *(t[i] for t in cross_cache[2:]),
+                              queries_per_row=W)
+        x = x + attention_out(lp["cross_attention"], ca.unflatten(0, (B, W)))
 
         h = rms_norm(x, lp["pre_mlp_norm"]["scale"], eps)
         x = x + mlp_block(lp["mlp"], h)
 
     x = rms_norm(x, params["decoder"]["norm"]["scale"], eps)
     return dense_general(x, params["decoder"]["logits_dense"]["kernel"]).float()
+
+
+def _depth(n_layer: int, n_layers: int | None) -> int:
+    """The layers an early-exit pass runs: ``n_layers`` of the ``n_layer``, all of them for None."""
+    if n_layers is None:
+        return n_layer
+    if not 1 <= n_layers <= n_layer:
+        raise ValueError(f"n_layers must be in [1, {n_layer}], got {n_layers}")
+    return int(n_layers)
 
 
 def decode_step_fused(

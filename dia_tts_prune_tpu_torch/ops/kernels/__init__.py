@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version.  A wrapper counts its own launches (``<wrapper>.launches``) so a
-run can show that the main path went through the kernel."""
+run can show that the main path went through the kernel; the decode
+kernel's window form counts apart (``decode_attention.window_launches``,
+``"decode_attention_window"`` in ``launch_counts``)."""
 
 from .decode_attention import decode_attention, decode_attention_plain
 from .flash_attention import (
@@ -31,10 +33,12 @@ KERNEL_WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decod
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    decode_attention.window_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    return {**{name: fn.launches for name, fn in KERNEL_WRAPPERS.items()},
+            "decode_attention_window": decode_attention.window_launches}
 
 
 __all__ = [

@@ -30,6 +30,7 @@ KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers and spills of every kernel, kept beside the library
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -60,17 +61,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def log_path(library: Path) -> Path:
+    """The compiler output of a library's build (``lib<name>-<digest>.ptxas.txt``)."""
+    return library.with_suffix(".ptxas.txt")
+
+
 def build_all(names=KERNEL_SOURCES) -> dict[str, dict]:
     """Compile every missing library, one ``nvcc`` per source, all started
-    together.  Returns {name: {"path", "seconds", "cached"}}; raises with the
-    compiler's output if any build fails."""
+    together.  Returns {name: {"path", "seconds", "cached", "log"}}: ``log``
+    is the compiler's output with ``-Xptxas -v`` (registers and spills of
+    every kernel), saved beside the library when it was built and read back
+    when it is cached; raises with the compiler's output if any build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     result: dict[str, dict] = {}
     running = []
     for name in names:
         out = library_path(name)
         if out.exists():
-            result[name] = {"path": str(out), "seconds": 0.0, "cached": True}
+            result[name] = {"path": str(out), "seconds": 0.0, "cached": True,
+                            "log": log_path(out).read_text()}
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -86,8 +96,10 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, dict]:
             failures.append(
                 f"{name}: nvcc exited {proc.returncode}\n{log.decode(errors='replace')}")
             continue
+        text = log.decode(errors="replace")
+        log_path(out).write_text(text)  # first: a library on disk has its log
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-        result[name] = {"path": str(out), "seconds": seconds, "cached": False}
+        result[name] = {"path": str(out), "seconds": seconds, "cached": False, "log": text}
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return result

@@ -29,6 +29,14 @@ self-attention of such a step passes the current token's unquantized
 ``k_new``, ``v_new`` beside the quantized prefix ``[0, write_slot)``: that
 token is not in the cache yet, and ``decode_step_scan`` (:661-685) adds it
 analytically in the same way.
+
+Window form (``queries_per_row`` W > 1; the verify pass of speculative
+decoding, ``models/dia.py::decode_step`` on W rows): q, ``start`` and ``end`` hold
+B·W rows against a cache of B rows, and query row ``r`` reads cache row
+``r // W`` over its own range.  The kernel computes each query row exactly as
+a one-query call over the same cache row and range does, so a window row's
+result is the decode loop's step at that row, bit for bit.  Float caches
+only: an int8 cache or a current token raises.
 """
 
 from __future__ import annotations
@@ -41,27 +49,39 @@ import torch
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 4  # query heads per kv head the kernel takes
+MAX_GRID_ROWS = 65535  # query rows (B·W) of one launch: the grid's z extent
 # how the kernel combines a row's splits: a thread-block cluster that merges
 # them on chip through distributed shared memory (csrc: CLUSTER blocks)
 DESIGN = "cluster"
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def decode_attention_plain(
-    q: torch.Tensor,  # [B, Nq, H]
+    q: torch.Tensor,  # [B·W, Nq, H]
     k_cache: torch.Tensor,  # [B, T, Nkv, H]
     v_cache: torch.Tensor,  # [B, T, Nkv, H]
-    start: torch.Tensor,  # int32 [B]
-    end: torch.Tensor,  # int32 [B]
+    start: torch.Tensor,  # int32 [B·W]
+    end: torch.Tensor,  # int32 [B·W]
     k_scale: torch.Tensor | None = None,  # fp32 [B, T, Nkv]: the caches are int8
     v_scale: torch.Tensor | None = None,
     k_new: torch.Tensor | None = None,  # [B, Nkv, H]: one more token, not in the cache
     v_new: torch.Tensor | None = None,
+    queries_per_row: int = 1,
 ) -> torch.Tensor:
     """Plain PyTorch version: masked ``sdpa`` over the whole cache; for an
     int8 cache the arithmetic of ``_sdpa_quant`` in fp32, the extra token
-    entering the softmax as one more key with scales of 1."""
+    entering the softmax as one more key with scales of 1.  The window form
+    (``queries_per_row`` W > 1, float caches) gathers cache row ``r // W``
+    for each query row ``r``."""
     from ..modules import NEG, sdpa
+
+    W = queries_per_row
+    if W != 1:
+        if k_scale is not None or k_new is not None:
+            raise ValueError("decode_attention: the window form takes float caches and no "
+                             "current token")
+        rows = torch.arange(q.shape[0], device=q.device) // W
+        k_cache, v_cache = k_cache[rows], v_cache[rows]
 
     slots = torch.arange(k_cache.shape[1], device=k_cache.device)
     mask = (slots[None, :] >= start[:, None]) & (slots[None, :] < end[:, None])  # [B, T]
@@ -101,7 +121,14 @@ def ends_from_padding_mask(mask: torch.Tensor) -> torch.Tensor:
     return ends.to(torch.int32)
 
 
-def _check(q, k_cache, v_cache, start, end, k_scale=None, v_scale=None, k_new=None, v_new=None):
+def _check(q, k_cache, v_cache, start, end, k_scale=None, v_scale=None, k_new=None, v_new=None,
+           queries_per_row=1):
+    W = queries_per_row
+    if not isinstance(W, int) or W < 1:
+        raise ValueError(f"decode_attention: queries_per_row must be a positive int, got {W!r}")
+    if W > 1 and (k_scale is not None or k_new is not None):
+        raise ValueError("decode_attention: the window form (queries_per_row > 1) takes float "
+                         "caches and no current token")
     cache_dtype = q.dtype if k_scale is None else torch.int8
     if q.dtype not in _DTYPE_CODES or k_cache.dtype != cache_dtype or v_cache.dtype != cache_dtype:
         raise TypeError(f"decode_attention takes float32 or bfloat16 q with caches of q's dtype, "
@@ -115,15 +142,19 @@ def _check(q, k_cache, v_cache, start, end, k_scale=None, v_scale=None, k_new=No
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention shapes: q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
-    B, Nq, H = q.shape
+    R, Nq, H = q.shape
+    B = k_cache.shape[0]
     Nkv = k_cache.shape[2]
-    if (k_cache.shape[0] != B or k_cache.shape[3] != H or Nq % Nkv != 0
+    if R != B * W or R > MAX_GRID_ROWS:
+        raise ValueError(f"decode_attention: q has {R} rows for {B} cache rows x "
+                         f"{W} queries a row (at most {MAX_GRID_ROWS})")
+    if (k_cache.shape[3] != H or Nq % Nkv != 0
             or Nq // Nkv > MAX_GROUP or H not in _HEAD_DIMS):
         raise ValueError(f"decode_attention needs matching batch/head_dim, Nq % Nkv == 0, "
                          f"Nq / Nkv <= {MAX_GROUP} and head_dim in {_HEAD_DIMS}: "
                          f"q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
-    if start.shape != (B,) or end.shape != (B,):
-        raise ValueError(f"start/end must be [B]: {tuple(start.shape)}, {tuple(end.shape)}")
+    if start.shape != (R,) or end.shape != (R,):
+        raise ValueError(f"start/end must be [B·W]: {tuple(start.shape)}, {tuple(end.shape)}")
     if start.dtype != torch.int32 or end.dtype != torch.int32:
         raise TypeError("start/end must be int32")
     extras = [t for t in (k_scale, v_scale, k_new, v_new) if t is not None]
@@ -154,33 +185,42 @@ def decode_attention(
     v_scale: torch.Tensor | None = None,
     k_new: torch.Tensor | None = None,
     v_new: torch.Tensor | None = None,
+    queries_per_row: int = 1,
 ) -> torch.Tensor:
     """One query token per row against cache slots ``[start[b], end[b])``;
     returns [B, Nq, H] in q.dtype.  ``k_scale``/``v_scale`` [B, T, Nkv] mark
     int8 caches; ``k_new``/``v_new`` [B, Nkv, H] are then one more token every
-    row attends.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    row attends.  ``queries_per_row`` W > 1 is the window form: q, start and
+    end have B·W rows, query row ``r`` reading cache row ``r // W`` (float
+    caches only; its launches are counted in ``window_launches``, the
+    one-query form's in ``launches``).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
     args = (q, k_cache, v_cache, start, end, k_scale, v_scale, k_new, v_new)
     if q.device.type == "cpu":
-        return decode_attention_plain(*args)
+        return decode_attention_plain(*args, queries_per_row=queries_per_row)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    _check(*args)
+    _check(*args, queries_per_row=queries_per_row)
     from ._build import kernel_function
 
     fn = kernel_function("decode_attention", "decode_attention_fwd", _ARGTYPES)
-    B, Nq, H = q.shape
-    T, Nkv = k_cache.shape[1], k_cache.shape[2]
+    _, Nq, H = q.shape
+    B, T, Nkv = k_cache.shape[:3]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  *(None if t is None else t.data_ptr() for t in args[5:]), start.data_ptr(),
                  end.data_ptr(), out.data_ptr(), B, T, Nq, Nkv, H, _DTYPE_CODES[q.dtype],
-                 int(k_scale is not None), torch.cuda.current_stream(q.device).cuda_stream)
+                 int(k_scale is not None), queries_per_row,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed (cudaError {err})")
-    decode_attention.launches += 1
+    if queries_per_row == 1:
+        decode_attention.launches += 1
+    else:  # the window form counts apart: launch_counts()["decode_attention_window"]
+        decode_attention.window_launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.window_launches = 0

@@ -336,6 +336,74 @@ def test_decode_kernel_one_query_head_per_kv_head_with_start(cuda_device, dtype,
     assert torch.all(out[3] == 0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+def test_decode_window_form_is_bit_equal_to_single_calls(cuda_device, dtype, rtol, atol):
+    """The window form (speculative decoding's verify pass: W query rows a
+    cache row, row r reading cache row r // W) at B = 2, W = 8 over a 3072-slot
+    cache: within TOLS of the plain version, and each query position bit-equal
+    to a one-query call over the same rows and ranges."""
+    rng = np.random.default_rng(24)
+    B, W, T, Nq, Nkv, H = 2, 8, 3072, 16, 4, 128
+    q = _t(_normal(rng, (B * W, Nq, H))).to(cuda_device, dtype)
+    k, v = (_t(_normal(rng, (B, T, Nkv, H))).to(cuda_device, dtype) for _ in range(2))
+    start = torch.zeros(B * W, dtype=torch.int32, device=cuda_device)
+    end = torch.arange(1537, 1537 + W, dtype=torch.int32, device=cuda_device).repeat(B)
+    n0, w0 = decode_attention.launches, decode_attention.window_launches
+    out = decode_attention(q, k, v, start, end, queries_per_row=W)
+    assert (decode_attention.launches, decode_attention.window_launches) == (n0, w0 + 1)
+    ref = decode_attention_plain(*_wide(q, k, v, start, end), queries_per_row=W)
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+    for i in range(W):
+        one = decode_attention(q.view(B, W, Nq, H)[:, i].contiguous(), k, v,
+                               start.view(B, W)[:, i].contiguous(),
+                               end.view(B, W)[:, i].contiguous())
+        assert torch.equal(out.view(B, W, Nq, H)[:, i], one)
+
+
+@pytest.mark.gpu
+def test_decode_window_form_raises_on_int8_scales(cuda_device):
+    rng = np.random.default_rng(25)
+    args = _decode_args(rng, cuda_device, torch.bfloat16, 2, 256, 8, 2, 64, [0, 0], [10, 20],
+                        True, with_new=True)
+    q = args[0].repeat_interleave(2, 0)
+    rows = [q, *args[1:3], args[3].repeat_interleave(2), args[4].repeat_interleave(2)]
+    with pytest.raises(ValueError, match="window form"):
+        decode_attention(*rows, *args[5:7], queries_per_row=2)
+    with pytest.raises(ValueError, match="window form"):
+        decode_attention(*rows, *args[5:], queries_per_row=2)
+    floats = _decode_args(rng, cuda_device, torch.bfloat16, 2, 256, 8, 2, 64, [0, 0], [10, 20],
+                          False)
+    with pytest.raises(ValueError, match="rows"):  # q has B rows, not B·W
+        decode_attention(floats[0], *floats[1:3], *rows[3:], queries_per_row=2)
+
+
+@pytest.mark.gpu
+def test_graphed_speculation_equals_eager_speculation_and_the_loop(cuda_device):
+    """On ``trained_small`` in bf16: graphed speculative greedy (each window
+    one CUDA graph replay) equals eager speculation and the graphed loop bit
+    for bit, at W = 4 with one drafting layer and with the full model as the
+    draft (alpha = 1.0); a second call captures nothing."""
+    dia = _graph_model(cuda_device, "float")
+    text, kw = "[S1] The birch canoe slid. [S2]", dict(max_tokens=120, temperature=0.0, seed=3)
+    loop = dia.generate_codes(text, **kw)
+    for n_draft in (1, dia.config.model.decoder.n_layer):
+        spec = dia.speculative_generator(4, n_draft)
+        eager = dia.generate_codes(text, speculative=4, spec_draft_layers=n_draft, loop="eager",
+                                   **kw)
+        graph = dia.generate_codes(text, speculative=4, spec_draft_layers=n_draft, **kw)
+        first = dict(spec.last_call)
+        again = dia.generate_codes(text, speculative=4, spec_draft_layers=n_draft, **kw)
+        np.testing.assert_array_equal(eager, loop)
+        np.testing.assert_array_equal(graph, loop)
+        np.testing.assert_array_equal(again, loop)
+        assert first["window_replays"] > 0 and first["window_captures"] == 1
+        assert spec.last_call["window_captures"] == 0
+        assert spec.last_call["window_replays"] == spec.last_call["windows"]
+        assert dia.generator.last_stats.captures == 0
+    assert spec.acceptance_rate == 1.0
+
+
 # The GEMV kernels sum K fp32 products in another order than the plain matmul:
 # the error scales with the sum of the products' magnitudes (1e-6 of it, ~17
 # fp32 ulps; measured on the card at most 0.2e-6), plus the one rounding to bf16.

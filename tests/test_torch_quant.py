@@ -611,9 +611,10 @@ def test_quantize_then_attend_would_differ(tiny):
         with mock.patch.object(tdia, "decode_attention", attend):
             return tdia.decode_step(params, cfg, tok, pos, 0, cache, cross, ends)
 
-    def quantized_first(q, k, v, start, end, ks=None, vs=None, k_new=None, v_new=None):
+    def quantized_first(q, k, v, start, end, ks=None, vs=None, k_new=None, v_new=None,
+                        queries_per_row=1):
         if k_new is None:
-            return decode_attention(q, k, v, start, end, ks, vs)
+            return decode_attention(q, k, v, start, end, ks, vs, queries_per_row=queries_per_row)
         (k8, s8), (v8, t8) = tdia.quantize_kv(k_new), tdia.quantize_kv(v_new)
         return decode_attention(q, k, v, start, end, ks, vs, k8.float() * s8[..., None],
                                 v8.float() * t8[..., None])

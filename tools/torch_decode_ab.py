@@ -4,10 +4,10 @@ copies of its current source, and SDPA.
 
 Builds ``csrc/decode_attention.cu`` as it is and as each named variant edits it
 (a list of (old, new) text edits), each by nvcc into a library of its own
-called through the C entry the wrapper calls.  It builds an earlier copy of
-the source too, given by ``--old`` (default: the copy in ``_parent/``, a
-git-ignored directory into which the caller unpacks the parent commit with
-``git archive``), whose C entry takes the split-K design's signature
+called through the C entry the wrapper calls (one query a row: W = 1).  It
+builds an earlier copy of the source too, given by ``--old`` (default: the
+copy in ``_parent/``, a git-ignored directory into which the caller unpacks
+the parent commit with ``git archive``), whose C entry takes the split-K design's signature
 (``decode_attention_fwd(q, kc, vc, ks, vs, k_new, v_new, start, end, out,
 part, B, Tc, Nq, Nkv, H, dtype, kv_int8, stream)`` with an fp32 scratch of
 ``B * Nq * ceil(Tc / 128) * (H + 2)`` floats).  At the decode cases of
@@ -153,7 +153,8 @@ def caller(torch, lib, args, old: bool):
     def run():
         err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), *ptrs, start.data_ptr(),
                  end.data_ptr(), out.data_ptr(), *(p.data_ptr() for p in part), B, T, Nq, Nkv,
-                 H, 1, int(args[5] is not None), torch.cuda.current_stream().cuda_stream)
+                 H, 1, int(args[5] is not None), *(() if old else (1,)),
+                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"decode_attention_fwd failed (cudaError {err})")
         return out
