@@ -162,7 +162,19 @@ script exits non-zero:
                ``finetune`` CLI end to end at two layers per stack on a
                three-item dataset the script synthesizes (generate -> WAV ->
                metadata.csv), and ``Dia.from_pretrained`` of its output
-               generates.
+               generates;
+10. tp       — tensor-parallel serving at the same full width on the one
+               card (``phase_tp``): (a) two spawned ranks over gloo, float /
+               int8 / int4 after ``Dia.shard``, 64 greedy eager tokens each:
+               the ranks equal each other and their in-process emulation bit
+               for bit, the first 8 steps' logits within TP_LOGIT_TOL of the
+               single process's (planted missing all-reduces read above
+               it), each rank's kernels launched, ms a step beside the single
+               process's; (b) ``ContinuousBatcher(mesh=make_mesh(1, 1))`` over
+               NCCL, graphed: two lanes equal the unsharded batcher's bit for
+               bit; (c) ``app --tp 1 --continuous-batch`` answers a greedy
+               ``/generate`` within PCM_LSB_TOL of (b)'s waveform, ``app --tp
+               2`` exits with the parser error naming the one card.
 
 Then a ``kernels`` line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -225,7 +237,7 @@ PCM_LSB_TOL = math.ceil(WAV_TOL * 32767)
 
 # after the build, in this order
 PHASES = ("kernels", "fixtures", "full_width", "serving", "cbatch", "files", "speculative",
-          "training")
+          "training", "tp")
 
 
 def emit(obj) -> None:
@@ -1649,11 +1661,13 @@ def packed_teacher_forced(torch, dia, enc, frames, kv_int8) -> tuple:
                                             torch.float32, None)
         tgt = torch.from_numpy(frames).to(dev)[None].expand(CFG_BATCH, -1, -1)
         rows = torch.arange(steps, device=dev)[None].expand(CFG_BATCH, -1)
-        cache = model.new_self_cache(cfg, CFG_BATCH, 128, torch.float32, dev, quant=kv_int8)
+        cache = model.new_self_cache(dia.params, cfg, CFG_BATCH, 128, torch.float32, dev,
+                                     quant=kv_int8)
         pre = model.decoder_prefill(dia.params, cfg, tgt, rows, cross, cache,
                                     torch.ones_like(rows, dtype=torch.int32),
                                     padding.to(torch.int32))
-        cache = model.new_self_cache(cfg, CFG_BATCH, 128, torch.float32, dev, quant=kv_int8)
+        cache = model.new_self_cache(dia.params, cfg, CFG_BATCH, 128, torch.float32, dev,
+                                     quant=kv_int8)
         if kv_int8:
             cross = model.quantize_cache(cross)
         out = [model.decode_step(dia.params, cfg, tgt[:, t - 1:t], rows[:, t:t + 1], t - 1,
@@ -1789,29 +1803,32 @@ def cpu_driven_greedy(torch, gpu, cpu, text, cpu_codes, **kw) -> dict:
     real = {n: getattr(gen, n) for n in names}
     host, shares = {}, []
 
-    def conditioning(params, config, enc_input, dtype, window):
+    def conditioning(params, config, enc_input, dtype, window, group=None):
         host["cross"], host["pad"], host["ends"] = real["conditioning"](
             cpu.params, config, enc_input.cpu(), dtype, window)
-        return real["conditioning"](params, config, enc_input, dtype, window)
+        return real["conditioning"](params, config, enc_input, dtype, window, group=group)
 
-    def new_self_cache(config, batch, max_len, dtype, device, quant):
-        host["self"] = real["new_self_cache"](config, batch, max_len, dtype, "cpu", quant=quant)
-        return real["new_self_cache"](config, batch, max_len, dtype, device, quant=quant)
+    def new_self_cache(params, config, batch, max_len, dtype, device, quant):
+        host["self"] = real["new_self_cache"](cpu.params, config, batch, max_len, dtype, "cpu",
+                                              quant=quant)
+        return real["new_self_cache"](params, config, batch, max_len, dtype, device, quant=quant)
 
-    def run_prefill(params, config, buf, window, offsets, steps, cross, pad, cache, dtype):
+    def run_prefill(params, config, buf, window, offsets, steps, cross, pad, cache, dtype,
+                    group=None):
         real["run_prefill"](cpu.params, config, buf, window, offsets, steps, host["cross"],
                             host["pad"], host["self"], dtype)
         return real["run_prefill"](params, config, buf, window, offsets, steps, cross, pad, cache,
-                                   dtype)
+                                   dtype, group=group)
 
     def quantize_cache(cache):
         host["cross"] = real["quantize_cache"](host["cross"])
         return real["quantize_cache"](cache)
 
     def step(params, config, tgt, position, ws, self_cache, cross_cache, ends, dtype,
-             valid_from=None):
+             valid_from=None, group=None):
         mine = real["step_function"](params)(params, config, tgt, position, ws, self_cache,
-                                             cross_cache, ends, dtype, valid_from=valid_from)
+                                             cross_cache, ends, dtype, valid_from=valid_from,
+                                             group=group)
         ref = real["step_function"](cpu.params)(
             cpu.params, config, tgt.cpu(), position.cpu(), ws.cpu(), host["self"], host["cross"],
             host["ends"], dtype, valid_from=None if valid_from is None else valid_from.cpu())
@@ -1850,7 +1867,8 @@ def fused_teacher_forced(torch, dia, enc, frames, kv_int8):
                                       torch.float32, None)
         tgt = torch.from_numpy(frames).to(dev)[None].expand(CFG_BATCH, -1, -1)
         pos = torch.arange(steps, device=dev)[None].expand(CFG_BATCH, -1)
-        cache = model.new_self_cache(cfg, CFG_BATCH, 128, torch.float32, dev, quant=kv_int8)
+        cache = model.new_self_cache(dia.params, cfg, CFG_BATCH, 128, torch.float32, dev,
+                                     quant=kv_int8)
         if kv_int8:
             cross = model.quantize_cache(cross)
         out = [model.decode_step_fused(dia.params, cfg, tgt[:, t - 1:t], pos[:, t:t + 1], t - 1,
@@ -3729,6 +3747,508 @@ def phase_training(torch, tmp: Path) -> dict:
     return paths
 
 
+TP_TOKENS = 64  # greedy tokens of each route of the two-rank run (the eager loop)
+TP_FAULT_TOKENS = 10  # max_tokens of a planted fault's emulated run (its logits read over 8 steps)
+TP_LOGIT_STEPS = 8  # steps whose logits the two ranks hold to the single process's
+# Two ranks against one process in bf16, as a share of the largest |logit|
+# over the first 8 steps: the sharded arithmetic (each rank's o_proj / wo
+# partial sum rounded to bf16 before the two are added, the GEMMs at a
+# rank's shapes) moves a logit by ~2% (at most 2.02e-2 on three routes, and
+# the in-process emulation of the same sums gives those logits bit for bit:
+# H100 80GB HBM3, 700 W).  The planted faults (TP_FAULTS) are read beside it.
+TP_LOGIT_TOL = 3e-2
+TP_CB_TOKENS = 128  # max_tokens of the one-rank NCCL batcher and of the CLI's request
+TP_CLI_TEXT = "[S1] Dia serves from every rank."  # one chunk: the batcher's lane serves it
+TP_ROUTES = ("float", "int8", "int4")
+
+
+def tp_trace(torch, dia) -> dict:
+    """One route's greedy eager trace (``greedy_trace``; logits read back every
+    step) with its launch counts and ms a decode step (the call's wall time,
+    conditioning included, over its decode steps)."""
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t = time.perf_counter()
+    codes, rows, first, logs = greedy_trace(torch, dia, FULL_WIDTH_TEXT, max_tokens=TP_TOKENS)
+    seconds = time.perf_counter() - t
+    steps = dia.generator.last_stats.decode_steps
+    return {"codes": codes, "rows": rows, "first": first, "logs": logs,
+            "launches": launch_counts(), "steps": steps, "ms_per_step": seconds * 1e3 / steps}
+
+
+def logit_shares(logs, ref_logs) -> list:
+    """Each of the first TP_LOGIT_STEPS steps' largest guided-logit
+    difference as a share of the reference's largest |logit| (the bans' NEG
+    entries, equal on both sides, left out)."""
+    out = []
+    for a, b in list(zip(logs, ref_logs))[:TP_LOGIT_STEPS]:
+        keep = b > -1e30
+        out.append(float((a - b)[keep].abs().max() / b[keep].abs().max()))
+    return out
+
+
+def tp_exact(run: dict, ref: dict) -> bool:
+    """Whether a trace equals another bit for bit: every token row and every
+    step's guided logits."""
+    import numpy as np
+
+    return bool(np.array_equal(run["rows"], ref["rows"]) and len(run["logs"]) == len(ref["logs"])
+                and all(a.equal(b) for a, b in zip(run["logs"], ref["logs"])))
+
+
+def tp_reading(run: dict, ref: dict) -> dict:
+    """A two-rank trace against the single process's (``tp_trace``), a
+    reading and not a gate of its codes: whether they are equal, else the
+    first step where the picks part and the two runs' margins there; and
+    the first TP_LOGIT_STEPS steps' logit shares (``logit_shares``), which
+    the phase holds to TP_LOGIT_TOL."""
+    import numpy as np
+
+    rows, logs, first = run["rows"], run["logs"], run["first"]
+    rec = {"frames": int(run["codes"].shape[0]),
+           "tokens_equal": bool(np.array_equal(run["codes"], ref["codes"])),
+           "logit_share_of_max": logit_shares(logs, ref["logs"])}
+    differ = np.argwhere(rows != ref["rows"])
+    if len(differ):
+        row = int(differ[0, 0])
+        k = row - first
+        g = logs[k]
+        rec.update({"first_differing_step": k, "margins": [
+            float(g[c, int(rows[row, c])] - g[c, int(ref["rows"][row, c])])
+            for c in np.flatnonzero(rows[row] != ref["rows"][row])]})
+    return rec
+
+
+def tp_quantized(dia, route: str):
+    if route == "int8":
+        dia.quantize_int8()
+    elif route == "int4":
+        dia.quantize_int4()
+    return dia
+
+
+def tp_rank(rank: int, init: str, model_dir: str, out: str) -> None:
+    """One rank of the two-rank run on the one card (spawned): gloo, the
+    model directory's bf16 weights read once to the host, then each route
+    sharded on a (1, 2) mesh (``Dia.shard``; packed after sharding) and
+    traced.  Writes ``out/tp_rank<rank>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from dia_tts_prune_tpu_torch import Dia
+    from dia_tts_prune_tpu_torch.checkpoint import load_checkpoint
+    from dia_tts_prune_tpu_torch.config import DiaConfig
+    from dia_tts_prune_tpu_torch.parallel.sharding import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(data=1, model=2, device="cuda")
+        cfg = DiaConfig.load(Path(model_dir) / "config.json")
+        host = load_checkpoint(Path(model_dir) / "pytorch_model.bin", cfg, torch.bfloat16, "cpu")
+        res = {}
+        for route in TP_ROUTES:
+            dia = Dia(cfg, params_to(host, "cuda"), "bfloat16", device="cuda")
+            dia.shard(mesh)
+            res[route] = tp_trace(torch, tp_quantized(dia, route))
+            res[route]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del dia
+            torch.cuda.empty_cache()
+        torch.save(res, Path(out) / f"tp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+class _EmulatedGroup:
+    """A stand-in model or data group of ``tp_emulated``'s in-process mesh."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+
+class _EmulatedMesh:
+    """Rank ``rank`` of a (1, 2) mesh for ``tp_emulated``: the part of the
+    ``DeviceMesh`` interface that ``parallel/sharding.py`` reads."""
+
+    mesh_dim_names = ("data", "model")
+    shape = (1, 2)
+
+    def __init__(self, rank: int, groups: dict):
+        self.rank, self.groups = rank, groups
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_coordinate(self) -> list:
+        return [0, self.rank]
+
+    def get_group(self, name: str):
+        return self.groups[name]
+
+
+# tp_emulated's planted faults, read against the single process as the
+# sound runs are: two query heads of rank 0's self-attention o_proj, of two
+# KV groups, swapped in the last decoder layer (a wrong shard: a reading);
+# one model all-reduce in every 54 (one a decode step) skipped on both
+# ranks; every one skipped (each rank keeps its own partial sums).  The two
+# missing collectives must read above TP_LOGIT_TOL.
+TP_FAULTS = ("swap_heads", "skip_one_sum", "skip_every_sum")
+TP_GATED_FAULTS = ("skip_one_sum", "skip_every_sum")
+
+
+def tp_emulated(torch, host, cfg, route: str, max_tokens: int, fault: str | None = None,
+                device: str = "cuda") -> list:
+    """The exact reference of the two-rank run (``tp_rank``): its two ranks
+    as two threads of this process, each a ``Dia`` sharded with
+    ``Dia.shard`` on a (1, 2) ``_EmulatedMesh`` from the same weights
+    (``host``), and every collective of the mesh done here on the card:
+    ``torch.distributed.all_reduce`` (patched while this runs) adds rank
+    0's tensor and rank 1's in their dtype, as gloo adds them on the host
+    (one bf16 rounding of the exact sum of two bf16 values, whatever the
+    ring's order), and takes their maximum for MAX.  So the ranks' codes
+    and logits must equal these bit for bit.  Each thread traces the greedy
+    eager run as ``tp_trace`` does; ``fault`` (``TP_FAULTS``) plants one
+    error.  Returns each thread's trace."""
+    import threading
+
+    import torch.distributed as dist
+
+    import dia_tts_prune_tpu_torch.generate as gen
+    from dia_tts_prune_tpu_torch import Dia
+    from dia_tts_prune_tpu_torch.models.dia import local_heads
+    from dia_tts_prune_tpu_torch.ops.sampling import apply_constraints, cfg_combine
+
+    d = cfg.data
+    groups = {"data": _EmulatedGroup(1), "model": _EmulatedGroup(2)}
+    barrier, slots, local = threading.Barrier(2, timeout=300), [None, None], threading.local()
+    real = {"all_reduce": dist.all_reduce, "get_world_size": dist.get_world_size,
+            "step_function": gen.step_function, "decode_loop": gen.decode_loop}
+
+    def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        if group.size == 1:
+            return None
+        skip = False
+        if op == dist.ReduceOp.SUM and t.dim() > 1:
+            local.sums += 1
+            skip = (fault == "skip_every_sum"
+                    or fault == "skip_one_sum" and local.sums % 54 == 0)
+        slots[local.rank] = t
+        barrier.wait()
+        out = (slots[0] + slots[1] if op == dist.ReduceOp.SUM
+               else torch.maximum(slots[0], slots[1]))
+        barrier.wait()  # both sums are queued before either rank overwrites its tensor
+        if not skip:
+            t.copy_(out)
+        return None
+
+    def step_function(params):
+        step = real["step_function"](params)
+
+        def traced(params, config, *args, **kwargs):
+            logits = step(params, config, *args, **kwargs)
+            local.logs.append(apply_constraints(cfg_combine(logits[:, -1].float().cpu(), 3.0),
+                                                d.audio_eos_value, d.audio_pad_value,
+                                                d.audio_bos_value))
+            return logits
+
+        return traced
+
+    def decode_loop(params, config, tokens_buf, *args, **kwargs):
+        out = real["decode_loop"](params, config, tokens_buf, *args, **kwargs)
+        local.rows, local.first = tokens_buf.copy(), args[3]
+        return out
+
+    results: list = [None, None]
+
+    def rank(r: int) -> None:
+        local.rank, local.sums, local.logs = r, 0, []
+        try:
+            dia = Dia(cfg, params_to(host, device), "bfloat16", device=device)
+            dia.shard(_EmulatedMesh(r, groups))
+            if fault == "swap_heads" and r == 0:
+                o = dia.params["decoder"]["layers"]["self_attention"]["o_proj"]["kernel"]
+                g = o.shape[1] // local_heads(dia.params)  # query heads a KV head
+                o[-1, [0, g]] = o[-1, [g, 0]]
+            dia = tp_quantized(dia, route)
+            dia.generator.lock = threading.RLock()  # the two ranks share one device lock
+            codes = dia.generate_codes(FULL_WIDTH_TEXT, temperature=0.0, loop="eager",
+                                       max_tokens=max_tokens)
+            results[r] = {"codes": codes, "rows": local.rows, "first": local.first,
+                          "logs": local.logs}
+        except BaseException as e:  # noqa: BLE001 — the other rank must not wait for this one
+            barrier.abort()
+            results[r] = e
+
+    dist.all_reduce, dist.get_world_size = all_reduce, lambda group=None: group.size
+    gen.step_function, gen.decode_loop = step_function, decode_loop
+    try:
+        threads = [threading.Thread(target=rank, args=(r,)) for r in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        dist.all_reduce, dist.get_world_size = real["all_reduce"], real["get_world_size"]
+        gen.step_function, gen.decode_loop = real["step_function"], real["decode_loop"]
+    for out in results:
+        if isinstance(out, BaseException):
+            raise RuntimeError(f"tp: the emulated ranks failed ({route}, fault {fault})") from out
+    return results
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_tp(torch, tmp: Path) -> dict:
+    """Tensor-parallel serving (``parallel/sharding.py``) on the one card, at
+    full width (``dia_1_6b_config()``, bf16, ``Dia.random_init`` seed
+    weights in a model directory: a bf16 ``pytorch_model.bin`` and a seeded
+    DAC decoder).  The card machine has one H100, so: (a) two ranks on it
+    over gloo (CUDA tensors staged through the host), each a spawned
+    process, the eager loop: float, ``quantize_int8()`` (int8 KV caches) and
+    ``quantize_int4()`` after ``Dia.shard`` on a (1, 2) mesh, 64 greedy
+    tokens each.  On each route the two ranks equal each other and the
+    in-process emulation of the same two ranks (``tp_emulated``) bit for
+    bit, every token and every step's logits; each rank's decode-attention
+    and flash launches (and int8-matmul or int4-GEMV) are above 0; against
+    the single process the first 8 steps' logits lie within TP_LOGIT_TOL of
+    its largest |logit|, two planted missing all-reduces
+    (``TP_GATED_FAULTS``) read above it and a planted wrong shard beside
+    it; the codes against the single process are a reading
+    (``tp_reading``); ms a step beside the single process's eager run,
+    both timed before anything else starts on the card.  (b) One rank over
+    NCCL, graphed: ``ContinuousBatcher(mesh=make_mesh(1, 1))`` (the model
+    group's all-reduce captured in its CUDA graph) gives two lanes (greedy,
+    seeded) the unsharded batcher's codes bit for bit.  (c) The CLI:
+    ``app --tp 1 --continuous-batch`` (NCCL) answers a greedy ``/generate``
+    whose PCM lies within PCM_LSB_TOL of (b)'s waveform, and ``app --tp 2``
+    exits with the parser error that names the one card found.  Nothing of
+    this measures NVLink."""
+    import datetime
+    import multiprocessing
+    import signal
+
+    import numpy as np
+    import torch.distributed as dist
+    from safetensors.numpy import save_file
+
+    from dia_tts_prune_tpu_torch import Dia, dia_1_6b_config
+    from dia_tts_prune_tpu_torch.api import flatten_tree
+    from dia_tts_prune_tpu_torch.app import _pcm16
+    from dia_tts_prune_tpu_torch.cbatch import ContinuousBatcher
+    from dia_tts_prune_tpu_torch.checkpoint import load_checkpoint, to_torch_state_dict
+    from dia_tts_prune_tpu_torch.models.dac import (
+        DACConfig,
+        init_dac_decoder_params,
+        load_dac_safetensors,
+    )
+    from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dia_tts_prune_tpu_torch.parallel.sharding import make_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: the ranks share this card
+    cfg, dac_cfg = dia_1_6b_config(), DACConfig()
+    rec = {"phase": "tp", "config": "dia_1_6b_config() bf16, Dia.random_init seed 0; DACConfig() "
+           "decoder seed 1", "tokens": TP_TOKENS, "logit_steps": TP_LOGIT_STEPS,
+           "logit_tol": TP_LOGIT_TOL}
+    failures = []
+
+    # the model directory: what the ranks and the CLI load
+    host = seed_host_weights(cfg)
+    model_dir = tmp / "model"
+    model_dir.mkdir()
+    torch.save({k: torch.from_numpy(v).to(torch.bfloat16)
+                for k, v in to_torch_state_dict(host, cfg).items()},
+               model_dir / "pytorch_model.bin")
+    cfg.save(model_dir / "config.json")
+    save_file(flatten_tree(init_dac_decoder_params(dac_cfg, seed=1, device="cpu")),
+              str(model_dir / "dac.safetensors"))
+    rec["write_s"] = time.perf_counter() - t0
+
+    server = tp2 = None
+    server_log = open(tmp / "tp_server.err", "w")
+    try:
+        # the single process, each route on the eager loop
+        single = {}
+        for route in TP_ROUTES:
+            dia = tp_quantized(Dia(cfg, seed_weights(torch, cfg), "bfloat16", device="cuda"), route)
+            single[route] = tp_trace(torch, dia)
+            del dia
+            torch.cuda.empty_cache()
+
+        # (a) two ranks on the one card over gloo
+        t = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        init = f"file://{tmp / 'tp_rendezvous'}"
+        ranks = [ctx.Process(target=tp_rank, args=(r, init, str(model_dir), str(tmp)))
+                 for r in (0, 1)]
+        for p in ranks:
+            p.start()
+        for p in ranks:
+            p.join(timeout=600)
+        for p in ranks:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in ranks):
+            raise RuntimeError(f"tp: a rank failed: exit codes {[p.exitcode for p in ranks]}")
+        got = [torch.load(tmp / f"tp_rank{r}.pt", weights_only=False) for r in (0, 1)]
+        rec["two_rank_s"] = time.perf_counter() - t
+
+        # (c) started once (a) is timed, so that it loads while the emulation and (b) run
+        port = _free_port()
+        cli = [sys.executable, "-m", "dia_tts_prune_tpu_torch.app", "--model-path",
+               str(model_dir), "--continuous-batch"]
+        server = subprocess.Popen(cli + ["--tp", "1", "--cb-slots", "2", "--cb-segment-steps",
+                                         "64", "--cb-max-tokens", str(TP_CB_TOKENS),
+                                         "--cb-text-window", "256", "--host", "127.0.0.1",
+                                         "--port", str(port)],
+                                  cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                  stderr=server_log, text=True)
+        tp2 = subprocess.Popen(cli + ["--tp", "2"], cwd=Path(__file__).resolve().parent,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        # the exact reference of (a), and the planted faults' readings
+        t = time.perf_counter()
+        host = load_checkpoint(model_dir / "pytorch_model.bin", cfg, torch.bfloat16, "cpu")
+        emulated = {route: tp_emulated(torch, host, cfg, route, TP_TOKENS)
+                    for route in TP_ROUTES}
+        rec["faults"] = {}
+        for fault in TP_FAULTS:
+            e0, e1 = tp_emulated(torch, host, cfg, "float", TP_FAULT_TOKENS, fault)
+            rec["faults"][fault] = [max(logit_shares(e["logs"], single["float"]["logs"]))
+                                    for e in (e0, e1)]
+        for fault in TP_GATED_FAULTS:
+            if rec["faults"][fault][0] <= TP_LOGIT_TOL:  # rank 0's: what the gate reads
+                failures.append(f"(a) the planted fault {fault} reads within TP_LOGIT_TOL: "
+                                f"{rec['faults']}")
+        del host
+        rec["emulation_s"] = time.perf_counter() - t
+
+        rec["routes"] = {}
+        for route in TP_ROUTES:
+            ref, r0, r1 = single[route], got[0][route], got[1][route]
+            one = {"single_ms_per_step": ref["ms_per_step"],
+                   "two_rank_gloo_ms_per_step": [r["ms_per_step"] for r in (r0, r1)],
+                   "timing": "eager loop, logits read back every step, conditioning included; "
+                             "two ranks: host-staged gloo on one card",
+                   "ranks_equal": tp_exact(r0, r1),
+                   "ranks_equal_emulation": [tp_exact(r, e) for r, e in
+                                             zip((r0, r1), emulated[route])],
+                   "steps": [len(r["logs"]) for r in (r0, r1)],
+                   "launches": [r["launches"] for r in (r0, r1)],
+                   "single_launches": ref["launches"], "peak_gb": [r["peak_gb"] for r in (r0, r1)],
+                   "against_single_process": tp_reading(r0, ref)}
+            if not one["ranks_equal"]:
+                failures.append(f"{route}: the two ranks differ")
+            if not all(one["ranks_equal_emulation"]):
+                failures.append(f"{route}: the ranks differ from their in-process emulation")
+            if max(one["against_single_process"]["logit_share_of_max"]) > TP_LOGIT_TOL:
+                failures.append(f"{route}: logits off the single process's by more than "
+                                f"TP_LOGIT_TOL: {one['against_single_process']}")
+            kernels = ["decode_attention", "flash_attention"] + {
+                "float": [], "int8": ["int8_matmul"], "int4": ["int4_gemv"]}[route]
+            for r, counts in enumerate(one["launches"]):
+                for k in kernels:
+                    if counts.get(k, 0) <= 0:
+                        failures.append(f"{route}: rank {r} launched no {k}")
+            rec["routes"][route] = one
+
+        # (b) one rank over NCCL, the batcher's graph holding the all-reduces
+        t = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+        dac = load_dac_safetensors(model_dir / "dac.safetensors", "cuda")
+        lanes = {}
+        try:
+            mesh = make_mesh(data=1, model=1, device="cuda")
+            for name, m in (("nccl_mesh_1x1", mesh), ("unsharded", None)):
+                dia = Dia(cfg, seed_weights(torch, cfg), "bfloat16", dac_params=dac,
+                          dac_config=dac_cfg, device="cuda")
+                if m is not None:
+                    dia.shard(m)
+                reset_launch_counts()
+                cb = ContinuousBatcher(dia, n_slots=2, segment_steps=64, max_tokens=TP_CB_TOKENS,
+                                       text_window=256, mesh=m)
+                try:
+                    futs = [cb.submit(FULL_WIDTH_TEXT, temperature=0.0, seed=0),
+                            cb.submit(BATCHED_TEXTS[0], temperature=1.3, seed=5)]
+                    codes = [f.result(600) for f in futs]
+                    counts = launch_counts()
+                    wave = cb.generate(TP_CLI_TEXT, max_tokens=TP_CB_TOKENS, temperature=0.0)
+                finally:
+                    cb.shutdown()
+                lanes[name] = {"codes": codes, "launches": counts, "wave": wave,
+                               "captures": cb.stats["captures"]}
+                del dia, cb
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        equal = all(np.array_equal(a, b) for a, b in zip(lanes["nccl_mesh_1x1"]["codes"],
+                                                          lanes["unsharded"]["codes"]))
+        rec["nccl_graph"] = {
+            "lanes_equal_unsharded": equal,
+            "frames": [int(c.shape[0]) for c in lanes["nccl_mesh_1x1"]["codes"]],
+            "captures": lanes["nccl_mesh_1x1"]["captures"],
+            "launches": lanes["nccl_mesh_1x1"]["launches"],
+            "seconds": time.perf_counter() - t}
+        if not equal:
+            failures.append("(b) the NCCL-mesh batcher's lanes differ from the unsharded ones")
+        if lanes["nccl_mesh_1x1"]["captures"] != 1:
+            failures.append("(b) the NCCL-mesh batcher did not capture its graph once")
+        for k in ("decode_attention", "flash_attention"):
+            if lanes["nccl_mesh_1x1"]["launches"].get(k, 0) <= 0:
+                failures.append(f"(b) no {k} launch")
+
+        # (c) the CLI
+        t = time.perf_counter()
+        line = ""
+        while "Serving Dia TTS API" not in line:
+            line = server.stdout.readline()
+            if not line:
+                raise RuntimeError("tp: app --tp 1 ended before it served: "
+                                   + (tmp / "tp_server.err").read_text()[-3000:])
+        served = _post(port, "/generate", {"text": TP_CLI_TEXT,
+                                           "max_new_tokens": TP_CB_TOKENS, "temperature": 0.0})
+        pcm = np.frombuffer(served["body"][44:], np.int16).astype(np.int32)
+        want = _pcm16(lanes["nccl_mesh_1x1"]["wave"]).astype(np.int32)
+        diff = int(np.abs(pcm - want).max()) if pcm.shape == want.shape else None
+        server.send_signal(signal.SIGTERM)
+        server_rc = server.wait(timeout=120)
+        out2, err2 = tp2.communicate(timeout=120)
+        rec["cli"] = {"tp1_status": served["status"], "tp1_seconds": served["seconds"],
+                      "tp1_pcm_max_lsb_diff": diff, "pcm_lsb_tol": PCM_LSB_TOL,
+                      "tp1_exit": server_rc, "tp2_exit": tp2.returncode,
+                      "tp2_error": err2.strip().splitlines()[-1] if err2.strip() else "",
+                      "wall_s": time.perf_counter() - t}
+        if served["status"] != 200 or diff is None or diff > PCM_LSB_TOL or server_rc != 0:
+            failures.append(f"(c) app --tp 1: {rec['cli']}")
+        if tp2.returncode != 2 or "--tp 2 needs 2 CUDA devices, found 1" not in err2:
+            failures.append(f"(c) app --tp 2 on one card: {rec['cli']}")
+    finally:
+        for proc in (server, tp2):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        server_log.close()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["failures"] = failures
+    emit(rec)
+    if failures:
+        raise RuntimeError(f"tp: {failures}")
+    return rec
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     try:
@@ -3801,6 +4321,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             training = phase_training(torch, Path(tmp))
         lap("training")
+    if wanted("tp"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+            phase_tp(torch, Path(tmp))
+        lap("tp")
     if only:
         print(f"# chip_smoke partial run {sorted(only)}: {time.perf_counter() - t0:.1f} s",
               file=sys.stderr)

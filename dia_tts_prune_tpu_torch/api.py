@@ -18,7 +18,9 @@ layer-skip drafts and a one-pass verify window (``speculative.py``; greedy
 codes equal the loop's), ``speculative_generator`` returns that generator;
 ``load_adapter_weights`` / ``unload_adapter`` / ``set_adapter`` fuse a LoRA
 adapter into the weights and take it out again; ``save_pretrained`` writes a
-model directory both packages load.  Everything runs on ``device``, ``"cuda"``
+model directory both packages load; ``shard(mesh)`` keeps this rank's
+tensor-parallel shards and rebuilds the generator on them (the JAX app's
+``--tp`` lines).  Everything runs on ``device``, ``"cuda"``
 unless the caller passes another; asking for CUDA on a machine without it
 raises — nothing moves to the CPU on its own.
 """
@@ -137,6 +139,7 @@ class Dia:
         self.dac_params = dac_params
         self._active_adapter = None
         self._audio_cache: OrderedDict = OrderedDict()  # (path, mtime_ns, size) → codes
+        self.mesh = None  # set by shard()
         self.generator = DiaGenerator(params, config, compute_dtype, self.device)
         self._spec_key, self._spec_gen = None, None  # speculative_generator's cache
 
@@ -266,6 +269,8 @@ class Dia:
         for one (window, draft layers) until the params are swapped."""
         from .speculative import SpeculativeGenerator
 
+        if self.mesh is not None:
+            raise NotImplementedError("speculative decoding has no tensor-parallel form")
         key = (int(window), n_draft_layers, id(self.params))
         if self._spec_key != key:
             self._spec_gen = SpeculativeGenerator(
@@ -367,8 +372,29 @@ class Dia:
         """Swap the weights and rebuild the generator, so that nothing keeps
         the replaced tensors alive: their device memory is freed here."""
         self.params = params
-        self.generator = DiaGenerator(params, self.config, self.compute_dtype, self.device)
+        self.generator = DiaGenerator(params, self.config, self.compute_dtype, self.device,
+                                      mesh=self.mesh)
         self._spec_key, self._spec_gen = None, None
+
+    def shard(self, mesh) -> None:
+        """Keep this rank's tensor-parallel shards of the float weights
+        (``parallel.sharding.shard_params``) and rebuild the generator on
+        them under ``mesh``; the whole tree is freed.  A collective call, as
+        every call of the sharded model is (``generate.DiaGenerator``).
+        Quantize after sharding: ``quantize_int8`` / ``quantize_int4`` then
+        take each row-parallel kernel's scales over the whole K."""
+        from .parallel.sharding import shard_params
+
+        if self.mesh is not None:
+            raise RuntimeError("this model is already sharded")
+        params = shard_params(self.params, mesh, config=self.config)
+        self.mesh = mesh
+        self._set_params(params)
+
+    def _model_group(self):
+        from .parallel.sharding import model_group
+
+        return None if self.mesh is None else model_group(self.mesh)
 
     def quantize_int8(self, fused: bool = False, fused_mlp_int4: bool = False) -> None:
         """Swap the decoder's dense kernels to packed int8 (values +
@@ -384,7 +410,8 @@ class Dia:
         prompt prefill keeps using the packed tree, so a fused model holds
         both (a pruned, block-sparse decoder gets no pack)."""
         self._set_params(quantize_params_int8_packed(self.params, fused=fused,
-                                                     fused_mlp_int4=fused_mlp_int4))
+                                                     fused_mlp_int4=fused_mlp_int4,
+                                                     model_group=self._model_group()))
 
     def quantize_int4(self, group: int | None = 128, mlp_only: bool = False,
                       halfsplit: bool = True) -> None:
@@ -396,9 +423,11 @@ class Dia:
         back per kernel to row parity where the halves do not align with the
         groups.  (The JAX signature's ``nibble`` has no counterpart: nibble
         bytes are the port's only stored form.)"""
+        mg = self._model_group()
         params = quantize_params_int4_packed(self.params, group=group, mlp_only=mlp_only,
-                                             halfsplit=halfsplit)
-        self._set_params(quantize_params_int8_packed(params) if mlp_only else params)
+                                             halfsplit=halfsplit, model_group=mg)
+        self._set_params(quantize_params_int8_packed(params, model_group=mg) if mlp_only
+                         else params)
 
     def prune_block_sparse(self, amount: float, block: tuple[int, int] = (256, 256),
                            scope: str = "global") -> dict:

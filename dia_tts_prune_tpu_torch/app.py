@@ -10,7 +10,13 @@ become the next batch's voice prompt, :221-226), per-batch max-token scaling
 Run on the card: ``python -m dia_tts_prune_tpu_torch.app --model-path DIR
 [--dac-checkpoint DAC.pth] [--dynamic-batch | --continuous-batch] [--quantize-int8]
 [--port 7860]``
-(``--device cpu`` runs on the CPU).  The API:
+(``--device cpu`` runs on the CPU).  ``--tp N --continuous-batch`` serves from
+N ranks with heads and FFN sharded (the JAX app's ``--tp``): the command
+starts ranks 1..N-1 itself, as child processes of the same command, and
+serves from rank 0 while the others follow its batcher
+(``cbatch.ContinuousBatcher.follow``).  On the card each rank takes one card
+(``cuda:r``) and the ranks meet over NCCL; with ``--device cpu`` over gloo.
+The API:
 
 * ``POST /generate`` {"text", "max_new_tokens", "cfg_scale", "temperature",
   "top_p", "cfg_filter_top_k", "speed_factor", "chunk_size", "seed",
@@ -222,6 +228,17 @@ def _pcm16(audio: np.ndarray) -> np.ndarray:
     return (np.clip(audio, -1, 1) * 32767).astype(np.int16)
 
 
+class _OnBatcher:
+    """``run_inference``'s model for a sharded server: every chunk goes to
+    the batcher, the only work that the other ranks follow."""
+
+    def __init__(self, batcher):
+        self.batcher = batcher
+
+    def generate(self, text: str, verbose: bool = False, **kwargs):
+        return self.batcher.generate(text, **kwargs)
+
+
 def make_server(dia, host: str = "0.0.0.0", port: int = 7860, batcher=None):
     """The JSON → WAV server: POST /generate and /stream, GET /health and
     /stats.  Each request runs in its own thread.
@@ -230,7 +247,9 @@ def make_server(dia, host: str = "0.0.0.0", port: int = 7860, batcher=None):
     clients go to ``batcher.generate``: a ``serving.DynamicBatcher``
     coalesces them into one batched decode loop, a
     ``cbatch.ContinuousBatcher`` gives each a resident lane.  Multi-chunk
-    long-form requests keep the rolling-prompt pipeline (``run_inference``).
+    long-form requests keep the rolling-prompt pipeline (``run_inference``),
+    through the batcher when it is sharded (a mesh's ranks follow the
+    batcher only).
     ``/stream`` goes to ``batcher.generate_stream`` where the batcher has one
     (a continuous batcher's lane streams as it decodes); with a dynamic
     batcher, whose streams end together, it generates on its own."""
@@ -333,8 +352,9 @@ def make_server(dia, host: str = "0.0.0.0", port: int = 7860, batcher=None):
                     sr = SAMPLE_RATE
                     pcm = _pcm16(np.zeros(0, np.float32) if audio is None else audio)
                 else:
+                    sharded = getattr(batcher, "mesh", None) is not None
                     sr, pcm = run_inference(
-                        dia,
+                        _OnBatcher(batcher) if sharded else dia,
                         text,
                         audio_prompt_path=req.get("audio_prompt"),
                         audio_prompt_text=req.get("audio_prompt_text"),
@@ -417,30 +437,127 @@ def main(argv=None) -> int:
     parser.add_argument("--cb-text-window", type=int, default=256,
                         help="cross-attention text window (encoded bytes) of every lane; a "
                              "longer request gets a 400")
+    parser.add_argument("--tp", type=int, default=0,
+                        help="tensor-parallel serving over N ranks (heads and FFN sharded; "
+                             "needs --continuous-batch): one card a rank over NCCL, or with "
+                             "--device cpu over gloo; the command starts the other ranks")
+    parser.add_argument("--tp-rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-init", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.dynamic_batch and args.continuous_batch:
         parser.error("--dynamic-batch and --continuous-batch exclude each other")
+    device = args.device
+    if args.tp:
+        if not args.continuous_batch:
+            parser.error("--tp requires --continuous-batch")
+        if args.tp < 0:
+            parser.error("--tp takes a positive number of ranks")
+        import torch
+
+        if torch.device(device).type == "cuda":
+            found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if found < args.tp:
+                parser.error(f"--tp {args.tp} needs {args.tp} CUDA devices, found {found}")
+            device = f"cuda:{args.tp_rank}"
 
     from .api import Dia
 
-    dia = Dia.from_pretrained(args.model_path, compute_dtype=args.compute_dtype,
-                              dac_checkpoint=args.dac_checkpoint, device=args.device)
-    if args.quantize_int8:
-        dia.quantize_int8()
-    batcher = None
-    if args.continuous_batch:
-        from .cbatch import ContinuousBatcher
+    followers = _start_ranks(args, argv) if args.tp and args.tp_init is None else []
+    mesh, served = None, False
+    try:
+        mesh = _join_mesh(args, device) if args.tp else None
+        dia = Dia.from_pretrained(args.model_path, compute_dtype=args.compute_dtype,
+                                  dac_checkpoint=args.dac_checkpoint, device=device)
+        if mesh is not None:  # shard first, then quantize the shards (the JAX app's order)
+            dia.shard(mesh)
+        if args.quantize_int8:
+            dia.quantize_int8()
+        batcher = None
+        if args.continuous_batch:
+            from .cbatch import ContinuousBatcher
 
-        batcher = ContinuousBatcher(dia, n_slots=args.cb_slots,
-                                    segment_steps=args.cb_segment_steps,
-                                    max_tokens=args.cb_max_tokens,
-                                    text_window=args.cb_text_window)
-    elif args.dynamic_batch:
-        from .serving import DynamicBatcher
+            batcher = ContinuousBatcher(dia, n_slots=args.cb_slots,
+                                        segment_steps=args.cb_segment_steps,
+                                        max_tokens=args.cb_max_tokens,
+                                        text_window=args.cb_text_window, mesh=mesh)
+        elif args.dynamic_batch:
+            from .serving import DynamicBatcher
 
-        batcher = DynamicBatcher(dia, max_batch=args.max_batch, max_wait_ms=args.batch_wait_ms)
-    serve_http(dia, args.host, args.port, batcher=batcher)
-    return 0
+            batcher = DynamicBatcher(dia, max_batch=args.max_batch,
+                                     max_wait_ms=args.batch_wait_ms)
+        if mesh is not None and not batcher.leader:
+            batcher.follow()
+        else:
+            serve_http(dia, args.host, args.port, batcher=batcher)
+        served = True
+    finally:
+        failed = _end_ranks(followers, mesh, wait=served)
+    return 1 if failed else 0
+
+
+def _start_ranks(args, argv) -> list:
+    """Rank 0's start (the command that a user ran): a rendezvous on a free
+    local port, and ranks 1..N-1 as child processes running this same
+    command with their rank added (their standard output discarded: rank 0's
+    is the server's), each ended if rank 0's process ends."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        args.tp_init = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    base = list(sys.argv[1:] if argv is None else argv)
+    return [subprocess.Popen([sys.executable, "-m", "dia_tts_prune_tpu_torch.app", *base,
+                              "--tp-rank", str(r), "--tp-init", args.tp_init],
+                             stdout=subprocess.DEVNULL, preexec_fn=_end_with_parent)
+            for r in range(1, args.tp)]
+
+
+def _end_with_parent() -> None:
+    """In a started rank, before it runs: SIGTERM when rank 0's process
+    ends, however it ends (Linux ``prctl(PR_SET_PDEATHSIG)``)."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)
+
+
+def _join_mesh(args, device: str):
+    """This rank's process group (NCCL on the card, gloo on the CPU) and the
+    (1, N) mesh over it."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.sharding import TIMEOUT, make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=args.tp_init,
+                            world_size=args.tp, rank=args.tp_rank, timeout=TIMEOUT)
+    return make_mesh(data=1, model=args.tp, device=dev.type)
+
+
+def _end_ranks(followers: list, mesh, wait: bool) -> bool:
+    """After serving (``wait``), wait for the other ranks (they end when
+    rank 0's batcher stops) and stop any that does not end; after a failure,
+    stop them now.  Then leave the process group.  True if a rank failed."""
+    import subprocess
+
+    failed = not wait
+    for proc in followers:
+        try:
+            failed |= proc.wait(timeout=120 if wait else 0) != 0
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            failed = True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    return failed
 
 
 if __name__ == "__main__":

@@ -36,13 +36,28 @@ lock.  On the CPU the body steps eagerly.  Nothing falls back: a failing
 capture raises from the constructor, a failing segment to every waiting
 request (``_fail_all``).
 
-The JAX constructor's ``mesh`` (tensor-parallel serving) has no counterpart
-yet.
+Every device action of the worker — admitting requests, a segment (with
+the requests it prepares ahead), freeing cancelled lanes — runs through one
+method, ``_act``.  That is what tensor-parallel serving needs
+(``ContinuousBatcher(mesh=...)``, the JAX constructor's ``mesh``): one
+process a rank, each holding its shards (``Dia.shard``), its lanes' caches
+holding its own heads.  The worker runs on rank 0, the leader, which owns the
+queue and the futures; before each action it broadcasts the action's name
+and its small host payload (the requests' text, prompt codes and sampling
+values) over a gloo group on the CPU, and every other rank, in ``follow()``,
+performs the same device calls on its shards, so that their collectives
+meet.  After each action all ranks exchange whether they failed and a
+checksum of what they computed (an all-reduce on that group): a failure or
+a disagreement on any rank fails every waiting request (``_fail_all``) and
+ends every follower, none left waiting in a collective.  An idle leader
+sends a heartbeat well inside the groups' timeout.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import queue
 import threading
 import time
@@ -53,6 +68,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import DiaConfig
 from .generate import (
@@ -73,12 +89,23 @@ from .generate import (
     loop_step,
     run_prefill,
 )
-from .models.dia import KVCache, QuantKVCache, decode_step, new_self_cache, quantize_cache
+from .models.dia import (
+    KVCache,
+    QuantKVCache,
+    decode_step,
+    local_heads,
+    new_self_cache,
+    quantize_cache,
+)
 from .ops.delay import revert_audio_delay_np
 from .ops.modules import MAX_ROWS
+from .parallel.sharding import TIMEOUT, capturable, checksum
 from .state import prepare_audio_prompt
 from .tokenizer import build_effective_text, encode_cfg_batch
 from .utils.profiling import GenerationStats
+
+
+HEARTBEAT_S = TIMEOUT.total_seconds() / 10  # an idle leader's message interval under a mesh
 
 
 @dataclass
@@ -92,11 +119,13 @@ class Prepared:
     ends: torch.Tensor  # int32 [2]: the CFG rows' text keys
 
 
-def cb_init(config: DiaConfig, n_slots: int, cache_len: int, text_window: int, dtype,
+def cb_init(params, config: DiaConfig, n_slots: int, cache_len: int, text_window: int, dtype,
             kv_int8: bool, device):
     """The idle N-lane state, every lane stopped (the JAX ``cb_init``, :105),
     its 2N-row self cache, and the batch's cross buffers at ``text_window``
-    keys.  Returns (state, self_cache, cross_cache, cross_ends)."""
+    keys, both with the heads of the weights ``params`` (a rank's own under
+    a mesh, ``models.dia.local_heads``).  Returns (state, self_cache,
+    cross_cache, cross_ends)."""
     d, dec = config.data, config.model.decoder
     N = int(n_slots)
 
@@ -122,8 +151,9 @@ def cb_init(config: DiaConfig, n_slots: int, cache_len: int, text_window: int, d
         temperature=full((N,), 1.0, torch.float32),
         top_p=full((N,), 1.0, torch.float32),
         greedy=full((N,), True, torch.bool))
-    self_cache = new_self_cache(config, CFG_BATCH * N, cache_len, dtype, device, quant=kv_int8)
-    shape = (dec.n_layer, CFG_BATCH * N, int(text_window), dec.cross_query_heads,
+    self_cache = new_self_cache(params, config, CFG_BATCH * N, cache_len, dtype, device,
+                                quant=kv_int8)
+    shape = (dec.n_layer, CFG_BATCH * N, int(text_window), local_heads(params, "cross_attention"),
              dec.cross_head_dim)
     if kv_int8:
         cross = QuantKVCache(k=full(shape, 0, torch.int8), v=full(shape, 0, torch.int8),
@@ -199,6 +229,11 @@ def cb_segment(state: LoopState, body, buffers: LoopBuffers, stats: GenerationSt
     return n
 
 
+# the fields of a request that every rank needs (the rest are the leader's)
+WIRE_KEYS = ("id", "text", "cfg_scale", "temperature", "top_p", "seed", "max_tokens",
+             "audio_prompt_codes", "audio_prompt_text")
+
+
 @dataclass
 class _Lane:
     future: Future
@@ -212,11 +247,20 @@ class ContinuousBatcher:
     swaps requests into free lanes at segment boundaries while the other
     lanes go on decoding.  Every device shape is fixed at construction, for
     the model's weights at that time (``dia.params``): one CUDA graph for
-    the batcher's life."""
+    the batcher's life.
+
+    ``mesh``: the mesh the model was sharded on (``Dia.shard``), None for a
+    whole model.  Every rank builds the batcher with the same arguments (a
+    collective call; on the card the captured graph holds the model group's
+    all-reduces, which needs NCCL: a gloo mesh on CUDA raises).  Rank 0
+    takes requests; every other rank calls ``follow()``, which returns
+    when rank 0 shuts down."""
 
     def __init__(self, dia, n_slots: int = 4, segment_steps: int = 64, max_tokens: int = 1024,
-                 text_window: int | None = 256, cfg_filter_top_k: int = 35):
+                 text_window: int | None = 256, cfg_filter_top_k: int = 35, mesh=None):
         cfg = dia.config
+        if mesh is not dia.generator.mesh:
+            raise ValueError("mesh must be the one the model was sharded on (Dia.shard(mesh))")
         self._dia = dia
         self.n_slots = int(n_slots)
         self.segment_steps = int(segment_steps)
@@ -224,6 +268,12 @@ class ContinuousBatcher:
         self.cfg_filter_top_k = int(cfg_filter_top_k)
         self.device = dia.generator.device
         self.loop = "graph" if self.device.type == "cuda" else "eager"
+        self.mesh, self._group = mesh, dia.generator.group
+        self.leader = mesh is None or dist.get_rank() == 0
+        if self.loop == "graph" and self._group is not None and not capturable(self._group):
+            raise ValueError(f"on the card the batcher's graph holds the model group's "
+                             f"all-reduces, which a CUDA graph cannot capture under "
+                             f"{dist.get_backend(self._group)}: build the mesh over NCCL")
         if self.n_slots < 1 or self.segment_steps < 1:
             raise ValueError("n_slots and segment_steps must be positive")
         if CFG_BATCH * self.n_slots > MAX_ROWS:  # a step's rows: a CFG pair a lane
@@ -239,21 +289,27 @@ class ContinuousBatcher:
         self._dtype = DTYPES[dia.compute_dtype]
         self._buffers = LoopBuffers(self.device if self.loop == "graph" else None)
         self.run_stats = GenerationStats(loop=self.loop, graph_steps=GRAPH_STEPS)
+        # the leader's messages: a gloo group on the CPU beside the mesh's groups
+        self._ctrl = None if mesh is None else dist.new_group(backend="gloo", timeout=TIMEOUT)
+        self._peers_gone = False  # an exchange reported a failure: every rank knows
+        self._prepped: dict = {}  # request id → Prepared, ahead of its admission
         with self._device_work():
             self._state, self._self_cache, self._cross, self._ends = cb_init(
-                cfg, self.n_slots, self.cache_len, self.text_window, self._dtype, self.kv_int8,
-                self.device)
+                dia.params, cfg, self.n_slots, self.cache_len, self.text_window, self._dtype,
+                self.kv_int8, self.device)
             self._gens = self._buffers.generators(self.device, [0] * self.n_slots)
             params, state, top_k = dia.params, self._state, self.cfg_filter_top_k
+            step = functools.partial(decode_step, group=self._group)
 
             def body():
-                loop_step(state, decode_step, params, cfg, self._self_cache, self._cross,
+                loop_step(state, step, params, cfg, self._self_cache, self._cross,
                           self._ends, top_k, self._gens, self._dtype)
 
             self._body = body
             if self.loop == "graph":
                 self._capture_graph()
         self._lanes: list[_Lane | None] = [None] * self.n_slots
+        self._ids = itertools.count()
         self._q: deque = deque()
         self._cancel: dict[int, Future] = {}  # slot → future to cancel
         self._cond = threading.Condition()
@@ -266,9 +322,11 @@ class ContinuousBatcher:
                       "steps": 0, "captures": self.run_stats.captures,
                       "capture_seconds": self.run_stats.capture_seconds, "replays": 0,
                       "admitted": 0, "admission_wait_s": 0.0, "admission_wait_max_s": 0.0}
-        self._worker = threading.Thread(target=self._run, daemon=True,
-                                        name="dia-continuous-batcher")
-        self._worker.start()
+        self._worker = None
+        if self.leader:
+            self._worker = threading.Thread(target=self._run, daemon=True,
+                                            name="dia-continuous-batcher")
+            self._worker.start()
 
     @contextlib.contextmanager
     def _device_work(self):
@@ -301,13 +359,16 @@ class ContinuousBatcher:
         """Queue one request; resolves to undelayed codes [T, C] (int32).  A
         seeded request repeats its solo run whatever lane it gets and
         whenever it is admitted."""
+        if not self.leader:
+            raise RuntimeError("requests go to rank 0; this rank follows it (follow())")
         if not self._running:
             raise RuntimeError("batcher is shut down")
         if audio_prompt_codes is not None and not audio_prompt_text:
             raise ValueError(
                 "`audio_prompt_text` is required when `audio_prompt_codes` is provided.")
         fut: Future = Future()
-        req = dict(text=text, cfg_scale=float(cfg_scale), temperature=float(temperature),
+        req = dict(id=next(self._ids), text=text, cfg_scale=float(cfg_scale),
+                   temperature=float(temperature),
                    top_p=float(top_p), seed=_resolve_seed(seed),
                    max_tokens=min(int(max_tokens or self.max_tokens), self.max_tokens),
                    audio_prompt_codes=audio_prompt_codes, audio_prompt_text=audio_prompt_text,
@@ -344,6 +405,7 @@ class ContinuousBatcher:
         with self._cond:
             pending = list(self._cancel.items())
             self._cancel.clear()
+        freed = []
         for i, fut in pending:
             lane = self._lanes[i]
             if lane is None or lane.future is not fut:
@@ -353,9 +415,15 @@ class ContinuousBatcher:
             self.stats["cancelled"] += 1
             if lane.stream_q is not None:
                 lane.stream_q.put(None)
-            with self._device_work():  # freeze the lane until its slot is reused
-                self._state.stopped[i] = True
-                self._state.stop.copy_(self._state.stopped.all().reshape(1))
+            freed.append(i)
+        if freed:
+            self._act("cancel", freed)
+
+    def _do_cancel(self, slots: list[int]) -> None:
+        """Freeze the freed lanes until their slots are reused."""
+        for i in slots:
+            self._state.stopped[i] = True
+        self._state.stop.copy_(self._state.stopped.all().reshape(1))
 
     def submit_stream(self, text: str, **kwargs):
         """Stream one request's undelayed code chunks as its lane decodes: a
@@ -444,14 +512,65 @@ class ContinuousBatcher:
         with self._cond:
             self._running = False
             self._cond.notify_all()
-        if wait:
+        if wait and self._worker is not None:
             self._worker.join(timeout=60)
+
+    # ------------------------------------------------------------------
+    # Actions: the worker's device work, run alike on every rank of a mesh
+
+    def _act(self, name: str, payload=None):
+        """Run device action ``name`` (``_do_<name>(payload)``), on every rank
+        under a mesh: the leader broadcasts it first."""
+        if self.mesh is not None:
+            dist.broadcast_object_list([(name, payload)], src=0, group=self._ctrl)
+        return self._do(name, payload)
+
+    def _do(self, name: str, payload):
+        """One action on this rank, in the device work; under a mesh, then
+        the exchange: every rank's failure flag and a checksum of its result
+        (all-reduce, max, on the leader's group).  Raises this rank's error,
+        or another rank's failure, or a disagreement, on every rank alike."""
+        err, out = None, None
+        try:
+            with self._device_work():
+                out = getattr(self, "_do_" + name)(payload)
+        except Exception as e:  # noqa: BLE001 — reported to every rank, then raised
+            err = e
+        if self.mesh is not None:
+            crc = checksum(_host_arrays(out))
+            flags = torch.tensor([int(err is not None), crc, -crc], dtype=torch.int64)
+            dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self._ctrl)
+            if err is None and int(flags[0]):
+                err = RuntimeError(f"another rank failed in the batcher's {name!r}")
+            elif err is None and int(flags[1]) != -int(flags[2]):
+                err = RuntimeError(f"the ranks' lanes disagree after {name!r}")
+            self._peers_gone = err is not None
+        if err is not None:
+            raise err
+        return out
+
+    def _do_idle(self, _) -> None:
+        """The leader's heartbeat: nothing to do."""
+
+    def follow(self) -> None:
+        """A rank other than the leader: perform each action the leader
+        broadcasts, on this rank's shards, until it stops (returns) or any
+        rank fails (raises)."""
+        if self.leader:
+            raise RuntimeError("rank 0 leads the batcher; follow() is for the other ranks")
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0, group=self._ctrl)
+            name, payload = msg[0]
+            if name == "stop":
+                return
+            self._do(name, payload)
 
     # ------------------------------------------------------------------
     def _prepare_request(self, req: dict) -> Prepared:
         """One request's conditioning and prompt prefill at its single-stream
         shape (the solo ``DiaGenerator._start``'s), touching no lane: it can
-        be queued on the stream behind a running segment (``_prep_pending``).
+        be queued on the stream behind a running segment (``_do_segment``).
         A text over the batcher's window raises: cutting it to the window
         would drop real conditioning."""
         dia = self._dia
@@ -469,53 +588,61 @@ class ContinuousBatcher:
         tokens[: delayed.shape[0]] = delayed
         cross, padding_mask, ends = conditioning(
             dia.params, cfg, torch.from_numpy(enc_input).to(self.device), self._dtype,
-            _cross_window_for(enc_input, cfg))
-        self_cache = new_self_cache(cfg, CFG_BATCH, self.cache_len, self._dtype, self.device,
-                                    quant=self.kv_int8)
+            _cross_window_for(enc_input, cfg), group=self._group)
+        self_cache = new_self_cache(dia.params, cfg, CFG_BATCH, self.cache_len, self._dtype,
+                                    self.device, quant=self.kv_int8)
         if prefill_step > 1:
             run_prefill(dia.params, cfg, tokens[None], _bucket(prefill_step - 1, 128,
                                                                d.audio_length),
                         np.zeros(1, np.int64), np.asarray([prefill_step]), cross, padding_mask,
-                        self_cache, self._dtype)
+                        self_cache, self._dtype, group=self._group)
         if self.kv_int8:  # the prefill read the float cross cache
             cross = quantize_cache(cross)
         return Prepared(tokens, int(prefill_step), self_cache, cross, ends)
 
-    def _prep_pending(self) -> None:
-        """Prepare queued requests ahead of their admission (worker thread,
-        inside the device work, while a segment runs): at most ``n_slots``
-        prepared at once, each holding a lane's rows.  A request whose
-        preparation fails gets the error and leaves the queue."""
-        with self._cond:
-            n_prepped = sum(1 for r in self._q if "prepped" in r)
-            todo = [r for r in self._q if "prepped" not in r][: max(0, self.n_slots - n_prepped)]
-        for req in todo:
-            try:
-                req["prepped"] = self._prepare_request(req)
-            except Exception as e:  # noqa: BLE001 — delivered to its caller
-                with self._cond:
-                    try:
-                        self._q.remove(req)
-                    except ValueError:
-                        pass  # cancelled meanwhile
-                if not req["future"].cancelled():
-                    req["future"].set_exception(e)
-                if req.get("stream_q") is not None:
-                    req["stream_q"].put(None)
+    def _deliver_error(self, req: dict, exc: BaseException) -> None:
+        if not req["future"].cancelled():
+            req["future"].set_exception(exc)
+        if req.get("stream_q") is not None:
+            req["stream_q"].put(None)
 
-    def _admit(self, slot: int, req: dict) -> None:
-        """Lane ``slot`` takes one request (prepared now unless
-        ``_prep_pending`` got to it during an earlier segment)."""
-        prepped = req.pop("prepped", None) or self._prepare_request(req)
-        swap_in(self._state, self._self_cache, self._cross, self._ends, slot, prepped,
-                req["max_tokens"], req["cfg_scale"], req["temperature"], req["top_p"],
-                self._dia.config.data.max_delay)
-        self._gens[slot].manual_seed(req["seed"])
-        self._lanes[slot] = _Lane(req["future"], prepped.prefill_step, req.get("stream_q"))
-        wait = time.perf_counter() - req["submitted"]
-        self.stats["admitted"] += 1
-        self.stats["admission_wait_s"] += wait
-        self.stats["admission_wait_max_s"] = max(self.stats["admission_wait_max_s"], wait)
+    def _admit_batch(self, batch: list) -> None:
+        """Free lanes take queued requests (``batch``: (slot, request)
+        pairs), prepared now unless a segment prepared them ahead.  A request
+        whose preparation fails gets the error; the others go on."""
+        try:
+            outs = self._act("admit", [(slot, {k: req[k] for k in WIRE_KEYS})
+                                       for slot, req in batch])
+        except Exception as e:  # out of the queue, in no lane yet: _fail_all misses them
+            for _, req in batch:
+                self._deliver_error(req, e)
+            raise
+        for (slot, req), out in zip(batch, outs):
+            if isinstance(out, Exception):
+                self._deliver_error(req, out)
+                continue
+            self._lanes[slot] = _Lane(req["future"], out, req.get("stream_q"))
+            wait = time.perf_counter() - req["submitted"]
+            self.stats["admitted"] += 1
+            self.stats["admission_wait_s"] += wait
+            self.stats["admission_wait_max_s"] = max(self.stats["admission_wait_max_s"], wait)
+
+    def _do_admit(self, items: list) -> list:
+        """Swap each request into its lane; returns each one's first loop
+        row, or the exception that its preparation raised."""
+        out = []
+        for slot, req in items:
+            try:
+                prepped = self._prepped.pop(req["id"], None) or self._prepare_request(req)
+            except Exception as e:  # noqa: BLE001 — delivered to its caller
+                out.append(e)
+                continue
+            swap_in(self._state, self._self_cache, self._cross, self._ends, slot, prepped,
+                    req["max_tokens"], req["cfg_scale"], req["temperature"], req["top_p"],
+                    self._dia.config.data.max_delay)
+            self._gens[slot].manual_seed(req["seed"])
+            out.append(prepped.prefill_step)
+        return out
 
     def _revert_prefix(self, raw: np.ndarray, n_final: int) -> np.ndarray:
         """Undelay ``raw`` rows and return the first ``n_final`` frames (a
@@ -584,16 +711,34 @@ class ContinuousBatcher:
             self._run_loop()
         except Exception as e:  # noqa: BLE001 — delivered, no client hangs
             self._fail_all(e)
+        finally:
+            if self.mesh is not None and not self._peers_gone:
+                try:  # the followers end too
+                    dist.broadcast_object_list([("stop", None)], src=0, group=self._ctrl)
+                except Exception:  # noqa: BLE001 — a follower that is gone cannot hear it
+                    pass
 
     def _run_segment(self, live: int) -> tuple:
-        """One segment over the resident lanes (device work held); returns
-        the host copies of (stopped, final_step, tokens) after it."""
+        """One segment over the resident lanes; returns the host copies of
+        (stopped, final_step, tokens) after it.  Up to ``n_slots`` queued
+        requests are prepared ahead while it runs (``_do_segment``); one whose
+        preparation fails gets the error and leaves the queue."""
+        with self._cond:
+            queued = list(self._q)
+        keep = [r["id"] for r in queued if r["id"] in self._prepped]
+        todo = [{k: r[k] for k in WIRE_KEYS} for r in queued
+                if r["id"] not in self._prepped][: max(0, self.n_slots - len(keep))]
         t0 = time.perf_counter()
         replays, device_s = self.run_stats.replays, self.run_stats.replay_device_seconds
-        steps = cb_segment(self._state, self._body, self._buffers, self.run_stats,
-                           self.segment_steps, after_first=self._prep_pending)
-        out = (self._state.stopped.cpu().numpy(), self._state.final_step.cpu().numpy(),
-               self._state.tokens.cpu().numpy())
+        steps, *out, errors = self._act("segment", {"keep": keep, "prep": todo})
+        for req in queued:
+            if req["id"] in errors:
+                with self._cond:
+                    try:
+                        self._q.remove(req)
+                    except ValueError:
+                        pass  # cancelled meanwhile
+                self._deliver_error(req, errors[req["id"]])
         self.segment_log.append((live, steps, time.perf_counter() - t0,
                                  self.run_stats.replay_device_seconds - device_s))
         self.stats["segments"] += 1
@@ -601,9 +746,31 @@ class ContinuousBatcher:
         self.stats["replays"] += self.run_stats.replays - replays
         self.stats["lane_segments_occupied"] += live
         self.stats["lane_segments_capacity"] += self.n_slots
-        return out
+        return tuple(out)
+
+    def _do_segment(self, payload: dict) -> tuple:
+        """Every live lane through one segment, the listed requests prepared
+        ahead once its first step is queued (prepared ones not kept are
+        dropped).  Returns (steps, stopped, final_step, tokens, {request id:
+        its preparation's error})."""
+        for rid in set(self._prepped) - set(payload["keep"]):
+            del self._prepped[rid]
+        errors = {}
+
+        def prep():
+            for req in payload["prep"]:
+                try:
+                    self._prepped[req["id"]] = self._prepare_request(req)
+                except Exception as e:  # noqa: BLE001 — delivered to its caller
+                    errors[req["id"]] = e
+
+        steps = cb_segment(self._state, self._body, self._buffers, self.run_stats,
+                           self.segment_steps, after_first=prep)
+        return (steps, self._state.stopped.cpu().numpy(), self._state.final_step.cpu().numpy(),
+                self._state.tokens.cpu().numpy(), errors)
 
     def _run_loop(self) -> None:
+        beat = time.perf_counter()
         while True:
             self._apply_cancels()
             with self._cond:
@@ -612,23 +779,35 @@ class ContinuousBatcher:
                     return
                 if not have_work:
                     self._cond.wait(timeout=0.1)
-                    continue
                 batch = []
                 for slot in range(self.n_slots):
-                    if self._lanes[slot] is None and self._q:
+                    if have_work and self._lanes[slot] is None and self._q:
                         batch.append((slot, self._q.popleft()))
-            with self._device_work():
-                for slot, req in batch:
-                    try:
-                        self._admit(slot, req)
-                    except Exception as e:  # noqa: BLE001 — delivered, the others go on
-                        req["future"].set_exception(e)
-                        if req.get("stream_q") is not None:
-                            req["stream_q"].put(None)
-                owners = [(i, lane) for i, lane in enumerate(self._lanes) if lane is not None]
-                self.stats["max_live"] = max(self.stats["max_live"], len(owners))
-                if not owners:
-                    continue
-                result = self._run_segment(len(owners))
+            if not have_work:
+                if self.mesh is not None and time.perf_counter() - beat > HEARTBEAT_S:
+                    self._act("idle")
+                    beat = time.perf_counter()
+                continue
+            if batch:
+                self._admit_batch(batch)
+            owners = [(i, lane) for i, lane in enumerate(self._lanes) if lane is not None]
+            self.stats["max_live"] = max(self.stats["max_live"], len(owners))
+            if not owners:
+                continue
+            result = self._run_segment(len(owners))
+            beat = time.perf_counter()
             self._emit_streams(*result, owners)
             self._harvest(*result, owners)
+
+
+def _host_arrays(out) -> list:
+    """The numbers of an action's result, for the ranks' checksum: arrays
+    and ints as they are, an exception as -1, a dict by its sorted keys."""
+    def numbers(o):
+        if isinstance(o, Exception):
+            return np.asarray(-1)
+        return np.asarray(sorted(o) if isinstance(o, dict) else o)
+
+    if out is None:
+        return []
+    return [numbers(o) for o in (out if isinstance(out, (list, tuple)) else [out])]

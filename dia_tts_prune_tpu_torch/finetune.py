@@ -14,7 +14,10 @@ The codec comes from the model directory's ``dac.safetensors``, or from a
 torch DAC checkpoint given by ``--dac-checkpoint``.
 
 Not here yet: sharding over several cards (``--mesh-data``, ``--mesh-model``,
-``--fsdp``).
+``--fsdp``).  The mesh, its spec functions and local shards exist
+(``parallel/sharding.py``, serving only); training under them needs the
+gradient collectives, which are not written: a gradient under a mesh raises
+(``ops.modules.model_psum``).
 
 Run: ``python -m dia_tts_prune_tpu_torch.finetune --model-path … --dataset-dir …
 --output-dir … --adapter-mode lora``

@@ -53,10 +53,20 @@ and a generator per stream, so each stream repeats its single-stream run —
 bit for bit on the card too: each stream is conditioned at its
 single-stream shape (``conditioning_batch``), and every op of a decode
 step computes a row in an order that does not depend on the other rows.
+
+Tensor-parallel serving (``DiaGenerator(mesh=...)``, ``parallel/sharding.py``):
+every rank runs the same calls on its local shards, the forwards taking the
+mesh's model group (``models/dia.py``).  The caches hold the rank's own heads;
+the logits head is replicated, so every rank samples the same tokens from
+generators seeded alike, and after a call the ranks check that their codes
+agree.  The graph loop needs collectives that a CUDA graph can capture
+(NCCL); under gloo only ``loop="eager"`` runs, and asking for the graph loop
+raises.
 """
 
 from __future__ import annotations
 
+import functools
 import random
 import threading
 import time
@@ -80,6 +90,7 @@ from .ops.delay import revert_audio_delay_np
 from .ops.kernels.decode_attention import ends_from_padding_mask
 from .ops.quant import PACKED_TYPES
 from .ops.sampling import apply_constraints, cfg_combine, sample_next_token
+from .parallel.sharding import capturable, check_agree, model_group, warm_up
 from .state import cross_attention_mask, new_encoder_state, prepare_audio_prompt
 from .tokenizer import build_effective_text, encode_cfg_batch
 from .utils.profiling import GenerationStats
@@ -133,12 +144,14 @@ def _cache_len_for(max_tokens: int, floor: int, config: DiaConfig) -> int | None
 
 @torch.no_grad()
 def conditioning(params, config: DiaConfig, enc_input: torch.Tensor, compute_dtype,
-                 cross_window: int | None):
+                 cross_window: int | None, group=None):
     """Encoder pass and cross-attention K/V, trimmed to ``cross_window`` text
     keys (the trimmed keys are padding, masked for every row).  Returns
-    (cross_cache, padding_mask [B, S], cross_ends int32 [B])."""
+    (cross_cache, padding_mask [B, S], cross_ends int32 [B]).  ``group``: the
+    mesh's model group over local shards."""
     enc_state = new_encoder_state(config, enc_input)
-    enc_out = encoder_forward(params, config, enc_input, enc_state.positions, compute_dtype)
+    enc_out = encoder_forward(params, config, enc_input, enc_state.positions, compute_dtype,
+                              group=group)
     positions, padding_mask = enc_state.positions, enc_state.padding_mask
     if cross_window is not None and cross_window < enc_out.shape[1]:
         enc_out = enc_out[:, :cross_window]
@@ -151,7 +164,7 @@ def conditioning(params, config: DiaConfig, enc_input: torch.Tensor, compute_dty
 
 @torch.no_grad()
 def conditioning_batch(params, config: DiaConfig, conds: list[np.ndarray], compute_dtype,
-                       device):
+                       device, group=None):
     """N streams' conditioning, each at its single-stream shape: stream i's
     [uncond; cond] text rows ``conds[i]`` through ``conditioning`` with its
     own cross window, so that its cross K/V are those of its single-stream
@@ -160,7 +173,7 @@ def conditioning_batch(params, config: DiaConfig, conds: list[np.ndarray], compu
     rows [uncond × N; cond × N], the keys padded with zeros to the longest
     window (masked: past every row's end)."""
     parts = [conditioning(params, config, torch.from_numpy(c).to(device), compute_dtype,
-                          _cross_window_for(c, config)) for c in conds]
+                          _cross_window_for(c, config), group=group) for c in conds]
     S = max(mask.shape[1] for _, mask, _ in parts)
 
     def rows(tensors, dim):  # [uncond × N; cond × N], padded to S along the key axis
@@ -178,7 +191,7 @@ def conditioning_batch(params, config: DiaConfig, conds: list[np.ndarray], compu
 @torch.no_grad()
 def run_prefill(params, config: DiaConfig, tokens_buf: np.ndarray, prefill_window: int,
                 offsets: np.ndarray, prefill_steps: np.ndarray, cross_cache, padding_mask,
-                self_cache, compute_dtype) -> None:
+                self_cache, compute_dtype, group=None) -> None:
     """Write the prompts' K/V into cache slots [0, prefill_window) (the JAX
     ``_run_prefill``, generate.py:408).  ``tokens_buf`` [N, T, C] holds N
     streams, left-padded so that every prompt ends on row ``W - 1``: stream
@@ -195,7 +208,7 @@ def run_prefill(params, config: DiaConfig, tokens_buf: np.ndarray, prefill_windo
     positions = (rows - off2).clamp_min(0)
     valid = ((rows >= off2) & (rows - off2 < steps2.to(dev)[:, None] - 1)).to(torch.int32)
     decoder_prefill(params, config, tgt, positions, cross_cache, self_cache, valid,
-                    padding_mask.to(torch.int32), compute_dtype)
+                    padding_mask.to(torch.int32), compute_dtype, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -544,13 +557,14 @@ class DecodeRun:
     ``run()`` the rest to the stop (one runner for streams and whole calls;
     ``finish`` reads a whole call back); ``loop="eager"`` one
     step at a time (a read of ``stop`` a step), ``"graph"`` replayed from
-    CUDA graphs (the card only)."""
+    CUDA graphs (the card only).  ``group``: the mesh's model group, which
+    every step's forward takes."""
 
     def __init__(self, params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cross_cache,
                  cross_ends, start: int, offsets: np.ndarray, caps: np.ndarray,
                  sampling: Sampling, generators: list | None, compute_dtype, loop: str,
                  buffers: LoopBuffers | None, stats: GenerationStats | None,
-                 clamp_window: bool):
+                 clamp_window: bool, group=None):
         if loop not in LOOPS:
             raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
         dev = cross_ends.device
@@ -563,7 +577,7 @@ class DecodeRun:
         self.state = state = self.buffers.put(
             "state", new_loop_state(config, tokens_buf, start, offsets, caps, dev, clamp_window,
                                     sampling))
-        step = step_function(params)
+        step = functools.partial(step_function(params), group=group)
 
         def body():
             loop_step(state, step, params, config, self_cache, cross_cache, cross_ends,
@@ -603,7 +617,7 @@ def single_run(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cr
                temperature: float, top_p: float, cfg_filter_top_k: int,
                generator: torch.Generator | None, compute_dtype, loop: str = "eager",
                buffers: LoopBuffers | None = None,
-               stats: GenerationStats | None = None) -> DecodeRun:
+               stats: GenerationStats | None = None, group=None) -> DecodeRun:
     """The single-stream ``DecodeRun`` (``generate_fused``'s loop, :460, or
     ``prepare_stream``'s state, :713): stream one from row ``prefill_step``
     up to ``max_tokens`` rows of ``tokens_buf`` [T, C]."""
@@ -612,7 +626,7 @@ def single_run(params, config: DiaConfig, tokens_buf: np.ndarray, self_cache, cr
         np.zeros(1, np.int64), np.asarray([max_tokens]),
         Sampling(cfg_scale, temperature, top_p, cfg_filter_top_k),
         None if generator is None else [generator], compute_dtype, loop, buffers, stats,
-        clamp_window=True)
+        clamp_window=True, group=group)
 
 
 @torch.no_grad()
@@ -629,7 +643,7 @@ def decode_loop_batch(params, config: DiaConfig, tokens_buf: np.ndarray, self_ca
                       cfg_scale: float, temperature: float, top_p: float, cfg_filter_top_k: int,
                       generators: list | None, compute_dtype, loop: str = "eager",
                       buffers: LoopBuffers | None = None,
-                      stats: GenerationStats | None = None) -> np.ndarray:
+                      stats: GenerationStats | None = None, group=None) -> np.ndarray:
     """The N-stream decode loop (``generate_fused_batch``'s body,
     generate.py:625-698): all streams advance in lockstep from row
     ``start``, each with its own RoPE positions (``t - offsets[i]``), its
@@ -641,7 +655,7 @@ def decode_loop_batch(params, config: DiaConfig, tokens_buf: np.ndarray, self_ca
     return DecodeRun(params, config, tokens_buf, self_cache, cross_cache, cross_ends, start,
                      offsets, caps, Sampling(cfg_scale, temperature, top_p, cfg_filter_top_k),
                      generators, compute_dtype, loop, buffers, stats,
-                     clamp_window=False).finish(tokens_buf)
+                     clamp_window=False, group=group).finish(tokens_buf)
 
 
 def _undelay(generated: np.ndarray, config: DiaConfig) -> np.ndarray:
@@ -655,6 +669,28 @@ def _undelay(generated: np.ndarray, config: DiaConfig) -> np.ndarray:
                                      generated.shape[0])[0]
     reverted = reverted[: max(0, reverted.shape[0] - d.max_delay)]
     return np.where((reverted < 0) | (reverted > 1023), 0, reverted).astype(np.int32)
+
+
+def check_shardable(params) -> None:
+    """Raise for a tree that has no tensor-parallel form: a fused-step pack
+    (one cooperative launch cannot all-reduce between layers) or block-sparse
+    kernels (their block lists are the whole kernel's)."""
+    from .ops.sparse import BlockSparseKernel
+
+    if "fused_pack" in params.get("decoder", {}):
+        raise NotImplementedError("the fused decode step has no tensor-parallel form: one "
+                                  "cooperative launch cannot all-reduce between layers")
+
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                walk(v)
+            elif isinstance(v, BlockSparseKernel):
+                raise NotImplementedError("block-sparse (pruned) kernels have no "
+                                          "tensor-parallel form: their block lists are the "
+                                          "whole kernel's")
+
+    walk(params)
 
 
 _DEVICE_LOCKS: dict[tuple[str, int], threading.RLock] = {}
@@ -684,10 +720,18 @@ class DiaGenerator:
     on one device shares one lock (``device_lock``): two models in one
     process take turns.  A stream takes the lock for each segment and owns
     its key's buffers, out of the kept ones, from its first segment until it
-    ends or is closed."""
+    ends or is closed.
+
+    ``mesh`` (a ``DeviceMesh`` of ``parallel.sharding.make_mesh``): ``params``
+    are this rank's local shards (``shard_params``), and every call is a
+    collective one, made on every rank with the same arguments (the JAX
+    ``with mesh:``).  Building the generator is one too: it runs an
+    all-reduce on each group of the mesh, so that an NCCL communicator exists
+    before a graph captures one.  The fused step and block-sparse kernels
+    have no tensor-parallel form and raise."""
 
     def __init__(self, params, config: DiaConfig, compute_dtype: str = "float32",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.params = params
         self.config = config
         self.compute_dtype = compute_dtype
@@ -695,15 +739,31 @@ class DiaGenerator:
         self._graphs: OrderedDict[tuple, LoopBuffers] = OrderedDict()
         self.lock = device_lock(self.device)
         self.last_stats: GenerationStats | None = None  # the last call's, for callers that report
+        self.mesh, self.group = mesh, None
+        if mesh is not None:
+            check_shardable(params)
+            self.group = model_group(mesh)
+            warm_up(mesh, self.device)
 
     def _loop(self, loop: str | None) -> str:
-        """``loop`` as given; None: CUDA graphs on the card, eager on the CPU."""
+        """``loop`` as given; None: CUDA graphs on the card, eager on the CPU.
+        Under a mesh whose collectives a graph cannot capture (gloo) the
+        graph loop raises: nothing turns it into the eager loop."""
         loop = loop or ("graph" if self.device.type == "cuda" else "eager")
         if loop not in LOOPS:
             raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
         if loop == "graph" and self.device.type != "cuda":
             raise ValueError("loop='graph' needs CUDA tensors")
+        if loop == "graph" and self.group is not None and not capturable(self.group):
+            raise ValueError("loop='graph' under a mesh needs collectives that a CUDA graph "
+                             "can capture (NCCL); this mesh's model group runs "
+                             f"{torch.distributed.get_backend(self.group)}: pass loop='eager'")
         return loop
+
+    def _agree(self, arrays, what: str) -> None:
+        """Under a mesh, raise unless every rank computed the same ``arrays``."""
+        if self.mesh is not None:
+            check_agree(self.mesh, arrays, self.device, what)
 
     def _buffers(self, loop: str, key: tuple, own: bool = False) -> LoopBuffers:
         """The kept buffers (and graphs) of ``key`` for the graph loop, the
@@ -766,12 +826,14 @@ class DiaGenerator:
 
         stats = GenerationStats()
         cross_cache, padding_mask, cross_ends = conditioning(
-            self.params, cfg, torch.from_numpy(enc_input).to(self.device), dtype, cross_window)
-        self_cache = buffers.put("self", new_self_cache(cfg, CFG_BATCH, cache_len, dtype,
-                                                        self.device, quant=kv_int8))
+            self.params, cfg, torch.from_numpy(enc_input).to(self.device), dtype, cross_window,
+            group=self.group)
+        self_cache = buffers.put("self", new_self_cache(self.params, cfg, CFG_BATCH, cache_len,
+                                                        dtype, self.device, quant=kv_int8))
         if window is not None:
             run_prefill(self.params, cfg, tokens_buf[None], window, np.zeros(1, np.int64),
-                        np.asarray([prefill_step]), cross_cache, padding_mask, self_cache, dtype)
+                        np.asarray([prefill_step]), cross_cache, padding_mask, self_cache, dtype,
+                        group=self.group)
         if kv_int8:  # prefill's flash attention reads the float cross cache
             cross_cache = quantize_cache(cross_cache)
         args = (self.params, cfg, tokens_buf, self_cache, buffers.put("cross", cross_cache),
@@ -811,14 +873,16 @@ class DiaGenerator:
             args, _, _ = self._start(
                 text, max_tokens, cfg_scale, temperature, top_p, cfg_filter_top_k,
                 audio_prompt_codes, audio_prompt_text, seed, cache_len, kv_int8, loop, own=False)
-            final_step = decode_loop(*args)
+            final_step = decode_loop(*args, group=self.group)
             tokens_buf, prefill_step, stats = args[2], args[6], args[-1]
             self.last_stats = stats.finish(stats.decode_steps, prefill_step - 1)
+            # (model.py:831)
+            codes = _undelay(tokens_buf[prefill_step: final_step + 1], self.config)
+            self._agree([codes], "the codes")
         if verbose:
             print(f"generate: {stats.decode_steps} steps in {stats.wall_seconds:.3f}s "
                   f"({stats.tokens_per_second:.2f} tokens/s, {stats.loop} loop)")
-
-        return _undelay(tokens_buf[prefill_step: final_step + 1], self.config)  # (model.py:831)
+        return codes
 
     @torch.no_grad()
     def generate_tokens_stream(
@@ -862,7 +926,7 @@ class DiaGenerator:
                     text, max_tokens, cfg_scale, temperature, top_p, cfg_filter_top_k,
                     audio_prompt_codes, audio_prompt_text, seed, cache_len, kv_int8, loop,
                     own=True)
-                run = single_run(*args)
+                run = single_run(*args, group=self.group)
             tokens_buf, prefill_step = args[2], args[6]
             emitted, read_to, t = 0, prefill_step, prefill_step - 1
             seg_end = prefill_step - 1
@@ -879,7 +943,10 @@ class DiaGenerator:
                     self.last_stats = run.stats.finish(run.stats.decode_steps, prefill_step - 1)
                 n_final = max(0, final + 1 - prefill_step - d.max_delay)
                 if n_final > emitted:
-                    yield _undelay(tokens_buf[prefill_step + emitted: final + 1], self.config)
+                    chunk = _undelay(tokens_buf[prefill_step + emitted: final + 1], self.config)
+                    with self.lock:
+                        self._agree([chunk], "a stream's codes")
+                    yield chunk
                     emitted = n_final
                 if stop or t >= max_tokens - 1:
                     return
@@ -973,18 +1040,22 @@ class DiaGenerator:
 
             stats = GenerationStats()
             cross_cache, padding_mask, cross_ends = conditioning_batch(
-                self.params, cfg, conds, dtype, self.device)
-            self_cache = buffers.put("self", new_self_cache(cfg, 2 * N, self_len, dtype,
-                                                            self.device, quant=kv_int8))
+                self.params, cfg, conds, dtype, self.device, group=self.group)
+            self_cache = buffers.put("self", new_self_cache(self.params, cfg, 2 * N, self_len,
+                                                            dtype, self.device, quant=kv_int8))
             if window is not None:
                 run_prefill(self.params, cfg, tokens_buf, window, offsets, prefill_steps,
-                            cross_cache, padding_mask, self_cache, dtype)
+                            cross_cache, padding_mask, self_cache, dtype,
+                            group=self.group)
             if kv_int8:
                 cross_cache = quantize_cache(cross_cache)
             final_steps = decode_loop_batch(
                 self.params, cfg, tokens_buf, self_cache, buffers.put("cross", cross_cache),
                 buffers.put("ends", cross_ends), start, offsets, caps, cfg_scale, temperature,
                 top_p, cfg_filter_top_k, generators, dtype, loop=loop, buffers=buffers,
-                stats=stats)
+                stats=stats, group=self.group)
             self.last_stats = stats.finish(stats.decode_steps, start - 1)
-        return [_undelay(tokens_buf[i, start: int(final_steps[i]) + 1], cfg) for i in range(N)]
+            codes = [_undelay(tokens_buf[i, start: int(final_steps[i]) + 1], cfg)
+                     for i in range(N)]
+            self._agree(codes, "the codes")
+        return codes

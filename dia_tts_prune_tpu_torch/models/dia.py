@@ -44,6 +44,14 @@ Training runs ``encoder_forward(remat=...)`` and ``decoder_forward``: the
 same layer bodies, no cache and no in-place write, each layer optionally
 rematerialized in the backward pass; every attention goes through the
 trainable flash kernels (``ops/modules.py::full_attention``).
+
+Tensor parallelism (``parallel/sharding.py``): every forward that serving
+runs takes ``group``, the mesh's model group, over a tree of local shards.
+Head counts and FFN widths come from the local weights' shapes, never from
+``config``, so the same code runs the whole model or a rank's slice of it;
+``attention_out`` and ``mlp_block`` add the ranks' partial sums.  Forward
+only (``ops.modules.model_psum``).  The fused step has no tensor-parallel
+form: one cooperative launch cannot all-reduce between layers.
 """
 
 from __future__ import annotations
@@ -217,11 +225,13 @@ def encoder_forward(
     positions: torch.Tensor,  # [B, T]
     compute_dtype=torch.float32,
     remat: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """Encoder stack (reference: dia/layers.py:445-462).  Returns [B, T, D].
     The padding mask is the flash kernel's segment ids (pad attends pad,
     non-pad attends non-pad).  ``remat`` rematerializes each layer in the
-    backward pass (training memory against a second forward)."""
+    backward pass (training memory against a second forward).  ``group``:
+    the mesh's model group over local shards (module docstring)."""
     m = config.model
     eps = m.normalization_layer_epsilon
     x = params["encoder"]["embedding"]["embedding"][x_ids.long()].to(compute_dtype)
@@ -230,10 +240,10 @@ def encoder_forward(
     def layer_fn(x, lp):
         h = rms_norm(x, lp["pre_sa_norm"]["scale"], eps)
         sa = attention(lp["self_attention"], h, h, positions, positions,
-                       m.rope_min_timescale, m.rope_max_timescale, False, seg, seg)
+                       m.rope_min_timescale, m.rope_max_timescale, False, seg, seg, group)
         x = x + sa.to(x.dtype)
         h = rms_norm(x, lp["post_sa_norm"]["scale"], eps)
-        return x + mlp_block(lp["mlp"], h).to(x.dtype)
+        return x + mlp_block(lp["mlp"], h, group).to(x.dtype)
 
     for lp in _unstack(params["encoder"]["layers"], m.encoder.n_layer):
         x = _run_layer(layer_fn, remat, x, lp)
@@ -260,7 +270,8 @@ def precompute_cross_cache(
     enc_positions: torch.Tensor,  # [B, S]
 ) -> KVCache:
     """Static cross-attention K/V for all layers (reference: dia/layers.py:632-669):
-    RoPE on keys with encoder positions, raw value projections.  [L, B, S, N, H]."""
+    RoPE on keys with encoder positions, raw value projections.  [L, B, S, N, H],
+    N the heads of the given weights (a rank's own under a mesh)."""
     m = config.model
     ca = params["decoder"]["layers"]["cross_attention"]
     ks, vs = [], []
@@ -272,15 +283,16 @@ def precompute_cross_cache(
     return KVCache(k=torch.stack(ks), v=torch.stack(vs))
 
 
-def new_self_cache(config: DiaConfig, batch: int, max_len: int | None = None,
+def new_self_cache(params: Params, config: DiaConfig, batch: int, max_len: int | None = None,
                    dtype=torch.float32, device: str | torch.device = "cuda",
                    quant: bool = False) -> KVCache | QuantKVCache:
     """Preallocated decoder self-attention cache [L, B, T, Nkv, H]
-    (reference: dia/state.py:72-109, time-major).  ``quant`` allocates the
-    int8 + per-slot-scale layout (``QuantKVCache``)."""
+    (reference: dia/state.py:72-109, time-major) for the weights ``params``:
+    Nkv their KV heads (``local_heads``, a rank's own under a mesh).
+    ``quant`` allocates the int8 + per-slot-scale layout (``QuantKVCache``)."""
     dec = config.model.decoder
     T = max_len if max_len is not None else config.data.audio_length
-    shape = (dec.n_layer, batch, T, dec.kv_heads, dec.gqa_head_dim)
+    shape = (dec.n_layer, batch, T, local_heads(params), dec.gqa_head_dim)
     if quant:
         return QuantKVCache(k=torch.zeros(shape, dtype=torch.int8, device=device),
                             v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -290,8 +302,17 @@ def new_self_cache(config: DiaConfig, batch: int, max_len: int | None = None,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def local_heads(params: Params, attention: str = "self_attention") -> int:
+    """The KV heads of a decoder attention's weights: the config's on a
+    whole tree, a rank's share on a sharded one.  The one place that a
+    cache's head count comes from."""
+    kernel = params["decoder"]["layers"][attention]["k_proj"]["kernel"]
+    shape = kernel.shape if torch.is_tensor(kernel) else (None, None, *kernel.out_shape)
+    return int(shape[2])
+
+
 def _decoder_layer_full(lp: Params, m, x, dec_positions, cross_k, cross_v, is_causal: bool,
-                        dec_segment_ids, cross_q_segment_ids, enc_segment_ids):
+                        dec_segment_ids, cross_q_segment_ids, enc_segment_ids, group=None):
     """One decoder block on a full sequence (the JAX package's
     ``_decoder_layer_full`` :324): flash self-attention, flash
     cross-attention, MLP.  Returns (x, self_k, self_v); writes nothing in
@@ -301,16 +322,16 @@ def _decoder_layer_full(lp: Params, m, x, dec_positions, cross_k, cross_v, is_ca
     q, k, v = attention_qkv(lp["self_attention"], h, h, dec_positions, dec_positions,
                             m.rope_min_timescale, m.rope_max_timescale)
     sa = full_attention(q, k, v, is_causal, dec_segment_ids, dec_segment_ids)
-    x = x + attention_out(lp["self_attention"], sa).to(x.dtype)
+    x = x + attention_out(lp["self_attention"], sa, group).to(x.dtype)
 
     h = rms_norm(x, lp["pre_ca_norm"]["scale"], eps)
     cq = dense_general(h, lp["cross_attention"]["q_proj"]["kernel"])
     cq = rope(cq, dec_positions, m.rope_min_timescale, m.rope_max_timescale)
     ca = full_attention(cq, cross_k, cross_v, False, cross_q_segment_ids, enc_segment_ids)
-    x = x + attention_out(lp["cross_attention"], ca).to(x.dtype)
+    x = x + attention_out(lp["cross_attention"], ca, group).to(x.dtype)
 
     h = rms_norm(x, lp["pre_mlp_norm"]["scale"], eps)
-    x = x + mlp_block(lp["mlp"], h).to(x.dtype)
+    x = x + mlp_block(lp["mlp"], h, group).to(x.dtype)
     return x, k, v
 
 
@@ -325,6 +346,7 @@ def decoder_forward(
     compute_dtype=torch.float32,
     return_kv: bool = False,
     remat: bool = False,
+    group=None,
 ):
     """Full-sequence decoder pass for teacher-forced training (reference:
     dia/layers.py:722-766; the JAX package's ``decoder_forward`` :360 on its
@@ -333,7 +355,9 @@ def decoder_forward(
     nothing is written in place.  Returns logits [B, T, C, V] fp32, and with
     ``return_kv`` also the stacked self-attention K/V ([L, B, T, Nkv, H]).
     The JAX signature's mask arguments have no counterpart: the segment ids
-    carry the same masks to the flash kernels."""
+    carry the same masks to the flash kernels.  ``group``: the mesh's model
+    group over local shards, forward only (a weight that requires grad
+    raises, ``ops.modules.model_psum``)."""
     m = config.model
     cross = precompute_cross_cache(params, config, enc_out, enc_positions)
     x = _embed_channels(params, tgt_BxTxC, compute_dtype)
@@ -342,7 +366,7 @@ def decoder_forward(
 
     def layer_fn(x, lp, ck, cv):
         return _decoder_layer_full(lp, m, x, dec_positions, ck, cv, True, dec_seg, dec_seg,
-                                   enc_seg)
+                                   enc_seg, group)
 
     ks, vs = [], []
     layers = _unstack(params["decoder"]["layers"], m.decoder.n_layer)
@@ -368,6 +392,7 @@ def decoder_prefill(
     dec_segment_ids: torch.Tensor,  # int [B, P]: 1 = valid prompt row
     enc_segment_ids: torch.Tensor,  # int [B, S]: text padding mask
     compute_dtype=torch.float32,
+    group=None,  # the mesh's model group over local shards
 ) -> torch.Tensor:
     """Prefill the self-attention cache from prompt tokens: causal flash
     self-attention (segment = valid row) and flash cross-attention (segment =
@@ -383,7 +408,7 @@ def decoder_prefill(
     for i in range(m.decoder.n_layer):
         x, k, v = _decoder_layer_full(_layer(layers, i), m, x, dec_positions, cross_cache.k[i],
                                       cross_cache.v[i], True, dec_segment_ids, ones,
-                                      enc_segment_ids)
+                                      enc_segment_ids, group)
         if isinstance(self_cache, QuantKVCache):
             self_cache.k[i, :, :P], self_cache.ks[i, :, :P] = quantize_kv(k)
             self_cache.v[i, :, :P], self_cache.vs[i, :, :P] = quantize_kv(v)
@@ -446,6 +471,7 @@ def decode_step(
     compute_dtype=torch.float32,
     valid_from: torch.Tensor | None = None,  # int32 [B]: first valid self-cache slot
     n_layers: int | None = None,  # run only the first n layers (early exit)
+    group=None,  # the mesh's model group over local shards
 ) -> torch.Tensor:
     """Autoregressive decode step (reference: dia/layers.py:671-720).
     Writes this token's K/V into slot ``write_slot`` of every layer (in
@@ -535,7 +561,7 @@ def decode_step(
             _commit(self_cache, i, flat_slots, rows(k), rows(v))
             sa = decode_attention(rows(q).contiguous(), self_cache.k[i], self_cache.v[i],
                                   self_start, self_end, queries_per_row=W)
-        x = x + attention_out(lp["self_attention"], sa.unflatten(0, (B, W)))
+        x = x + attention_out(lp["self_attention"], sa.unflatten(0, (B, W)), group)
 
         h = rms_norm(x, lp["pre_ca_norm"]["scale"], eps)
         cq = dense_general(h, lp["cross_attention"]["q_proj"]["kernel"])
@@ -543,10 +569,10 @@ def decode_step(
         ca = decode_attention(rows(cq).contiguous(), cross_cache.k[i], cross_cache.v[i],
                               cross_start, cross_end, *(t[i] for t in cross_cache[2:]),
                               queries_per_row=W)
-        x = x + attention_out(lp["cross_attention"], ca.unflatten(0, (B, W)))
+        x = x + attention_out(lp["cross_attention"], ca.unflatten(0, (B, W)), group)
 
         h = rms_norm(x, lp["pre_mlp_norm"]["scale"], eps)
-        x = x + mlp_block(lp["mlp"], h)
+        x = x + mlp_block(lp["mlp"], h, group)
 
     x = rms_norm(x, params["decoder"]["norm"]["scale"], eps)
     return dense_general(x, params["decoder"]["logits_dense"]["kernel"]).float()
@@ -572,6 +598,7 @@ def decode_step_fused(
     cross_ends: torch.Tensor,  # int32 [B]: text keys per row (0 = fully masked)
     compute_dtype=torch.float32,
     valid_from: torch.Tensor | None = None,  # int32 [B]: first valid self-cache slot
+    group=None,
 ) -> torch.Tensor:
     """``decode_step`` through the fused whole-decoder-step kernel (the JAX
     ``decode_step_fused``, :868): channel embeddings → the kernel over
@@ -579,8 +606,14 @@ def decode_step_fused(
     fused=True)``) → this token's K/V committed into slot ``write_slot`` of
     every layer, in place, quantized for an int8 cache (the kernel attends
     them unquantized, as ``decode_step`` does) → the final norm and the
-    logits head.  Same arguments and results as ``decode_step``."""
+    logits head.  Same arguments and results as ``decode_step``; a model
+    ``group`` raises (one cooperative launch cannot all-reduce between
+    layers)."""
     from ..ops.kernels.fused_step import fused_decode_step
+
+    if group is not None:
+        raise NotImplementedError("the fused decode step has no tensor-parallel form: one "
+                                  "cooperative launch cannot all-reduce between layers")
 
     m = config.model
     eps = m.normalization_layer_epsilon

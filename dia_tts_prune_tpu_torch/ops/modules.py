@@ -177,13 +177,33 @@ def _inv_freq(H: int, min_timescale: float, max_timescale: float,
     return (1.0 / (min_timescale * base ** fraction)).to(device)
 
 
-def mlp_block(params: Params, x: torch.Tensor) -> torch.Tensor:
+def model_psum(y: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``y`` over the ranks of ``group`` (a mesh's model axis,
+    ``parallel/sharding.py``), in place, in ``y``'s dtype; ``y`` itself for
+    no group.  Forward only: the gradient of a sum over ranks is not
+    written yet (training under a mesh), so a tensor that requires grad
+    raises rather than get a wrong one."""
+    if group is None:
+        return y
+    if torch.is_grad_enabled() and y.requires_grad:
+        raise NotImplementedError("the model-axis all-reduce is forward only: training under "
+                                  "a mesh (Trainer(mesh=), FSDP) is not ported yet")
+    import torch.distributed as dist
+
+    y = y.contiguous()
+    dist.all_reduce(y, group=group)
+    return y
+
+
+def mlp_block(params: Params, x: torch.Tensor, group=None) -> torch.Tensor:
     """SwiGLU MLP with the fused gate/up kernel [D, 2, F] (reference:
-    dia/layers.py:69-105); SiLU on the gate runs in float32."""
+    dia/layers.py:69-105); SiLU on the gate runs in float32.  Under a model
+    group each rank holds a slice of F, and the ranks' partial sums over D
+    are added (``model_psum``)."""
     fused = dense_general(x, params["wi_fused"]["kernel"])  # [..., 2, F]
     gate, up = fused[..., 0, :], fused[..., 1, :]
     hidden = F.silu(gate.float()).to(x.dtype) * up
-    return dense_general(hidden, params["wo"]["kernel"])
+    return model_psum(dense_general(hidden, params["wo"]["kernel"]), group)
 
 
 def sdpa(
@@ -236,9 +256,12 @@ def attention_qkv(
     return rope(q, q_positions, rope_min, rope_max), rope(k, kv_positions, rope_min, rope_max), v
 
 
-def attention_out(params: Params, attn: torch.Tensor) -> torch.Tensor:
-    """Output projection contracting (head, head_dim) (reference: dia/layers.py:222-227)."""
-    return dense_general(attn, params["o_proj"]["kernel"], axis=(-2, -1))
+def attention_out(params: Params, attn: torch.Tensor, group=None) -> torch.Tensor:
+    """Output projection contracting (head, head_dim) (reference:
+    dia/layers.py:222-227).  Under a model group each rank holds a slice of
+    the heads, and the ranks' partial sums over D are added
+    (``model_psum``)."""
+    return model_psum(dense_general(attn, params["o_proj"]["kernel"], axis=(-2, -1)), group)
 
 
 def full_attention(
@@ -275,8 +298,10 @@ def attention(
     is_causal: bool,
     q_segment_ids: torch.Tensor,
     kv_segment_ids: torch.Tensor,
+    group=None,
 ) -> torch.Tensor:
-    """Full-sequence attention with projections (encoder self-attention)."""
+    """Full-sequence attention with projections (encoder self-attention);
+    ``group`` as in ``attention_out``."""
     q, k, v = attention_qkv(params, x_q, x_kv, q_positions, kv_positions, rope_min, rope_max)
     out = full_attention(q, k, v, is_causal, q_segment_ids, kv_segment_ids)
-    return attention_out(params, out)
+    return attention_out(params, out, group)

@@ -26,6 +26,19 @@ Quantization-aware training (``fake_quant_ste``, ``fake_quant_params_ste``)
 is built on the same packers, so its forward sees exactly the weights a
 packed model serves with, while gradients pass straight through to the float
 weights.
+
+Under a mesh (``parallel/sharding.py``) the packers take a rank's local
+shards and the mesh's ``model_group``, and give each rank the packed form of
+its own slice of the unsharded pack: unpacked, its values and scales are the
+matching rows or columns of the whole kernel's, byte for byte.  A
+column-parallel kernel (q/k/v, ``wi_fused``) holds whole columns, so nothing
+changes.  A row-parallel one (``o_proj``, ``wo``) holds a slice of K: a
+per-column scale takes its absolute maximum over the whole K (one all-reduce,
+max), grouped scales stay on the whole kernel's grid only when the groups
+tile the slice, and a halfsplit byte pairs the slice's own halves (row k
+with row k + K/(2·tp)) — its rows are still the slice's.  The int4 format
+(grouped or per column, halfsplit or parity) is chosen for the whole kernel;
+a shard that cannot hold that format raises.
 """
 
 from __future__ import annotations
@@ -137,17 +150,38 @@ def _split_shape(w: torch.Tensor, n_in: int, stacked: bool):
     return tuple(w.shape[lead: lead + n_in]), tuple(w.shape[lead + n_in:])
 
 
-def quantize_int8(w: torch.Tensor, n_in: int = 1, stacked: bool = False) -> QuantizedKernel:
+def _max_over(t: torch.Tensor, model_group) -> torch.Tensor:
+    """``t``'s elementwise maximum over the ranks of ``model_group`` (None: ``t``)."""
+    if model_group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=model_group)
+    return t
+
+
+def _k_shards(model_group) -> int:
+    if model_group is None:
+        return 1
+    import torch.distributed as dist
+
+    return dist.get_world_size(model_group)
+
+
+def quantize_int8(w: torch.Tensor, n_in: int = 1, stacked: bool = False,
+                  model_group=None) -> QuantizedKernel:
     """Symmetric per-output-column int8: q = round(w / s), s = max|w| / 127.
     ``n_in`` leading kernel axes are contracted, the rest are flattened into
     N columns with one scale each; ``stacked`` kernels carry a leading
-    per-layer axis, kept on values and scales."""
+    per-layer axis, kept on values and scales.  ``model_group``: ``w`` is a
+    rank's slice of K (a row-parallel kernel under a mesh), and each
+    column's maximum is taken over every rank's slice."""
     in_shape, out_shape = _split_shape(w, n_in, stacked)
     K, N = math.prod(in_shape), math.prod(out_shape)
 
     def one(w1):
         w2 = w1.float().reshape(K, N)
-        scale = w2.abs().amax(dim=-2, keepdim=True).clamp_min(1e-12) / 127.0  # [1, N]
+        amax = _max_over(w2.abs().amax(dim=-2, keepdim=True), model_group)
+        scale = amax.clamp_min(1e-12) / 127.0  # [1, N]
         return torch.round(w2 / scale).clamp(-127, 127).to(torch.int8), scale
 
     values, scale = _per_layer(one, w, stacked)
@@ -192,6 +226,12 @@ def _quant_args_for(path: tuple[str, ...]) -> dict:
     return {"n_in": 2 if "o_proj" in path else 1, "stacked": "layers" in path}
 
 
+def _row_group(path: tuple[str, ...], model_group):
+    """``model_group`` for a row-parallel kernel (``o_proj``, ``wo``: K is
+    sharded over the model axis), None for every other kernel."""
+    return model_group if ("o_proj" in path or "wo" in path) else None
+
+
 def quantize_params_int8(params: Params) -> Params:
     """Fake-quantize every dense kernel (int8 precision, original dtype)."""
     return _map_kernels(params, lambda w, path: dequantize(
@@ -233,7 +273,7 @@ def fake_quant_params_ste(params: Params, mode: str, scope: str | None = "decode
 
 def quantize_params_int8_packed(params: Params, scope: str | None = "decoder",
                                 fused: bool = False, fused_mlp_int4: bool = False,
-                                mlp_tiles: int = 4) -> Params:
+                                mlp_tiles: int = 4, model_group=None) -> Params:
     """Pack dense kernels as ``QuantizedKernel``s (int8 + scales).
 
     ``scope`` limits packing to one top-level subtree — default ``"decoder"``:
@@ -253,12 +293,18 @@ def quantize_params_int8_packed(params: Params, scope: str | None = "decoder",
     are not all float tensors (block-sparse after pruning, or already packed)
     gets no pack: the pack is quantized from float weights with the norm
     gains folded in, which such kernels no longer hold (the JAX packer's
-    ``except`` at :209 skips the same trees)."""
+    ``except`` at :209 skips the same trees).
+
+    ``model_group``: ``params`` are a rank's local shards under a mesh
+    (module docstring); ``fused`` then raises, the fused step having no
+    tensor-parallel form."""
+    if fused and model_group is not None:
+        raise NotImplementedError("the fused-step pack has no tensor-parallel form")
 
     def pk(w, path):
         if isinstance(w, PACKED_TYPES) or _is_block_sparse(w):
             return w
-        return quantize_int8(w, **_quant_args_for(path))
+        return quantize_int8(w, **_quant_args_for(path), model_group=_row_group(path, model_group))
 
     pack = None
     if fused and "decoder" in params and all(
@@ -301,9 +347,22 @@ def _pack(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return ((hi.to(torch.int32) << 4) | (lo.to(torch.int32) & 0x0F)).to(torch.int8)
 
 
+def _int4_format(K: int, group: int | None, halfsplit: bool) -> tuple[bool, int | None, bool]:
+    """(nibble, group, halfsplit) of an int4 pack over K rows, asked for
+    ``group`` and ``halfsplit`` (``quantize_int4``'s fallbacks)."""
+    nibble = K % 2 == 0
+    if group is not None:
+        group = min(group, K)
+        if K % group or (nibble and group % 2):
+            group = None
+    if halfsplit and not (nibble and (group is None or (K // 2) % group == 0)):
+        halfsplit = False
+    return nibble, group, halfsplit
+
+
 def quantize_int4(
     w: torch.Tensor, n_in: int = 1, stacked: bool = False, group: int | None = 128,
-    nibble: bool = True, halfsplit: bool = False,
+    nibble: bool = True, halfsplit: bool = False, model_group=None,
 ) -> Quantized4Kernel:
     """Symmetric int4: q = round(w / s) in [-7, 7].
 
@@ -315,24 +374,32 @@ def quantize_int4(
     one value per byte (``nibble=False`` on the result).
 
     ``nibble=False`` as an argument is refused: in the JAX package it selects
-    XLA's 4-bit dtype, and PyTorch has no int4 tensor to store it in."""
+    XLA's 4-bit dtype, and PyTorch has no int4 tensor to store it in.
+
+    ``model_group``: ``w`` is a rank's slice of K (a row-parallel kernel
+    under a mesh).  The format is the whole kernel's; a slice that cannot
+    hold it (groups that do not tile it, halves that do not) raises.
+    Per-column maxima are taken over every rank's slice."""
     if not nibble:
         raise ValueError("quantize_int4: nibble=False selects XLA's 4-bit dtype, which PyTorch "
                          "does not have; int4 values are stored as nibble bytes only")
     in_shape, out_shape = _split_shape(w, n_in, stacked)
     K, N = math.prod(in_shape), math.prod(out_shape)
-    nibble = K % 2 == 0
-    if group is not None:
-        group = min(group, K)
-        if K % group or (nibble and group % 2):
-            group = None
-    if halfsplit and not (nibble and (group is None or (K // 2) % group == 0)):
-        halfsplit = False
+    shards = _k_shards(model_group)
+    nibble, group, halfsplit = fmt = _int4_format(K * shards, group, halfsplit)
+    if shards > 1 and _int4_format(K, group, halfsplit) != fmt:
+        raise ValueError(
+            f"quantize_int4: the whole kernel (K = {K * shards}) packs as (nibble, group, "
+            f"halfsplit) = {fmt}, which a rank's slice of K = {K} cannot hold; pick a group "
+            f"that K/{shards} and K/{2 * shards} are multiples of")
     pack = _pack_nibble_rows_halfsplit if halfsplit else _pack_nibble_rows
 
     def one(w1):
         wg = w1.float().reshape(K, N) if group is None else w1.float().reshape(K // group, group, N)
-        scale = wg.abs().amax(dim=-2, keepdim=True).clamp_min(1e-12) / 7.0
+        amax = wg.abs().amax(dim=-2, keepdim=True)
+        if group is None:  # a column's maximum spans every rank's slice of K
+            amax = _max_over(amax, model_group)
+        scale = amax.clamp_min(1e-12) / 7.0
         q = torch.round(wg / scale).clamp(-7, 7).to(torch.int8).reshape(K, N)
         return (pack(q) if nibble else q), scale.squeeze(-2)
 
@@ -364,19 +431,21 @@ def dequantize4(qk: Quantized4Kernel, dtype=torch.float32) -> torch.Tensor:
 
 def quantize_params_int4_packed(
     params: Params, scope: str | None = "decoder", group: int | None = 128,
-    mlp_only: bool = False, halfsplit: bool = False,
+    mlp_only: bool = False, halfsplit: bool = False, model_group=None,
 ) -> Params:
     """Pack dense kernels as ``Quantized4Kernel``s (int4 + grouped scales),
     scoped as ``quantize_params_int8_packed``.  ``mlp_only`` packs only the
     MLP kernels (wi_fused/wo) and leaves the rest for the caller; compose
     with the int8 packer for the hybrid:
     ``quantize_params_int8_packed(quantize_params_int4_packed(p, mlp_only=True))``.
-    Block-sparse kernels are kept, as the int8 packer keeps them."""
+    Block-sparse kernels are kept, as the int8 packer keeps them.
+    ``model_group`` as in ``quantize_params_int8_packed``."""
 
     def pk(w, path):
         if (mlp_only and "mlp" not in path) or _is_block_sparse(w):
             return w
-        return quantize_int4(w, group=group, halfsplit=halfsplit, **_quant_args_for(path))
+        return quantize_int4(w, group=group, halfsplit=halfsplit, **_quant_args_for(path),
+                             model_group=_row_group(path, model_group))
 
     return _map_scope(params, scope, pk)
 

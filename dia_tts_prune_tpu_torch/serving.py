@@ -52,6 +52,9 @@ class DynamicBatcher:
     """Coalesce concurrent ``generate`` calls into batched decode loops."""
 
     def __init__(self, dia, max_batch: int = 8, max_wait_ms: float = 50.0):
+        if dia.generator.mesh is not None:
+            raise NotImplementedError("DynamicBatcher has no tensor-parallel form: serve a "
+                                      "sharded model with cbatch.ContinuousBatcher(mesh=...)")
         self._dia = dia
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3

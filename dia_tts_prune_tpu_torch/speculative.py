@@ -37,7 +37,9 @@ replays without a capture; ``loop="eager"`` steps the window from Python.
 Both caches stay float on every route, packed decoders included (the JAX
 path's ``kv_quant=False``).  The draft and the verify pass run the
 per-layer tree, never the fused step, as the JAX ``spec_window`` runs
-``decode_step_scan``.  Single-stream only, as in the JAX package.
+``decode_step_scan``.  Single-stream only, as in the JAX package.  A
+generator under a mesh raises: speculation has no tensor-parallel form (the
+JAX package has none under a mesh either).
 """
 
 from __future__ import annotations
@@ -198,6 +200,8 @@ class SpeculativeGenerator:
                  n_draft_layers: int | None = None, window: int = 8,
                  device: str | torch.device = "cuda", generator: DiaGenerator | None = None):
         L = config.model.decoder.n_layer
+        if generator is not None and generator.mesh is not None:
+            raise NotImplementedError("speculative decoding has no tensor-parallel form")
         self.generator = generator or DiaGenerator(params, config, compute_dtype, device)
         self.params, self.config = self.generator.params, config
         self.compute_dtype = self.generator.compute_dtype

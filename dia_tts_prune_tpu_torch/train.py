@@ -136,12 +136,15 @@ def compute_loss(
     compute_dtype=torch.float32,
     remat: bool = False,
     qat_mode: str = "none",
+    group=None,
 ) -> torch.Tensor:
     """Teacher-forced CE with pad masking (finetune.py:446-451, 517-526).
 
     ``qat_mode`` != "none" runs the forward through the serving quantizer's
     numerics (decoder-scope fake-quant, straight-through gradients — see
-    ops/quant.py::fake_quant_params_ste)."""
+    ops/quant.py::fake_quant_params_ste).  ``group``: a mesh's model group
+    over local shards, the whole batch on every rank; forward only (a
+    gradient under a mesh raises: training under a mesh is not ported)."""
     if qat_mode != "none":
         from .ops.quant import fake_quant_params_ste
 
@@ -152,12 +155,14 @@ def compute_loss(
     dev = text_ids.device
     enc_padding = text_ids != d.text_pad_value
     positions = torch.arange(T_text, device=dev)[None].expand(B, T_text)
-    enc_out = encoder_forward(params, config, text_ids, positions, compute_dtype, remat=remat)
+    enc_out = encoder_forward(params, config, text_ids, positions, compute_dtype, remat=remat,
+                              group=group)
 
     T = batch["decoder_input_ids"].shape[1]
     dec_positions = torch.arange(T, device=dev)[None].expand(B, T)
     logits = decoder_forward(params, config, batch["decoder_input_ids"], enc_out, positions,
-                             dec_positions, enc_padding, compute_dtype, remat=remat)
+                             dec_positions, enc_padding, compute_dtype, remat=remat,
+                             group=group)
     # [B, T, C, V] fp32
 
     targets = batch["target_ids"].long()

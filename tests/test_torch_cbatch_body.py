@@ -95,8 +95,9 @@ class _Lanes:
 
         monkeypatch.setattr(jcb, "decode_step_scan", jax_step)
         self.j = list(jcb.cb_init(self.jcfg, N, self.T, S, "float32", False))
-        state, cache, cross, ends = tcb.cb_init(self.cfg, N, self.T, S, torch.float32, False,
-                                                "cpu")
+        params = tdia.init_params(self.cfg, device="cpu")
+        state, cache, cross, ends = tcb.cb_init(params, self.cfg, N, self.T, S, torch.float32,
+                                                False, "cpu")
         self.t = state
         self.cache, self.cross, self.ends = cache, cross, ends
         gens = [torch.Generator().manual_seed(i) for i in range(N)]

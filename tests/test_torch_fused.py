@@ -393,42 +393,44 @@ def _jax_driven(monkeypatch, jd):
     jax_step = jax.jit(lambda params, *a, **k: jdia.decode_step_fused(params, jcfg, *a, **k),
                        static_argnames=("skip_uncond_cross",))
 
-    def conditioning(params, config, enc_input, dtype, window):
+    def conditioning(params, config, enc_input, dtype, window, group=None):
         st["cross"], st["mask"], st["pad"] = jax.jit(jgen._conditioning, static_argnums=(
             1, 3, 4))(jd.params, jcfg, jnp.asarray(enc_input.numpy()), jnp.float32, window)
-        return real["conditioning"](params, config, enc_input, dtype, window)
+        return real["conditioning"](params, config, enc_input, dtype, window, group=group)
 
-    def conditioning_batch(params, config, conds, dtype, device):
+    def conditioning_batch(params, config, conds, dtype, device, group=None):
         # the port conditions each stream alone (through ``conditioning``
         # above); the JAX package all streams at once, rows [uncond × N; cond × N]
-        out = real["conditioning_batch"](params, config, conds, dtype, device)
+        out = real["conditioning_batch"](params, config, conds, dtype, device, group=group)
         enc = np.concatenate([np.stack([c[0] for c in conds]), np.stack([c[1] for c in conds])])
         st["cross"], st["mask"], st["pad"] = jax.jit(jgen._conditioning, static_argnums=(
             1, 3, 4))(jd.params, jcfg, jnp.asarray(enc), jnp.float32,
                       tgen._cross_window_for(enc, config))
         return out
 
-    def new_self_cache(config, batch, max_len, dtype, device, quant):
+    def new_self_cache(params, config, batch, max_len, dtype, device, quant):
         st["self"] = jdia.new_self_cache(jcfg, batch, max_len, quant=quant)
-        return real["new_self_cache"](config, batch, max_len, dtype, device, quant=quant)
+        return real["new_self_cache"](params, config, batch, max_len, dtype, device, quant=quant)
 
-    def run_prefill(params, config, buf, window, offsets, steps, cross, pad, cache, dtype):
+    def run_prefill(params, config, buf, window, offsets, steps, cross, pad, cache, dtype,
+                    group=None):
         st["self"] = jax.jit(jgen._run_prefill, static_argnums=(1, 3, 10))(
                                        jd.params, jcfg, jnp.asarray(buf), window,
                                        jnp.asarray(offsets, jnp.int32),
                                        jnp.asarray(steps, jnp.int32), st["cross"], st["mask"],
                                        st["pad"], st["self"], jnp.float32)
         return real["run_prefill"](params, config, buf, window, offsets, steps, cross, pad,
-                                   cache, dtype)
+                                   cache, dtype, group=group)
 
     def quantize_cache(cache):
         st["cross"] = jax.jit(jgen._quantize_cross, static_argnums=1)(st["cross"], True)
         return real["quantize_cache"](cache)
 
     def step(params, config, tgt, position, ws, self_cache, cross_cache, ends, dtype,
-             valid_from=None):
+             valid_from=None, group=None):
         logits = tdia.decode_step_fused(params, config, tgt, position, ws, self_cache,
-                                        cross_cache, ends, dtype, valid_from=valid_from)
+                                        cross_cache, ends, dtype, valid_from=valid_from,
+                                        group=group)
         vf = None if valid_from is None else jnp.asarray(valid_from.numpy())
         j_logits, st["self"] = jax_step(
             jd.params, jnp.asarray(tgt.numpy()), jnp.asarray(position.numpy(), jnp.int32),

@@ -61,7 +61,7 @@ def _port_step(table):
     tab = torch.from_numpy(table)
 
     def step(params, config, tgt, position, write_slot, self_cache, cross_cache, ends,
-             dtype, valid_from=None):
+             dtype, valid_from=None, group=None):
         t = int(torch.as_tensor(write_slot).reshape(-1)[0]) + 1
         return tab[t][:, None]
 

@@ -85,7 +85,7 @@ def test_encoder_prefill_and_decode_steps(models, monkeypatch):
         jax_cross_mask(js.padding_mask), jdia.new_self_cache(jcfg, 2),
         dec_segment_ids=jnp.asarray(valid, jnp.int32),
         enc_segment_ids=js.padding_mask.astype(jnp.int32))
-    t_cache = tdia.new_self_cache(cfg, 2, device="cpu")
+    t_cache = tdia.new_self_cache(tp, cfg, 2, device="cpu")
     t_logits = tdia.decoder_prefill(
         tp, cfg, torch.from_numpy(tgt), torch.from_numpy(np.array(rows)), t_cross, t_cache,
         torch.from_numpy(valid.astype(np.int32)), ts.padding_mask.to(torch.int32))
@@ -135,11 +135,11 @@ def test_jax_flash_prefill_is_not_causal(models, monkeypatch):
     run = dict(tgt_BxTxC=torch.from_numpy(tgt), dec_positions=torch.from_numpy(np.array(rows)),
                cross_cache=t_cross, dec_segment_ids=torch.from_numpy(valid.astype(np.int32)),
                enc_segment_ids=torch.from_numpy(np.array(js.padding_mask)).to(torch.int32))
-    causal = tdia.decoder_prefill(tp, cfg, self_cache=tdia.new_self_cache(cfg, 2, device="cpu"),
+    causal = tdia.decoder_prefill(tp, cfg, self_cache=tdia.new_self_cache(tp, cfg, 2, device="cpu"),
                                   **run)
     monkeypatch.setattr(tdia, "full_attention",
                         lambda q, k, v, c, a, b: full_attention(q, k, v, False, a, b))
-    acausal = tdia.decoder_prefill(tp, cfg, self_cache=tdia.new_self_cache(cfg, 2, device="cpu"),
+    acausal = tdia.decoder_prefill(tp, cfg, self_cache=tdia.new_self_cache(tp, cfg, 2, device="cpu"),
                                    **run)
     _close(acausal, j_logits)
     assert np.abs(causal.numpy() - np.asarray(j_logits))[:, : P - 1].max() > 1e-2

@@ -522,7 +522,7 @@ def _model_case(jcfg, jp, cfg, mode, kv_int8, rng, n_steps=3):
         j_mask, jdia.new_self_cache(jcfg, 2, quant=kv_int8),
         dec_segment_ids=jnp.asarray(valid, jnp.int32),
         enc_segment_ids=js.padding_mask.astype(jnp.int32))
-    t_cache = tdia.new_self_cache(cfg, 2, device="cpu", quant=kv_int8)
+    t_cache = tdia.new_self_cache(params, cfg, 2, device="cpu", quant=kv_int8)
     t_logits = tdia.decoder_prefill(
         params, cfg, _t(tgt), _t(rows), t_cross, t_cache, _t(valid.astype(np.int32)),
         ts.padding_mask.to(torch.int32))
@@ -605,7 +605,7 @@ def test_quantize_then_attend_would_differ(tiny):
     pos = torch.zeros(2, 1, dtype=torch.int64)
 
     def step(attend):
-        cache = tdia.new_self_cache(cfg, 2, 8, device="cpu", quant=True)
+        cache = tdia.new_self_cache(params, cfg, 2, 8, device="cpu", quant=True)
         import unittest.mock as mock
 
         with mock.patch.object(tdia, "decode_attention", attend):

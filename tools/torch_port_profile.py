@@ -118,7 +118,7 @@ def main(argv=None) -> int:
                                       _cross_window_for(enc, cfg))
     if quant:
         cross = quantize_cache(cross)
-    cache = new_self_cache(cfg, rows, min(1024, d.audio_length), dtype, dev, quant=quant)
+    cache = new_self_cache(params, cfg, rows, min(1024, d.audio_length), dtype, dev, quant=quant)
     tok = np.full((d.channels,), d.audio_bos_value, np.int32)
 
     def step(t, fn):
