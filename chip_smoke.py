@@ -30,7 +30,9 @@ script exits non-zero:
                block-sparse matmul: bit-equal, or not, per op); the
                three training kernels (flash forward with log-sum-exp,
                dK/dV, dQ) at the three attention
-               shapes of a Dia-1.6B training step and odd ones (ragged
+               shapes of a Dia-1.6B training step, decoder self-attention at
+               one rank's shape under a two-rank mesh (B 1, 8/2 heads), and
+               odd ones (ragged
                lengths, head dims 32/64, segment ids t % 3 that no tile
                skip may drop), dK/dV and dQ bit-identical over two runs, each
                flash record with its route (``mma_bf16`` tensor cores or
@@ -124,7 +126,8 @@ script exits non-zero:
                equals the solo waveform, the ``/stream`` bytes the in-process
                ``generate_stream``'s;
 7. files     — the files a user brings to the model and takes away, at
-               the same full width (``Dia.random_init`` weights): a torch
+               the same full width, four layers a stack (``FILES_LAYERS``,
+               ``Dia.random_init`` weights): a torch
                DAC checkpoint with weight norm (``dac.pth``) through
                ``Dia.load_dac`` — the checkpoint's own weights (g·v/‖v‖,
                within 2 ulp of the original params) and their decode, codes
@@ -164,7 +167,8 @@ script exits non-zero:
                metadata.csv), and ``Dia.from_pretrained`` of its output
                generates;
 10. tp       — tensor-parallel serving at the same full width on the one
-               card (``phase_tp``): (a) two spawned ranks over gloo, float /
+               card (``phase_tp``), at full width and four layers a stack
+               (``TP_LAYERS``): (a) two spawned ranks over gloo, float /
                int8 / int4 after ``Dia.shard``, 64 greedy eager tokens each:
                the ranks equal each other and their in-process emulation bit
                for bit, the first 8 steps' logits within TP_LOGIT_TOL of the
@@ -174,7 +178,25 @@ script exits non-zero:
                NCCL, graphed: two lanes equal the unsharded batcher's bit for
                bit; (c) ``app --tp 1 --continuous-batch`` answers a greedy
                ``/generate`` within PCM_LSB_TOL of (b)'s waveform, ``app --tp
-               2`` exits with the parser error naming the one card.
+               2`` exits with the parser error naming the one card.  Then
+               training under a mesh (``Trainer(mesh=)``), the same two
+               ranks after their serving work: (a) fp32 at Dia-1.6B widths,
+               2 + 2 layers, two steps each of full, LoRA and QAT-int8 on
+               (1, 2) and full FSDP on (2, 1), against one process's steps
+               (step 1's loss and grad_norm at the JAX tests' tolerances,
+               every updated leaf at 2e-3 / 1e-5 but a 1e-5 share); (d) a
+               planted fault (the last decoder layer's MLP input without
+               ``model_copy``'s backward all-reduce), which (a) must reject;
+               (b) bf16 readings at 2 + 2 layers: LoRA on (1, 2) and full
+               FSDP on (2, 1), one step each: the ranks
+               equal bit for bit (loss, grad_norm, replicated leaves), the
+               loss within TP_TRAIN_BF16_RTOL of one process's, a rank's
+               flash launches one process's, wall and device ms, peak memory
+               and collectives a step; (c) ``Trainer(mesh=make_mesh(1, 1))``
+               over NCCL, one LoRA step at 2 + 2 layers bit for bit the
+               Trainer without a mesh, ``finetune --mesh-model 1`` at 2 + 2
+               layers writes a model that generates, ``--mesh-model 2``
+               exits 2.
 
 Then a ``kernels`` line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -1471,6 +1493,11 @@ def phase_kernels(torch, faults: dict) -> dict:
                                  None, None)
         flash_train_case(torch, "decoder_cross", dtype, 2, 3072, 1024, 16, 16, 128, False,
                          None, [700, 300])
+        # decoder self-attention at one rank's shape under a two-rank mesh (the tp
+        # phase's training): half the heads of a (1, 2) mesh, one row of a (2, 1) one
+        if dtype == "bfloat16":
+            flash_train_case(torch, "rank_decoder_self", dtype, 1, 3072, 3072, 8, 2, 128, True,
+                             None, None)
         for causal in (False, True):
             flash_train_case(torch, "odd", dtype, 2, 320, 320, 4, 2, 64, causal, [320, 250],
                              [320, 250], time_it=False)
@@ -3008,6 +3035,10 @@ def phase_cbatch(torch) -> dict:
 
 # the voice prompt: a greedy run's whole waveform (~1.3 s).  The CLI's --max-tokens
 # counts the prompt's rows too, so a longer prompt would leave it fewer to generate
+# the files phase's model: the seed weights' first FILES_LAYERS layers of each
+# stack, every width kept (cut from 12 + 18 for the script's time; what the
+# phase checks is files, not depth)
+FILES_LAYERS = 4
 FILES_PROMPT_TOKENS = 128
 FILES_PROMPT_TEXT = "[S1] Dia is an open weights text to dialogue model."
 FILES_CLI_TEXT = "[S2] You get full control over scripts and voices. [S1] Wow. Amazing."
@@ -3036,14 +3067,15 @@ def _weight_norm_state_dict(torch, sd):
 
 def phase_files(torch, tmp: Path) -> dict:
     """The files a user brings to the model and takes away, at full width
-    (``dia_1_6b_config()``, bf16, ``Dia.random_init``'s seed weights;
-    ``DACConfig()``): (1) a torch DAC checkpoint — seeded ``init_dac_params``
+    (``dia_1_6b_config()``'s widths at FILES_LAYERS layers a stack, bf16,
+    ``Dia.random_init``'s seed weights; ``DACConfig()``): (1) a torch DAC
+    checkpoint — seeded ``init_dac_params``
     exported by ``to_dac_torch_state_dict`` with weight norm on every conv,
     ``dac.pth`` — loaded by ``Dia.load_dac`` on the card: it holds exactly
     the checkpoint's weights g·v/‖v‖ (within 2 ulp of the original params)
     and decodes within WAV_TOL of a codec built from them, and its codes
     equal the original params' on the original decode's waveform; (2) a model directory (config.json, a bf16 ``pytorch_model.bin``
-    in the reference key schema, ~3.2 GB) and a LoRA adapter (``q_proj``,
+    in the reference key schema) and a LoRA adapter (``q_proj``,
     ``v_proj``, r = 8, seeded non-zero B); (3) a FLAC prompt, a 128-token
     greedy waveform, written by ``write_flac`` and read back equal as int16
     PCM; (4) the generation CLI in a subprocess, as ``python -m`` runs it,
@@ -3077,14 +3109,15 @@ def phase_files(torch, tmp: Path) -> dict:
     from dia_tts_prune_tpu_torch.utils.flac import read_flac, write_flac
 
     t0 = time.perf_counter()
-    cfg, dac_cfg = dia_1_6b_config(), DACConfig()
-    rec = {"phase": "files", "config": "dia_1_6b_config() bf16, Dia.random_init seed 0; "
-           "DACConfig(), init_dac_params seed 1", "wav_tol": WAV_TOL, "pcm_lsb_tol": PCM_LSB_TOL}
+    dac_cfg = DACConfig()
+    rec = {"phase": "files", "config": f"dia_1_6b_config() widths, the first {FILES_LAYERS} "
+           "layers a stack of Dia.random_init seed 0 in bf16; DACConfig(), init_dac_params "
+           "seed 1", "wav_tol": WAV_TOL, "pcm_lsb_tol": PCM_LSB_TOL}
     failures = []
 
     # (2) the model directory and the adapter, (1) the DAC checkpoint, all on the host
     t = time.perf_counter()
-    host = seed_host_weights(cfg)
+    cfg, host = cut_layers(dia_1_6b_config(), seed_host_weights(dia_1_6b_config()), FILES_LAYERS)
     drawn_s = time.perf_counter() - t
     model_dir, adapter_dir, pth = tmp / "model", tmp / "adapter", tmp / "dac.pth"
     model_dir.mkdir()
@@ -3616,6 +3649,41 @@ def profiled(torch, fn):
     return out, wall_ms, device_ms, kinds, count
 
 
+def train_batch(cfg) -> dict:
+    """The training phases' global batch from numpy seed 7: two rows at
+    ``audio_length`` (3072 frames and 2000, the rest padding), texts of 700
+    and 300 bytes."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch.train import build_train_batch
+
+    dd = cfg.data
+    rng = np.random.default_rng(7)
+    text = rng.integers(1, 256, (2, dd.text_length)).astype(np.int32)
+    text[0, 700:] = dd.text_pad_value
+    text[1, 300:] = dd.text_pad_value
+    codes = [rng.integers(0, 1024, (n, dd.channels)).astype(np.int32) for n in (3072, 2000)]
+    return build_train_batch(cfg, text, codes)
+
+
+def with_layers(cfg, n: int):
+    """``cfg`` at ``n`` layers per stack, every width kept."""
+    m = cfg.model
+    return cfg.model_copy(update={"model": m.model_copy(update={
+        "encoder": m.encoder.model_copy(update={"n_layer": n}),
+        "decoder": m.decoder.model_copy(update={"n_layer": n})})})
+
+
+def cut_layers(cfg, host, n: int):
+    """``cfg`` and its weights ``host`` at the first ``n`` layers of each
+    stack, every width kept (views of ``host``'s layers)."""
+    def cut(tree, path=()):
+        return {k: cut(v, path + (k,)) if isinstance(v, dict)
+                else v[:n] if "layers" in path else v for k, v in tree.items()}
+
+    return with_layers(cfg, n), cut(host)
+
+
 def phase_training(torch, tmp: Path) -> dict:
     """Teacher-forced fine-tuning at full width through ``Trainer`` and the
     ``finetune`` CLI; returns {path: {"launches": ...}} for the kernels line."""
@@ -3627,16 +3695,10 @@ def phase_training(torch, tmp: Path) -> dict:
     from dia_tts_prune_tpu_torch.models.dac import DACConfig, init_dac_params
     from dia_tts_prune_tpu_torch.models.dia import init_params
     from dia_tts_prune_tpu_torch.ops.kernels import reset_launch_counts
-    from dia_tts_prune_tpu_torch.train import TrainConfig, Trainer, build_train_batch, global_norm
+    from dia_tts_prune_tpu_torch.train import TrainConfig, Trainer, global_norm
 
     cfg = dia_1_6b_config()
-    dd = cfg.data
-    rng = np.random.default_rng(7)
-    text = rng.integers(1, 256, (2, dd.text_length)).astype(np.int32)
-    text[0, 700:] = dd.text_pad_value
-    text[1, 300:] = dd.text_pad_value
-    codes = [rng.integers(0, 1024, (n, dd.channels)).astype(np.int32) for n in (3072, 2000)]
-    batch = build_train_batch(cfg, text, codes)
+    batch = train_batch(cfg)
     params = seed_weights(torch, cfg)
     paths = {}
 
@@ -3700,10 +3762,7 @@ def phase_training(torch, tmp: Path) -> dict:
     torch.cuda.empty_cache()
 
     # the finetune CLI end to end, two layers per stack at full width
-    m = cfg.model
-    small = cfg.model_copy(update={"model": m.model_copy(update={
-        "encoder": m.encoder.model_copy(update={"n_layer": 2}),
-        "decoder": m.decoder.model_copy(update={"n_layer": 2})})})
+    small = with_layers(cfg, 2)
     dac_cfg = DACConfig()
     dia = Dia(small, init_params(small, seed=2, dtype=torch.bfloat16, device="cuda"), "bfloat16",
               dac_params=init_dac_params(dac_cfg, seed=1, device="cuda"), dac_config=dac_cfg,
@@ -3760,6 +3819,11 @@ TP_LOGIT_TOL = 3e-2
 TP_CB_TOKENS = 128  # max_tokens of the one-rank NCCL batcher and of the CLI's request
 TP_CLI_TEXT = "[S1] Dia serves from every rank."  # one chunk: the batcher's lane serves it
 TP_ROUTES = ("float", "int8", "int4")
+# The tp phase's model (its directory, served by (a)'s ranks, (b)'s batcher
+# and (c)'s app) is the seed weights' first TP_LAYERS layers of each stack,
+# every width kept: cut from 12 + 18 so that the script, with the training
+# under a mesh, stays within its time.
+TP_LAYERS = 4
 
 
 def tp_trace(torch, dia) -> dict:
@@ -3828,6 +3892,399 @@ def tp_quantized(dia, route: str):
     return dia
 
 
+# Training under a mesh (the tp phase's training work).  (a) the exact gate:
+# fp32 at Dia-1.6B widths, two layers a stack, two steps of each case against
+# one process's Trainer from the same weights and batch.  Step 1: loss rtol
+# 1e-5 and grad_norm rtol 1e-4 (the JAX tests' tolerances: summation order);
+# step 2's loss at TRAIN_LOSS_RTOL.  Every leaf after the updates is held to
+# one process's at TP_UPDATE_TOL (the JAX test's for updated params), with
+# TP_UPDATE_SPARE elements allowed over it, each within TP_UPDATE_BOUND:
+# where a gradient is as small as the ranks' summation-order noise, AdamW's
+# division by sqrt(nu) makes the update follow that noise, by at most the
+# step size (TP_TRAIN_LR) a step.
+TP_TRAIN_LR = 1e-4
+TP_TRAIN_STEPS = 2
+TP_TRAIN_EXACT = (("full", (1, 2), False), ("lora", (1, 2), False), ("qat_int8", (1, 2), False),
+                  ("full", (2, 1), True))  # (mode, mesh (data, model), FSDP)
+TP_UPDATE_TOL = {"rtol": 2e-3, "atol": 1e-5}
+TP_UPDATE_SPARE = 1e-5  # share of a leaf's elements allowed over TP_UPDATE_TOL
+TP_UPDATE_BOUND = 2 * TP_TRAIN_LR * TP_TRAIN_STEPS
+# (b) the reading: bf16, remat, one step each on (a)'s weights at two layers
+# a stack; the loss against one process's at TP_TRAIN_BF16_RTOL, predicted in
+# PERF.md before the first run (the ranks' bf16 partial sums of o_proj / wo
+# round before they add).  Cut from full depth and two LoRA steps to keep the
+# script within its time (at full depth an FSDP step took 19.0 s a rank and
+# 19.4 GB, a LoRA step 5.3-8.2 s: H100 80GB HBM3, 700.00 W).
+TP_TRAIN_BF16_RTOL = 2e-3
+TP_TRAIN_READING = (("lora_12", (1, 2), False), ("fsdp_21", (2, 1), True))  # mesh, FSDP
+TP_CLI_ITEMS = 4  # the finetune CLI's dataset: seeded noise WAVs, two steps of two
+
+
+def tp_train_fields(mode: str) -> dict:
+    """TrainConfig fields of a training mode; LoRA on column-parallel
+    (q_proj, v_proj) and row-parallel (o_proj, wo) targets."""
+    from dia_tts_prune_tpu_torch.lora import LoraConfig
+
+    return {"full": {}, "qat_int8": {"qat_mode": "int8"},
+            "lora": {"adapter_mode": "lora", "lora": LoraConfig(
+                r=8, alpha=16.0, target_modules=("q_proj", "v_proj", "o_proj", "wo"))}}[mode]
+
+
+def tp_train_config(mode: str, dtype: str):
+    from dia_tts_prune_tpu_torch.train import TrainConfig
+
+    return TrainConfig(learning_rate=TP_TRAIN_LR, compute_dtype=dtype, remat=True,
+                       **tp_train_fields(mode))
+
+
+def tp_train_refs(torch, tmp: Path) -> dict:
+    """One process's runs of the tp phase's training, before its ranks
+    start: (a) each mode's two fp32 steps at two layers a stack (metrics
+    kept here, the trained leaves written to ``tmp`` for the ranks), the
+    weights the ranks start from written too; (b) one bf16 step of each
+    mode of TP_TRAIN_READING on the same weights."""
+    from dia_tts_prune_tpu_torch import dia_1_6b_config
+    from dia_tts_prune_tpu_torch.models.dia import init_params
+    from dia_tts_prune_tpu_torch.train import Trainer
+
+    cfg = dia_1_6b_config()
+    small = with_layers(cfg, 2)
+    batch = train_batch(cfg)
+    weights = init_params(small, seed=3, dtype=torch.float32, device="cpu")
+    torch.save(weights, tmp / "tp_train_weights.pt")
+    refs = {"exact": {}, "reading": {}}
+    for mode in ("full", "lora", "qat_int8"):
+        tr = Trainer(params_to(weights, "cuda"), small, tp_train_config(mode, "float32"), 10)
+        refs["exact"][mode] = [tr.step(batch) for _ in range(TP_TRAIN_STEPS)]
+        torch.save({n: t.detach().cpu() for n, t in tr.optimizer.leaves.items()},
+                   tmp / f"tp_train_ref_{mode}.pt")
+        del tr
+        torch.cuda.empty_cache()
+    for name, _, _ in TP_TRAIN_READING:
+        mode = "lora" if name.startswith("lora") else "full"
+        tr = Trainer(params_to(_map_floats(weights, torch.bfloat16), "cuda"), small,
+                     tp_train_config(mode, "bfloat16"), 10)
+        refs["reading"][name] = [tr.step(batch)]
+        del tr
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _map_floats(tree, dtype):
+    """A params tree's leaves as ``dtype`` (new tensors where it differs)."""
+    return {k: _map_floats(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def count_collectives(dist) -> dict:
+    """Wrap the collectives the port issues (``torch.distributed``'s
+    functions, looked up at each call) with counters; returns the counts."""
+    counts = {}
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        counts[name] = 0
+
+        def counted(*args, _real=getattr(dist, name), _name=name, **kwargs):
+            counts[_name] += 1
+            return _real(*args, **kwargs)
+
+        setattr(dist, name, counted)
+    return counts
+
+
+class planted_copy_fault:
+    """(d): inside ``with``, the last decoder layer's MLP input skips
+    ``model_copy``'s backward all-reduce (``ops.modules.mlp_block`` looks
+    ``model_copy`` up at each call): that rank's upstream gradients keep
+    only its own share.  Nothing in the package changes."""
+
+    def __enter__(self):
+        import dia_tts_prune_tpu_torch.models.dia as dia_mod
+        import dia_tts_prune_tpu_torch.ops.modules as modules
+
+        self.dia_mod, self.real_layer = dia_mod, dia_mod._decoder_layer_full
+        real_copy = modules.model_copy
+
+        def layer(lp, m, *args, **kwargs):
+            scale = lp["pre_mlp_norm"]["scale"]  # a view of the stacked scales: its offset is i * D
+            if scale.storage_offset() != scale.numel() * (m.decoder.n_layer - 1):
+                return self.real_layer(lp, m, *args, **kwargs)
+            modules.model_copy = lambda x, group: x
+            try:
+                return self.real_layer(lp, m, *args, **kwargs)
+            finally:
+                modules.model_copy = real_copy
+
+        dia_mod._decoder_layer_full = layer
+        return self
+
+    def __exit__(self, *exc):
+        self.dia_mod._decoder_layer_full = self.real_layer
+        return False
+
+
+def tp_train_exact(torch, local, cfg, mode: str, mesh, batch, ref_path: Path) -> dict:
+    """(a) on one rank: ``Trainer(mesh=)`` from local shards, TP_TRAIN_STEPS
+    fp32 steps, then every leaf against this rank's block of one process's
+    (``ref_path``): its largest difference and the elements over
+    TP_UPDATE_TOL."""
+    from dia_tts_prune_tpu_torch.train import Trainer
+
+    tr = Trainer(local, cfg, tp_train_config(mode, "float32"), 10, mesh=mesh)
+    metrics = [tr.step(batch) for _ in range(TP_TRAIN_STEPS)]
+    ref = torch.load(ref_path)
+    leaves = {}
+    for n, t in tr.optimizer.leaves.items():
+        want = tr.plan.leaves[n].local(ref[n]).to(t.device)
+        diff = (t.detach() - want).abs()
+        over = diff > TP_UPDATE_TOL["atol"] + TP_UPDATE_TOL["rtol"] * want.abs()
+        leaves[n] = {"sharded_over": tr.plan.leaves[n].axes, "numel": t.numel(),
+                     "max_abs_diff": float(diff.max()), "over_tol": int(over.sum())}
+    return {"metrics": metrics, "leaves": leaves}
+
+
+def tp_train_rank(torch, out: Path) -> dict:
+    """The tp phase's training on one of its two ranks, after the serving
+    work: (a) each case of TP_TRAIN_EXACT, (d) the planted fault on the
+    (1, 2) full case, (b) one bf16 step of each case of TP_TRAIN_READING
+    on the same weights, under the profiler
+    with its flash launches and collectives counted, and the ranks' loss,
+    grad_norm and replicated leaves checked equal (``check_agree``)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from dia_tts_prune_tpu_torch import dia_1_6b_config
+    from dia_tts_prune_tpu_torch.ops.kernels import reset_launch_counts
+    from dia_tts_prune_tpu_torch.parallel.sharding import check_agree, make_mesh, shard_params
+    from dia_tts_prune_tpu_torch.train import Trainer
+
+    cfg = dia_1_6b_config()
+    small = with_layers(cfg, 2)
+    batch = train_batch(cfg)
+    weights = torch.load(out / "tp_train_weights.pt")
+    res = {"exact": {}, "reading": {}, "seconds": {}}
+    meshes = {}
+    for mode, shape, fsdp in TP_TRAIN_EXACT:
+        t = time.perf_counter()
+        mesh = meshes.setdefault(shape, make_mesh(*shape, device="cuda"))
+        local = params_to(shard_params(weights, mesh, config=small, fsdp=fsdp), "cuda")
+        name = f"{mode}_{shape[0]}{shape[1]}" + ("_fsdp" if fsdp else "")
+        res["exact"][name] = tp_train_exact(torch, local, small, mode, mesh, batch,
+                                            out / f"tp_train_ref_{mode}.pt")
+        res["exact"][name]["mode"] = mode
+        res["seconds"][name] = time.perf_counter() - t
+        if name == "full_12":
+            t = time.perf_counter()
+            with planted_copy_fault():
+                res["fault"] = tp_train_exact(torch, local, small, mode, mesh, batch,
+                                              out / "tp_train_ref_full.pt")
+            res["seconds"]["fault"] = time.perf_counter() - t
+        del local
+        torch.cuda.empty_cache()
+    weights = _map_floats(weights, torch.bfloat16)
+
+    counts = count_collectives(dist)
+    for name, shape, fsdp in TP_TRAIN_READING:
+        t = time.perf_counter()
+        mesh = meshes.setdefault(shape, make_mesh(*shape, device="cuda"))
+        mode = "lora" if name.startswith("lora") else "full"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        local = params_to(shard_params(weights, mesh, config=small, fsdp=fsdp), "cuda")
+        tr = Trainer(local, small, tp_train_config(mode, "bfloat16"), 10, mesh=mesh)
+        log = []
+        for _ in range(1):
+            reset_launch_counts()
+            for k in counts:
+                counts[k] = 0
+            m, wall_ms, device_ms, kinds, kernels = profiled(torch, lambda: tr.step(batch))
+            log.append({**m, "wall_ms": wall_ms, "device_ms": device_ms,
+                        "device_ms_by_kind": kinds, "kernels": kernels,
+                        "launches": train_launch_counts(), "collectives": dict(counts)})
+        replicated = [t.detach().float().cpu().numpy() for n, t in tr.optimizer.leaves.items()
+                      if not tr.plan.leaves[n].axes]
+        check_agree(mesh, [np.array([(x["loss"], x["grad_norm"]) for x in log]), *replicated],
+                    "cuda", f"training {name}: loss, grad_norm and the replicated leaves")
+        res["reading"][name] = {"steps": log, "peak_memory_bytes":
+                                int(torch.cuda.max_memory_allocated()),
+                                "replicated_leaves": len(replicated),
+                                "trained_elements_this_rank": sum(
+                                    t.numel() for t in tr.optimizer.leaves.values())}
+        del tr, local
+        res["seconds"][f"reading_{name}"] = time.perf_counter() - t
+    return res
+
+
+def tp_train_gate(run: dict, ref: list, mode: str) -> list:
+    """Gate (a) of one rank's run against one process's metrics ``ref``:
+    what fails it ([] if nothing)."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    bad = []
+    got = run["metrics"]
+    for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        if not rel(got[0][key], ref[0][key]) <= tol:
+            bad.append(f"step 1 {key} {got[0][key]} against {ref[0][key]} (rtol {tol})")
+    if not rel(got[-1]["loss"], ref[-1]["loss"]) <= TRAIN_LOSS_RTOL[mode]:
+        bad.append(f"step {len(got)} loss {got[-1]['loss']} against {ref[-1]['loss']}")
+    for n, leaf in run["leaves"].items():
+        if leaf["over_tol"] > leaf["numel"] * TP_UPDATE_SPARE \
+                or not leaf["max_abs_diff"] <= TP_UPDATE_BOUND:
+            bad.append(f"{n}: {leaf}")
+    return bad
+
+
+def tp_train_summary(run: dict, ref: list) -> dict:
+    """A rank's run of (a) beside one process's: relative differences and
+    the leaves' totals."""
+    leaves = run["leaves"].values()
+    return {"loss_rel_diff": [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                              for a, b in zip(run["metrics"], ref)],
+            "grad_norm_rel_diff": [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                                   for a, b in zip(run["metrics"], ref)],
+            "leaves": len(run["leaves"]), "elements": sum(x["numel"] for x in leaves),
+            "elements_over_tol": sum(x["over_tol"] for x in leaves),
+            "max_abs_diff": max(x["max_abs_diff"] for x in leaves),
+            "replicated_elements_over_tol": sum(x["over_tol"] for x in leaves
+                                                if not x["sharded_over"])}
+
+
+def tp_training_gates(torch, train: dict, refs: dict, ranks: list) -> list:
+    """Gates (a) and (d) and the reading (b) over both ranks' training
+    results; fills ``train``, returns the failures."""
+    from dia_tts_prune_tpu_torch import dia_1_6b_config
+
+    failures = []
+    train["exact"], train["rank_seconds"] = {}, [r.pop("seconds") for r in ranks]
+    for name in ranks[0]["exact"]:
+        mode = ranks[0]["exact"][name]["mode"]
+        ref = refs["exact"][mode]
+        train["exact"][name] = [tp_train_summary(r["exact"][name], ref) for r in ranks]
+        for r, rank in enumerate(ranks):
+            bad = tp_train_gate(rank["exact"][name], ref, mode)
+            if bad:
+                failures.append(f"training (a) {name} rank {r}: {bad[:4]}")
+    fault = [tp_train_gate(r["fault"], refs["exact"]["full"], "full") for r in ranks]
+    train["fault"] = {"what": "the last decoder layer's MLP input without model_copy's backward "
+                              "all-reduce", "rejected": [bool(b) for b in fault],
+                      "reading": [tp_train_summary(r["fault"], refs["exact"]["full"])
+                                  for r in ranks], "first_failures": [b[:3] for b in fault]}
+    if not all(fault):
+        failures.append("training (d): gate (a) passes the planted fault")
+    train["reading"] = {}
+    want = expected_train_launches(with_layers(dia_1_6b_config(), 2), 1)
+    for name, _, _ in TP_TRAIN_READING:
+        ref = refs["reading"][name]
+        one = {"single_process": ref, "ranks": [r["reading"][name] for r in ranks],
+               "loss_rel_diff": [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in
+                                 zip(ranks[0]["reading"][name]["steps"], ref)],
+               "loss_rtol": TP_TRAIN_BF16_RTOL}
+        train["reading"][name] = one
+        if not max(one["loss_rel_diff"]) <= TP_TRAIN_BF16_RTOL:
+            failures.append(f"training (b) {name}: loss off one process's: {one['loss_rel_diff']}")
+        for r, rank in enumerate(one["ranks"]):
+            for step in rank["steps"]:
+                if step["launches"] != want:
+                    failures.append(f"training (b) {name} rank {r}: launches {step['launches']}, "
+                                    f"one process's {want}")
+    return failures
+
+
+def tp_training_one_rank(torch, train: dict, mesh) -> list:
+    """(c) in this process, on a one-rank NCCL mesh: one LoRA step at full
+    width (2 + 2 layers, the weights of (a)'s file in bf16), equal bit for
+    bit to the same step without a mesh."""
+    from dia_tts_prune_tpu_torch import dia_1_6b_config
+    from dia_tts_prune_tpu_torch.ops.kernels import reset_launch_counts
+    from dia_tts_prune_tpu_torch.parallel.sharding import shard_params
+    from dia_tts_prune_tpu_torch.train import Trainer
+
+    cfg = with_layers(dia_1_6b_config(), 2)
+    batch = train_batch(cfg)
+    weights = _map_floats(torch.load(train["weights_file"]), torch.bfloat16)
+    runs = {}
+    for name, m in (("nccl_mesh_1x1", mesh), ("no_mesh", None)):
+        params = params_to(weights, "cuda")
+        if m is not None:
+            params = shard_params(params, m, config=cfg)
+        tr = Trainer(params, cfg, tp_train_config("lora", "bfloat16"), 10, mesh=m)
+        reset_launch_counts()
+        metrics = tr.step(batch)
+        runs[name] = {"metrics": metrics, "launches": train_launch_counts(),
+                      "adapter": {n: t.detach().clone() for n, t in tr.optimizer.leaves.items()}}
+        del tr, params
+        torch.cuda.empty_cache()
+    a, b = runs["nccl_mesh_1x1"], runs["no_mesh"]
+    equal = a["metrics"] == b["metrics"] and all(torch.equal(a["adapter"][n], t)
+                                                 for n, t in b["adapter"].items())
+    train["one_nccl_rank"] = {"metrics": a["metrics"], "no_mesh_metrics": b["metrics"],
+                              "bit_equal": equal, "launches": a["launches"]}
+    return [] if equal and a["launches"] == expected_train_launches(cfg, 1) else [
+        f"training (c) one NCCL rank: {train['one_nccl_rank']}"]
+
+
+def tp_cli_inputs(torch, tmp: Path) -> Path:
+    """The finetune CLI's inputs: a model directory at Dia-1.6B widths, two
+    layers a stack, with the whole DAC (``init_dac_params``), and
+    TP_CLI_ITEMS seeded noise WAVs of 2-3 s with their lines."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia, dia_1_6b_config
+    from dia_tts_prune_tpu_torch.api import write_wav
+    from dia_tts_prune_tpu_torch.models.dac import DACConfig, init_dac_params
+    from dia_tts_prune_tpu_torch.models.dia import init_params
+
+    root = tmp / "tp_cli"
+    small = with_layers(dia_1_6b_config(), 2)
+    dac_cfg = DACConfig()
+    Dia(small, init_params(small, seed=2, dtype=torch.bfloat16, device="cpu"), "bfloat16",
+        dac_params=init_dac_params(dac_cfg, seed=1, device="cpu"), dac_config=dac_cfg,
+        device="cpu").save_pretrained(root / "model")
+    (root / "dataset" / "wavs").mkdir(parents=True)
+    rng = np.random.default_rng(4)
+    lines = []
+    for i in range(TP_CLI_ITEMS):
+        n = int(dac_cfg.sample_rate * (2 + 0.25 * i))
+        write_wav(root / "dataset" / "wavs" / f"n{i}.wav",
+                  (0.2 * rng.standard_normal(n)).astype(np.float32), dac_cfg.sample_rate)
+        lines.append(f"n{i}.wav|[S{1 + i % 2}] Line number {i} of the noise set.")
+    (root / "dataset" / "metadata.csv").write_text("\n".join(lines) + "\n")
+    return root
+
+
+def tp_training_cli(torch, train: dict, runs: dict, root: Path) -> list:
+    """(c), the CLI: ``finetune --mesh-model 1`` (one NCCL rank) ran to its
+    end and wrote a model that the port loads and generates from;
+    ``--mesh-model 2`` exited 2 naming the one card."""
+    import numpy as np
+
+    from dia_tts_prune_tpu_torch import Dia
+
+    out = {}
+    for m, proc in runs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        out[m] = {"exit": proc.returncode,
+                  "last_lines": (stdout + stderr).strip().splitlines()[-3:]}
+    failures = []
+    if out["1"]["exit"] != 0:
+        failures.append(f"training (c) finetune --mesh-model 1: {out['1']}")
+    else:
+        tuned = Dia.from_pretrained(root / "out1", compute_dtype="bfloat16", device="cuda")
+        codes = tuned.generate_codes(TP_CLI_TEXT, max_tokens=32, temperature=0.0)
+        out["1"].update({"output_files": sorted(p.name for p in (root / "out1").iterdir()),
+                         "generated_frames": int(codes.shape[0]),
+                         "codes_in_range": bool(np.all((codes >= 0) & (codes < 1028)))})
+        if not (out["1"]["codes_in_range"] and out["1"]["generated_frames"] > 0
+                and {"adapter", "pytorch_model.bin"} <= set(out["1"]["output_files"])):
+            failures.append(f"training (c) the model finetune wrote: {out['1']}")
+        del tuned
+    if out["2"]["exit"] != 2 or not any("needs 2 CUDA devices, found 1" in line
+                                        for line in out["2"]["last_lines"]):
+        failures.append(f"training (c) finetune --mesh-model 2 on one card: {out['2']}")
+    train["cli"] = out
+    return failures
+
+
 def tp_rank(rank: int, init: str, model_dir: str, out: str) -> None:
     """One rank of the two-rank run on the one card (spawned): gloo, the
     model directory's bf16 weights read once to the host, then each route
@@ -3859,6 +4316,9 @@ def tp_rank(rank: int, init: str, model_dir: str, out: str) -> None:
             res[route]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             del dia
             torch.cuda.empty_cache()
+        t = time.perf_counter()
+        res["training"] = tp_train_rank(torch, Path(out))
+        res["training"]["seconds"]["total"] = time.perf_counter() - t
         torch.save(res, Path(out) / f"tp_rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -3894,7 +4354,7 @@ class _EmulatedMesh:
 # tp_emulated's planted faults, read against the single process as the
 # sound runs are: two query heads of rank 0's self-attention o_proj, of two
 # KV groups, swapped in the last decoder layer (a wrong shard: a reading);
-# one model all-reduce in every 54 (one a decode step) skipped on both
+# one model all-reduce in every 3 x decoder layers (one a decode step) skipped on both
 # ranks; every one skipped (each rank keeps its own partial sums).  The two
 # missing collectives must read above TP_LOGIT_TOL.
 TP_FAULTS = ("swap_heads", "skip_one_sum", "skip_every_sum")
@@ -3924,6 +4384,7 @@ def tp_emulated(torch, host, cfg, route: str, max_tokens: int, fault: str | None
     from dia_tts_prune_tpu_torch.ops.sampling import apply_constraints, cfg_combine
 
     d = cfg.data
+    sums_a_step = 3 * cfg.model.decoder.n_layer  # after o_proj, cross o_proj and wo
     groups = {"data": _EmulatedGroup(1), "model": _EmulatedGroup(2)}
     barrier, slots, local = threading.Barrier(2, timeout=300), [None, None], threading.local()
     real = {"all_reduce": dist.all_reduce, "get_world_size": dist.get_world_size,
@@ -3936,7 +4397,7 @@ def tp_emulated(torch, host, cfg, route: str, max_tokens: int, fault: str | None
         if op == dist.ReduceOp.SUM and t.dim() > 1:
             local.sums += 1
             skip = (fault == "skip_every_sum"
-                    or fault == "skip_one_sum" and local.sums % 54 == 0)
+                    or fault == "skip_one_sum" and local.sums % sums_a_step == 0)
         slots[local.rank] = t
         barrier.wait()
         out = (slots[0] + slots[1] if op == dist.ReduceOp.SUM
@@ -4011,9 +4472,10 @@ def _free_port() -> int:
 
 def phase_tp(torch, tmp: Path) -> dict:
     """Tensor-parallel serving (``parallel/sharding.py``) on the one card, at
-    full width (``dia_1_6b_config()``, bf16, ``Dia.random_init`` seed
-    weights in a model directory: a bf16 ``pytorch_model.bin`` and a seeded
-    DAC decoder).  The card machine has one H100, so: (a) two ranks on it
+    full width (``dia_1_6b_config()``'s widths, bf16, the first TP_LAYERS
+    layers a stack of ``Dia.random_init``'s seed weights in a model
+    directory: a bf16 ``pytorch_model.bin`` and a seeded DAC decoder).  The
+    card machine has one H100, so: (a) two ranks on it
     over gloo (CUDA tensors staged through the host), each a spawned
     process, the eager loop: float, ``quantize_int8()`` (int8 KV caches) and
     ``quantize_int4()`` after ``Dia.shard`` on a (1, 2) mesh, 64 greedy
@@ -4032,7 +4494,11 @@ def phase_tp(torch, tmp: Path) -> dict:
     seeded) the unsharded batcher's codes bit for bit.  (c) The CLI:
     ``app --tp 1 --continuous-batch`` (NCCL) answers a greedy ``/generate``
     whose PCM lies within PCM_LSB_TOL of (b)'s waveform, and ``app --tp 2``
-    exits with the parser error that names the one card found.  Nothing of
+    exits with the parser error that names the one card found.  Then the
+    training under a mesh of the module docstring's item 10: one process's
+    runs before the ranks start (``tp_train_refs``), the ranks' after their
+    serving work (``tp_train_rank``), (c) in this process over NCCL and the
+    finetune CLI in subprocesses that start once the ranks end.  Nothing of
     this measures NVLink."""
     import datetime
     import multiprocessing
@@ -4058,13 +4524,13 @@ def phase_tp(torch, tmp: Path) -> dict:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()  # the earlier phases' cached blocks: the ranks share this card
     cfg, dac_cfg = dia_1_6b_config(), DACConfig()
-    rec = {"phase": "tp", "config": "dia_1_6b_config() bf16, Dia.random_init seed 0; DACConfig() "
-           "decoder seed 1", "tokens": TP_TOKENS, "logit_steps": TP_LOGIT_STEPS,
-           "logit_tol": TP_LOGIT_TOL}
+    rec = {"phase": "tp", "config": f"dia_1_6b_config() widths, the first {TP_LAYERS} layers a "
+           "stack of Dia.random_init seed 0 in bf16; DACConfig() decoder seed 1",
+           "tokens": TP_TOKENS, "logit_steps": TP_LOGIT_STEPS, "logit_tol": TP_LOGIT_TOL}
     failures = []
 
     # the model directory: what the ranks and the CLI load
-    host = seed_host_weights(cfg)
+    cfg, host = cut_layers(cfg, seed_host_weights(cfg), TP_LAYERS)
     model_dir = tmp / "model"
     model_dir.mkdir()
     torch.save({k: torch.from_numpy(v).to(torch.bfloat16)
@@ -4076,15 +4542,30 @@ def phase_tp(torch, tmp: Path) -> dict:
     rec["write_s"] = time.perf_counter() - t0
 
     server = tp2 = None
+    cli_runs = {}
     server_log = open(tmp / "tp_server.err", "w")
     try:
         # the single process, each route on the eager loop
         single = {}
         for route in TP_ROUTES:
-            dia = tp_quantized(Dia(cfg, seed_weights(torch, cfg), "bfloat16", device="cuda"), route)
+            dia = tp_quantized(Dia(cfg, params_to(host, "cuda"), "bfloat16", device="cuda"),
+                               route)
             single[route] = tp_trace(torch, dia)
             del dia
             torch.cuda.empty_cache()
+
+        # training: one process's runs, which the ranks read and are gated against
+        t = time.perf_counter()
+        train_refs = tp_train_refs(torch, tmp)
+        train = {"phase": "tp", "part": "training", "weights_file": str(
+            tmp / "tp_train_weights.pt"), "config": {
+            "exact": "dia_1_6b_config() widths, 2 + 2 layers, fp32, init_params seed 3, lr "
+                     f"{TP_TRAIN_LR}, {TP_TRAIN_STEPS} steps",
+            "reading": "dia_1_6b_config() bf16, the serving weights, remat"},
+            "batch": "train_batch: 2 rows, audio_length 3072", "refs_s": time.perf_counter() - t,
+            "note": "two gloo ranks time-share one card and stage every collective through "
+                    "the host: no multi-card speed"}
+        torch.cuda.empty_cache()
 
         # (a) two ranks on the one card over gloo
         t = time.perf_counter()
@@ -4104,6 +4585,20 @@ def phase_tp(torch, tmp: Path) -> dict:
             raise RuntimeError(f"tp: a rank failed: exit codes {[p.exitcode for p in ranks]}")
         got = [torch.load(tmp / f"tp_rank{r}.pt", weights_only=False) for r in (0, 1)]
         rec["two_rank_s"] = time.perf_counter() - t
+        failures += tp_training_gates(torch, train, train_refs, [g.pop("training") for g in got])
+
+        # training (c): the finetune CLI on one NCCL rank, and two ranks asked of one card;
+        # started now, so that they load while the emulation and (b) run
+        cli_dir = tp_cli_inputs(torch, tmp)
+        finetune = [sys.executable, "-m", "dia_tts_prune_tpu_torch.finetune", "--model-path",
+                    str(cli_dir / "model"), "--dataset-dir", str(cli_dir / "dataset"),
+                    "--adapter-mode", "lora", "--compute-dtype", "bfloat16", "--batch-size",
+                    "2", "--learning-rate", "1e-4", "--logging-steps", "1", "--save-steps", "1"]
+        cli_runs = {m: subprocess.Popen(finetune + ["--output-dir", str(cli_dir / f"out{m}"),
+                                                    "--mesh-model", m],
+                                        cwd=Path(__file__).resolve().parent,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True) for m in ("1", "2")}
 
         # (c) started once (a) is timed, so that it loads while the emulation and (b) run
         port = _free_port()
@@ -4120,19 +4615,19 @@ def phase_tp(torch, tmp: Path) -> dict:
 
         # the exact reference of (a), and the planted faults' readings
         t = time.perf_counter()
-        host = load_checkpoint(model_dir / "pytorch_model.bin", cfg, torch.bfloat16, "cpu")
-        emulated = {route: tp_emulated(torch, host, cfg, route, TP_TOKENS)
+        loaded = load_checkpoint(model_dir / "pytorch_model.bin", cfg, torch.bfloat16, "cpu")
+        emulated = {route: tp_emulated(torch, loaded, cfg, route, TP_TOKENS)
                     for route in TP_ROUTES}
         rec["faults"] = {}
         for fault in TP_FAULTS:
-            e0, e1 = tp_emulated(torch, host, cfg, "float", TP_FAULT_TOKENS, fault)
+            e0, e1 = tp_emulated(torch, loaded, cfg, "float", TP_FAULT_TOKENS, fault)
             rec["faults"][fault] = [max(logit_shares(e["logs"], single["float"]["logs"]))
                                     for e in (e0, e1)]
         for fault in TP_GATED_FAULTS:
             if rec["faults"][fault][0] <= TP_LOGIT_TOL:  # rank 0's: what the gate reads
                 failures.append(f"(a) the planted fault {fault} reads within TP_LOGIT_TOL: "
                                 f"{rec['faults']}")
-        del host
+        del loaded
         rec["emulation_s"] = time.perf_counter() - t
 
         rec["routes"] = {}
@@ -4173,7 +4668,7 @@ def phase_tp(torch, tmp: Path) -> dict:
         try:
             mesh = make_mesh(data=1, model=1, device="cuda")
             for name, m in (("nccl_mesh_1x1", mesh), ("unsharded", None)):
-                dia = Dia(cfg, seed_weights(torch, cfg), "bfloat16", dac_params=dac,
+                dia = Dia(cfg, params_to(host, "cuda"), "bfloat16", dac_params=dac,
                           dac_config=dac_cfg, device="cuda")
                 if m is not None:
                     dia.shard(m)
@@ -4192,6 +4687,7 @@ def phase_tp(torch, tmp: Path) -> dict:
                                "captures": cb.stats["captures"]}
                 del dia, cb
                 torch.cuda.empty_cache()
+            failures += tp_training_one_rank(torch, train, mesh)
         finally:
             dist.destroy_process_group()
         equal = all(np.array_equal(a, b) for a, b in zip(lanes["nccl_mesh_1x1"]["codes"],
@@ -4235,8 +4731,11 @@ def phase_tp(torch, tmp: Path) -> dict:
             failures.append(f"(c) app --tp 1: {rec['cli']}")
         if tp2.returncode != 2 or "--tp 2 needs 2 CUDA devices, found 1" not in err2:
             failures.append(f"(c) app --tp 2 on one card: {rec['cli']}")
+        failures += tp_training_cli(torch, train, cli_runs, cli_dir)
+        train["failures"] = [f for f in failures if f.startswith("training")]
+        emit(train)
     finally:
-        for proc in (server, tp2):
+        for proc in (server, tp2, *cli_runs.values()):
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait()

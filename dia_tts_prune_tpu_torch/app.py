@@ -40,6 +40,7 @@ import json
 import os
 import re
 import struct
+import sys
 import tempfile
 import time
 import wave
@@ -461,11 +462,19 @@ def main(argv=None) -> int:
             device = f"cuda:{args.tp_rank}"
 
     from .api import Dia
+    from .parallel.ranks import end_ranks, join, start_ranks
+    from .parallel.sharding import make_mesh
 
-    followers = _start_ranks(args, argv) if args.tp and args.tp_init is None else []
+    followers = []
+    if args.tp and args.tp_init is None:
+        args.tp_init, followers = start_ranks("dia_tts_prune_tpu_torch.app",
+                                              list(sys.argv[1:] if argv is None else argv),
+                                              args.tp, "--tp-rank", "--tp-init")
     mesh, served = None, False
     try:
-        mesh = _join_mesh(args, device) if args.tp else None
+        if args.tp:
+            join(args.tp_init, args.tp, args.tp_rank, device)
+            mesh = make_mesh(data=1, model=args.tp, device=torch.device(device).type)
         dia = Dia.from_pretrained(args.model_path, compute_dtype=args.compute_dtype,
                                   dac_checkpoint=args.dac_checkpoint, device=device)
         if mesh is not None:  # shard first, then quantize the shards (the JAX app's order)
@@ -491,73 +500,8 @@ def main(argv=None) -> int:
             serve_http(dia, args.host, args.port, batcher=batcher)
         served = True
     finally:
-        failed = _end_ranks(followers, mesh, wait=served)
+        failed = end_ranks(followers, mesh is not None, wait=served)
     return 1 if failed else 0
-
-
-def _start_ranks(args, argv) -> list:
-    """Rank 0's start (the command that a user ran): a rendezvous on a free
-    local port, and ranks 1..N-1 as child processes running this same
-    command with their rank added (their standard output discarded: rank 0's
-    is the server's), each ended if rank 0's process ends."""
-    import socket
-    import subprocess
-    import sys
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        args.tp_init = f"tcp://127.0.0.1:{s.getsockname()[1]}"
-    base = list(sys.argv[1:] if argv is None else argv)
-    return [subprocess.Popen([sys.executable, "-m", "dia_tts_prune_tpu_torch.app", *base,
-                              "--tp-rank", str(r), "--tp-init", args.tp_init],
-                             stdout=subprocess.DEVNULL, preexec_fn=_end_with_parent)
-            for r in range(1, args.tp)]
-
-
-def _end_with_parent() -> None:
-    """In a started rank, before it runs: SIGTERM when rank 0's process
-    ends, however it ends (Linux ``prctl(PR_SET_PDEATHSIG)``)."""
-    import ctypes
-    import signal
-
-    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)
-
-
-def _join_mesh(args, device: str):
-    """This rank's process group (NCCL on the card, gloo on the CPU) and the
-    (1, N) mesh over it."""
-    import torch
-    import torch.distributed as dist
-
-    from .parallel.sharding import TIMEOUT, make_mesh
-
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method=args.tp_init,
-                            world_size=args.tp, rank=args.tp_rank, timeout=TIMEOUT)
-    return make_mesh(data=1, model=args.tp, device=dev.type)
-
-
-def _end_ranks(followers: list, mesh, wait: bool) -> bool:
-    """After serving (``wait``), wait for the other ranks (they end when
-    rank 0's batcher stops) and stop any that does not end; after a failure,
-    stop them now.  Then leave the process group.  True if a rank failed."""
-    import subprocess
-
-    failed = not wait
-    for proc in followers:
-        try:
-            failed |= proc.wait(timeout=120 if wait else 0) != 0
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            failed = True
-    if mesh is not None:
-        import torch.distributed as dist
-
-        dist.destroy_process_group()
-    return failed
 
 
 if __name__ == "__main__":

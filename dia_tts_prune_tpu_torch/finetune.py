@@ -13,11 +13,14 @@ masked dense weights.  Runs on CUDA unless ``--device cpu`` is given.
 The codec comes from the model directory's ``dac.safetensors``, or from a
 torch DAC checkpoint given by ``--dac-checkpoint``.
 
-Not here yet: sharding over several cards (``--mesh-data``, ``--mesh-model``,
-``--fsdp``).  The mesh, its spec functions and local shards exist
-(``parallel/sharding.py``, serving only); training under them needs the
-gradient collectives, which are not written: a gradient under a mesh raises
-(``ops.modules.model_psum``).
+``--mesh-data D --mesh-model M [--fsdp]`` trains under a (D, M) mesh (the
+JAX CLI's flags, its finetune.py:79-85, 160-168): the command starts D x M
+ranks (``parallel/ranks.py``; one card a rank over NCCL, or with ``--device
+cpu`` gloo processes), each shards the loaded weights
+(``sharding.shard_params(fsdp=)``) and runs ``Trainer(mesh=)`` over the same
+shuffled batches, keeping its own rows.  Rank 0 prints, and writes the
+checkpoints, the adapter, ``pytorch_model.bin`` and the codec files from the
+whole tree.  Asking for more ranks than there are cards exits 2.
 
 Run: ``python -m dia_tts_prune_tpu_torch.finetune --model-path … --dataset-dir …
 --output-dir … --adapter-mode lora``
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from pathlib import Path
 
@@ -91,12 +95,62 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["unstructured", "structured"])
     pr.add_argument("--prune-amount", type=float, default=0.5)
     pr.add_argument("--prune-dim", type=int, default=0)
+
+    m = p.add_argument_group("Parallelism")
+    m.add_argument("--mesh-data", type=int, default=None,
+                   help="ranks on the data axis (the batch is split over them)")
+    m.add_argument("--mesh-model", type=int, default=None,
+                   help="ranks on the model axis (heads and the FFN split over them)")
+    m.add_argument("--fsdp", action="store_true",
+                   help="also shard parameter and optimizer storage over the data axis "
+                        "(ZeRO-style; fp32 AdamW state of the 1.6B model alone is ~12.8 GB)")
+    m.add_argument("--mesh-rank", type=int, default=0, help=argparse.SUPPRESS)
+    m.add_argument("--mesh-init", default=None, help=argparse.SUPPRESS)
     return p
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    world = 0
+    if args.mesh_data or args.mesh_model:
+        world = (args.mesh_data or 1) * (args.mesh_model or 1)
+        import torch
 
+        if torch.device(args.device).type == "cuda":
+            found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if found < world:
+                parser.error(f"a {args.mesh_data or 1} x {args.mesh_model or 1} mesh needs "
+                             f"{world} CUDA devices, found {found}")
+            args.device = f"cuda:{args.mesh_rank}"
+    elif args.fsdp:
+        parser.error("--fsdp needs a mesh (--mesh-data / --mesh-model)")
+    if not world:
+        return train(args)
+
+    import sys
+
+    from .parallel.ranks import end_ranks, join, start_ranks
+
+    followers = []
+    if args.mesh_init is None:
+        args.mesh_init, followers = start_ranks(
+            "dia_tts_prune_tpu_torch.finetune", list(sys.argv[1:] if argv is None else argv),
+            world, "--mesh-rank", "--mesh-init")
+    joined = done = False
+    try:
+        join(args.mesh_init, world, args.mesh_rank, args.device)
+        joined = True
+        rc = train(args)
+        done = True
+    finally:
+        failed = end_ranks(followers, joined, wait=done)
+    return 1 if failed else rc
+
+
+def train(args) -> int:
+    """The fine-tuning run of ``main``, one rank's under a mesh (the process
+    group joined)."""
     import numpy as np
     import torch
 
@@ -107,9 +161,22 @@ def main(argv=None) -> int:
     from .train import TrainConfig, Trainer
     from .utils.prefetch import prefetch
 
+    mesh = None
+    if args.mesh_init is not None:
+        from .parallel.sharding import make_mesh
+
+        mesh = make_mesh(data=args.mesh_data or 1, model=args.mesh_model or 1,
+                         device=torch.device(args.device).type)
+    lead = args.mesh_rank == 0  # the rank that prints and writes
+
+    def say(*a):
+        if lead:
+            print(*a, flush=True)
+
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "training_args.json").write_text(json.dumps(vars(args), indent=2, default=str))
+    if lead:
+        (out / "training_args.json").write_text(json.dumps(vars(args), indent=2, default=str))
 
     # full fine-tuning trains float32 master weights: load them unrounded
     load_dtype = args.compute_dtype if args.adapter_mode == "lora" else "float32"
@@ -120,8 +187,8 @@ def main(argv=None) -> int:
     if args.merge_adapter:
         adapter = load_adapter(args.merge_adapter, dia.device)
         params = merge_lora(params, adapter)
-        print(f"Merged adapter {args.merge_adapter} into base weights "
-              f"({lora_param_count(adapter)} adapter params)")
+        say(f"Merged adapter {args.merge_adapter} into base weights "
+            f"({lora_param_count(adapter)} adapter params)")
 
     if args.prune_before:
         from .prune import apply_masks, sparsity_report, structured_masks, unstructured_masks
@@ -131,7 +198,7 @@ def main(argv=None) -> int:
         else:
             masks = structured_masks(params, args.prune_amount, dim=args.prune_dim)
         params = apply_masks(params, masks)
-        print(f"Pruned before fine-tuning: sparsity={sparsity_report(params)['sparsity']:.4f}")
+        say(f"Pruned before fine-tuning: sparsity={sparsity_report(params)['sparsity']:.4f}")
 
     dia._require_dac()
     dataset = FineTuneDataset(
@@ -162,39 +229,54 @@ def main(argv=None) -> int:
         save_steps=args.save_steps,
     )
 
-    trainer = Trainer(params, config, tc, num_training_steps)
+    if mesh is not None:
+        from .parallel.sharding import axis_size, batch_axes, shard_params
+
+        params = shard_params(params, mesh, config=config, fsdp=args.fsdp)
+        say(f"Sharded params over mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+            + (" (FSDP storage)" if args.fsdp else ""))
+    trainer = Trainer(params, config, tc, num_training_steps, mesh=mesh)
     if args.resume_from:
         step = trainer.restore(args.resume_from)
-        print(f"Resumed from step {step} ({args.resume_from})")
+        say(f"Resumed from step {step} ({args.resume_from})")
 
-    print(f"Fine-tuning: {len(dataset)} items, {num_training_steps} steps, "
-          f"mode={args.adapter_mode}"
-          + (f", qat={args.qat}" if args.qat != "none" else ""))
+    say(f"Fine-tuning: {len(dataset)} items, {num_training_steps} steps, "
+        f"mode={args.adapter_mode}" + (f", qat={args.qat}" if args.qat != "none" else ""))
     t0 = time.time()
     window: list[float] = []
+    rows_split = 1 if mesh is None else math.prod(axis_size(mesh, a) for a in batch_axes(mesh))
     for epoch in range(args.epochs):
         # prepare batches (WAV read + DAC encode + delay transforms) on a
         # background thread while the card runs the train step
         for batch in prefetch(
             dataset.batches(args.batch_size, shuffle=True, seed=args.seed + epoch)
         ):
+            if len(batch["text_ids"]) % rows_split:
+                say(f"skipped a last batch of {len(batch['text_ids'])} items: it does not "
+                    f"split over {rows_split} data ranks")
+                continue
             metrics = trainer.step(batch)
             window.append(metrics["loss"])
             step = metrics["step"]
             if step % args.logging_steps == 0:
-                print(f"step {step}/{num_training_steps} "
-                      f"loss={np.mean(window):.4f} ({time.time() - t0:.1f}s)")
+                say(f"step {step}/{num_training_steps} "
+                    f"loss={np.mean(window):.4f} ({time.time() - t0:.1f}s)")
                 window.clear()
             if args.save_steps > 0 and step % args.save_steps == 0:
                 trainer.save(out / "checkpoints", step=step)
 
-    # Final save (reference: finetune.py:588-621)
+    # Final save (reference: finetune.py:588-621); under a mesh every rank
+    # gathers the whole tree, rank 0 writes it
+    adapter = trainer.adapter()
+    trained = trainer.trained_params()
+    if not lead:
+        return 0
     config.save(out / "config.json")
-    if args.adapter_mode == "lora":
-        save_adapter(out / "adapter", trainer.adapter())
+    if adapter is not None:
+        save_adapter(out / "adapter", adapter)
         print(f"Saved LoRA adapter to {out / 'adapter'}")
     sd = {k: torch.from_numpy(np.ascontiguousarray(v))
-          for k, v in to_torch_state_dict(trainer.trained_params(), config).items()}
+          for k, v in to_torch_state_dict(trained, config).items()}
     torch.save(sd, out / "pytorch_model.bin")
     print(f"Saved fine-tuned model to {out / 'pytorch_model.bin'}")
     # keep the output dir self-contained, like save_pretrained: the codec

@@ -69,25 +69,29 @@ def _split_in_out(name: str, shape: tuple[int, ...], stacked: bool) -> tuple[int
 
 
 def init_lora(params: Params, config: LoraConfig, generator: torch.Generator | None = None,
-              dtype=torch.float32) -> Params:
+              dtype=torch.float32, device=None) -> Params:
     """Build the adapter tree: mirrors params, with {'a','b'} at targets, on
-    the device of each target kernel.  A is drawn on the CPU from
-    ``generator`` (a ``torch.Generator``; the draws differ from
-    ``jax.random``'s for the same seed)."""
+    ``device`` (default: the device of each target kernel).  A is drawn on
+    the CPU from ``generator`` (a ``torch.Generator``; the draws differ from
+    ``jax.random``'s for the same seed), target by target in the sorted
+    order of their paths, so the adapter does not depend on the tree's key
+    order.  Only the kernels' shapes are read: under a mesh, pass the whole
+    model's shapes (e.g. meta tensors) and a device, then ``shard_lora`` (so
+    the adapter equals the unsharded one)."""
 
     def walk(tree, path):
         out = {}
-        for k, v in tree.items():
+        for k, v in sorted(tree.items()):
             if isinstance(v, dict):
                 if k in config.target_modules and "kernel" in v and k in _TARGET_SPLITS:
                     stacked = "layers" in path
                     L, fan_in, fan_out = _split_in_out(k, v["kernel"].shape, stacked)
                     a_shape = (L, fan_in, config.r) if stacked else (fan_in, config.r)
                     b_shape = (L, config.r, fan_out) if stacked else (config.r, fan_out)
-                    device = v["kernel"].device
+                    dev = v["kernel"].device if device is None else device
                     a = torch.randn(a_shape, generator=generator, dtype=torch.float32)
-                    a = (a / np.sqrt(fan_in)).to(device=device, dtype=dtype)
-                    out[k] = {"a": a, "b": torch.zeros(b_shape, dtype=dtype, device=device)}
+                    a = (a / np.sqrt(fan_in)).to(device=dev, dtype=dtype)
+                    out[k] = {"a": a, "b": torch.zeros(b_shape, dtype=dtype, device=dev)}
                 else:
                     sub = walk(v, path + (k,))
                     if sub:
@@ -107,9 +111,81 @@ def _config_leaves(config: LoraConfig) -> dict:
     }
 
 
+# Under a mesh (parallel/sharding.py) the factor that meets a kernel's
+# model-sharded axis is sharded with it: B's columns on a column-parallel
+# target (the q/k/v heads, wi_fused's F within each of its two halves), A's
+# rows on a row-parallel one (o_proj's heads, wo's F).  The other factor is
+# replicated, and its gradient on each rank is that rank's part of a sum.
+_COLUMN_TARGETS = ("q_proj", "k_proj", "v_proj", "wi_fused")
+_ROW_TARGETS = ("o_proj", "wo")
+
+
+def factor_layout(name: str, factor: str) -> tuple[int | None, bool]:
+    """(the dimension of factor ``factor`` ('a' or 'b') of target ``name``
+    that is sharded over the model axis — None for a replicated factor —,
+    whether a replicated factor's gradient is a partial sum over the model
+    axis)."""
+    sharded = (name in _COLUMN_TARGETS and factor == "b") or (name in _ROW_TARGETS
+                                                              and factor == "a")
+    if sharded:
+        return (-1 if factor == "b" else -2), False
+    return None, name in _COLUMN_TARGETS + _ROW_TARGETS
+
+
+def _halves(name: str, factor: str) -> bool:
+    """Whether the factor is wi_fused's B, whose columns are [2, F] (gate
+    and up): a rank's columns are its F slice of each half."""
+    return (name, factor) == ("wi_fused", "b")
+
+
+def shard_factor(x: torch.Tensor, name: str, factor: str, mesh) -> torch.Tensor:
+    """This rank's part of factor ``factor`` of target ``name``
+    (``factor_layout``) on the model axis of ``mesh``."""
+    from .parallel.sharding import AXIS_MODEL, P, axis_size, local_shard
+
+    dim, _ = factor_layout(name, factor)
+    if dim is None or axis_size(mesh, AXIS_MODEL) == 1:
+        return x
+    v = x.unflatten(-1, (2, -1)) if _halves(name, factor) else x
+    spec = P(*[AXIS_MODEL if d == v.dim() + dim else None for d in range(v.dim())])
+    out = local_shard(v, spec, mesh, f"{name}.{factor}")
+    return out.flatten(-2) if _halves(name, factor) else out
+
+
+@torch.no_grad()
+def gather_factor(x: torch.Tensor, name: str, factor: str, mesh) -> torch.Tensor:
+    """The whole factor from every rank's part (``shard_factor``'s inverse).
+    A collective call."""
+    from .parallel.sharding import AXIS_MODEL, all_gather_dim, axis_size
+
+    dim, _ = factor_layout(name, factor)
+    if dim is None or axis_size(mesh, AXIS_MODEL) == 1:
+        return x
+    v = x.unflatten(-1, (2, -1)) if _halves(name, factor) else x
+    out = all_gather_dim(v, v.dim() + dim, mesh.get_group(AXIS_MODEL))
+    return out.flatten(-2) if _halves(name, factor) else out
+
+
+def _map_factors(fn, weights: Params, name=None) -> Params:
+    """``fn(x, target name, factor)`` over an adapter's factors."""
+    return {k: _map_factors(fn, v, k) if isinstance(v, dict) else fn(v, name, k)
+            for k, v in weights.items()}
+
+
+def shard_lora(weights: Params, mesh) -> Params:
+    """Each rank's part of an adapter's factors (``shard_factor``)."""
+    return _map_factors(lambda x, name, f: shard_factor(x, name, f, mesh), weights)
+
+
+def gather_lora(weights: Params, mesh) -> Params:
+    """The whole adapter from every rank's factors.  A collective call."""
+    return _map_factors(lambda x, name, f: gather_factor(x, name, f, mesh), weights)
+
+
 def lora_delta(name: str, ab: Params, kernel_shape: tuple[int, ...], scale: float,
                stacked: bool) -> torch.Tensor:
-    """(alpha/r)·A@B reshaped to the kernel's layout."""
+    """(alpha/r)·A@B reshaped to the kernel's layout (a rank's own under a
+    mesh, with its factors from ``shard_lora``)."""
     a, b = ab["a"], ab["b"]
     delta = torch.bmm(a, b) if stacked else a @ b
     return (scale * delta).reshape(kernel_shape)

@@ -49,9 +49,14 @@ Tensor parallelism (``parallel/sharding.py``): every forward that serving
 runs takes ``group``, the mesh's model group, over a tree of local shards.
 Head counts and FFN widths come from the local weights' shapes, never from
 ``config``, so the same code runs the whole model or a rank's slice of it;
-``attention_out`` and ``mlp_block`` add the ranks' partial sums.  Forward
-only (``ops.modules.model_psum``).  The fused step has no tensor-parallel
-form: one cooperative launch cannot all-reduce between layers.
+``attention_out`` and ``mlp_block`` add the ranks' partial sums
+(``ops.modules.model_psum``).  Training runs the same layers under autograd:
+each replicated activation that enters a column-parallel product passes
+``ops.modules.model_copy``, whose backward sums its gradient over the ranks,
+and under ``remat`` the recomputed forward issues its all-reduces again
+inside the backward pass, in the same order on every rank.  The fused step
+has no tensor-parallel form: one cooperative launch cannot all-reduce
+between layers.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from ..ops.modules import (
     dense_general,
     full_attention,
     mlp_block,
+    model_copy,
     rms_norm,
     rope,
 )
@@ -143,74 +149,83 @@ def _run_layer(fn, remat: bool, *args):
     return fn(*args)
 
 
-def init_params(config: DiaConfig, seed: int = 0, dtype=torch.float32,
-                device: str | torch.device = "cuda") -> Params:
-    """Random weights from a numpy seed in the JAX package's shapes
-    (normal / sqrt(fan_in) kernels, 0.02-scaled embeddings, unit norms), for
-    runs at full width without a checkpoint.  The draws differ from
-    ``jax.random``'s; tests that need equal weights in both packages use
-    ``checkpoint.params_from_jax``."""
-    rng = np.random.default_rng(seed)
+def param_shapes(config: DiaConfig) -> Params:
+    """The shape of every leaf of ``init_params``'s tree (the JAX package's
+    layout), as tuples, in the tree's order: stacked per-layer kernels
+    ``[L, in..., out...]``, embeddings, norm scales, the logits head."""
     m = config.model
     enc, dec = m.encoder, m.decoder
     C = config.data.channels
 
-    def t(a):
-        return torch.from_numpy(a).to(device=device, dtype=dtype)
-
-    def normal(shape, scale):
-        a = rng.standard_normal(size=shape, dtype=np.float32)
-        a *= np.float32(scale)
-        return t(a)
-
-    def dense(shape, n_in_axes):
-        fan_in = int(np.prod(shape[1:1 + n_in_axes]))  # axis 0 is the layer stack
-        return {"kernel": normal(shape, 1.0 / np.sqrt(fan_in))}
-
-    def ones(*shape):
-        return {"scale": t(np.ones(shape, np.float32))}
-
     def attn(L, d_q, d_kv, nq, nkv, h):
-        return {
-            "q_proj": dense((L, d_q, nq, h), 1),
-            "k_proj": dense((L, d_kv, nkv, h), 1),
-            "v_proj": dense((L, d_kv, nkv, h), 1),
-            "o_proj": dense((L, nq, h, d_q), 2),
-        }
+        return {"q_proj": {"kernel": (L, d_q, nq, h)}, "k_proj": {"kernel": (L, d_kv, nkv, h)},
+                "v_proj": {"kernel": (L, d_kv, nkv, h)}, "o_proj": {"kernel": (L, nq, h, d_q)}}
 
     def mlp(L, d, f):
-        return {"wi_fused": dense((L, d, 2, f), 1), "wo": dense((L, f, d), 1)}
+        return {"wi_fused": {"kernel": (L, d, 2, f)}, "wo": {"kernel": (L, f, d)}}
+
+    def norm(*shape):
+        return {"scale": shape}
 
     return {
         "encoder": {
-            "embedding": {"embedding": normal((m.src_vocab_size, enc.n_embd), 0.02)},
+            "embedding": {"embedding": (m.src_vocab_size, enc.n_embd)},
             "layers": {
-                "pre_sa_norm": ones(enc.n_layer, enc.n_embd),
+                "pre_sa_norm": norm(enc.n_layer, enc.n_embd),
                 "self_attention": attn(enc.n_layer, enc.n_embd, enc.n_embd, enc.n_head,
                                        enc.n_head, enc.head_dim),
-                "post_sa_norm": ones(enc.n_layer, enc.n_embd),
+                "post_sa_norm": norm(enc.n_layer, enc.n_embd),
                 "mlp": mlp(enc.n_layer, enc.n_embd, enc.n_hidden),
             },
-            "norm": ones(enc.n_embd),
+            "norm": norm(enc.n_embd),
         },
         "decoder": {
-            "embeddings": {"embedding": normal((C, m.tgt_vocab_size, dec.n_embd), 0.02)},
+            "embeddings": {"embedding": (C, m.tgt_vocab_size, dec.n_embd)},
             "layers": {
-                "pre_sa_norm": ones(dec.n_layer, dec.n_embd),
+                "pre_sa_norm": norm(dec.n_layer, dec.n_embd),
                 "self_attention": attn(dec.n_layer, dec.n_embd, dec.n_embd, dec.gqa_query_heads,
                                        dec.kv_heads, dec.gqa_head_dim),
-                "pre_ca_norm": ones(dec.n_layer, dec.n_embd),
+                "pre_ca_norm": norm(dec.n_layer, dec.n_embd),
                 "cross_attention": attn(dec.n_layer, dec.n_embd, enc.n_embd,
                                         dec.cross_query_heads, dec.cross_query_heads,
                                         dec.cross_head_dim),
-                "pre_mlp_norm": ones(dec.n_layer, dec.n_embd),
+                "pre_mlp_norm": norm(dec.n_layer, dec.n_embd),
                 "mlp": mlp(dec.n_layer, dec.n_embd, dec.n_hidden),
             },
-            "norm": ones(dec.n_embd),
-            "logits_dense": {"kernel": normal((dec.n_embd, C, m.tgt_vocab_size),
-                                              1.0 / np.sqrt(dec.n_embd))},
+            "norm": norm(dec.n_embd),
+            "logits_dense": {"kernel": (dec.n_embd, C, m.tgt_vocab_size)},
         },
     }
+
+
+def init_params(config: DiaConfig, seed: int = 0, dtype=torch.float32,
+                device: str | torch.device = "cuda") -> Params:
+    """Random weights from a numpy seed in ``param_shapes``: kernels normal /
+    sqrt(fan_in) (fan_in the contracted axes after a layer stack: two for
+    ``o_proj``), embeddings normal x 0.02, norm scales ones, drawn in the
+    tree's order, for runs at full width without a checkpoint.  The draws
+    differ from ``jax.random``'s; tests that need equal weights in both
+    packages use ``checkpoint.params_from_jax``."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(shape, path):
+        if path[-1] == "scale":
+            a = np.ones(shape, np.float32)
+        else:
+            a = rng.standard_normal(size=shape, dtype=np.float32)
+            if path[-1] == "embedding":
+                a *= np.float32(0.02)
+            else:
+                lead = 1 if "layers" in path else 0
+                fan_in = int(np.prod(shape[lead:lead + (2 if "o_proj" in path else 1)]))
+                a *= np.float32(1.0 / np.sqrt(fan_in))
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+    def walk(tree, path):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict) else leaf(v, path + (k,))
+                for k, v in tree.items()}
+
+    return walk(param_shapes(config), ())
 
 
 # ---------------------------------------------------------------------------
@@ -268,18 +283,24 @@ def precompute_cross_cache(
     config: DiaConfig,
     enc_out: torch.Tensor,  # [B, S, E]
     enc_positions: torch.Tensor,  # [B, S]
+    group=None,
 ) -> KVCache:
     """Static cross-attention K/V for all layers (reference: dia/layers.py:632-669):
     RoPE on keys with encoder positions, raw value projections.  [L, B, S, N, H],
-    N the heads of the given weights (a rank's own under a mesh)."""
+    N the heads of the given weights (a rank's own under a mesh).  Under a
+    model ``group`` the gradient of ``enc_out``, every layer's share added
+    first, is summed over its ranks (one ``model_copy``: a copy a layer
+    would add the layers' shares in another order, and a one-rank mesh
+    would then leave one process's bits)."""
     m = config.model
     ca = params["decoder"]["layers"]["cross_attention"]
+    enc = model_copy(enc_out, group)
     ks, vs = [], []
     for lp in _unstack({"k": ca["k_proj"]["kernel"], "v": ca["v_proj"]["kernel"]},
                        m.decoder.n_layer):
-        k = dense_general(enc_out, lp["k"])
+        k = dense_general(enc, lp["k"])
         ks.append(rope(k, enc_positions, m.rope_min_timescale, m.rope_max_timescale))
-        vs.append(dense_general(enc_out, lp["v"]))
+        vs.append(dense_general(enc, lp["v"]))
     return KVCache(k=torch.stack(ks), v=torch.stack(vs))
 
 
@@ -316,15 +337,17 @@ def _decoder_layer_full(lp: Params, m, x, dec_positions, cross_k, cross_v, is_ca
     """One decoder block on a full sequence (the JAX package's
     ``_decoder_layer_full`` :324): flash self-attention, flash
     cross-attention, MLP.  Returns (x, self_k, self_v); writes nothing in
-    place, so it is safe under autograd."""
+    place, so it is safe under autograd.  Under a model ``group`` the inputs
+    of the column-parallel products pass ``model_copy`` (their gradients
+    summed over the ranks)."""
     eps = m.normalization_layer_epsilon
-    h = rms_norm(x, lp["pre_sa_norm"]["scale"], eps)
+    h = model_copy(rms_norm(x, lp["pre_sa_norm"]["scale"], eps), group)
     q, k, v = attention_qkv(lp["self_attention"], h, h, dec_positions, dec_positions,
                             m.rope_min_timescale, m.rope_max_timescale)
     sa = full_attention(q, k, v, is_causal, dec_segment_ids, dec_segment_ids)
     x = x + attention_out(lp["self_attention"], sa, group).to(x.dtype)
 
-    h = rms_norm(x, lp["pre_ca_norm"]["scale"], eps)
+    h = model_copy(rms_norm(x, lp["pre_ca_norm"]["scale"], eps), group)
     cq = dense_general(h, lp["cross_attention"]["q_proj"]["kernel"])
     cq = rope(cq, dec_positions, m.rope_min_timescale, m.rope_max_timescale)
     ca = full_attention(cq, cross_k, cross_v, False, cross_q_segment_ids, enc_segment_ids)
@@ -356,10 +379,9 @@ def decoder_forward(
     ``return_kv`` also the stacked self-attention K/V ([L, B, T, Nkv, H]).
     The JAX signature's mask arguments have no counterpart: the segment ids
     carry the same masks to the flash kernels.  ``group``: the mesh's model
-    group over local shards, forward only (a weight that requires grad
-    raises, ``ops.modules.model_psum``)."""
+    group over local shards (module docstring)."""
     m = config.model
-    cross = precompute_cross_cache(params, config, enc_out, enc_positions)
+    cross = precompute_cross_cache(params, config, enc_out, enc_positions, group)
     x = _embed_channels(params, tgt_BxTxC, compute_dtype)
     dec_seg = torch.ones(tgt_BxTxC.shape[:2], dtype=torch.int32, device=x.device)
     enc_seg = enc_padding_mask.to(torch.int32)

@@ -179,15 +179,15 @@ def _inv_freq(H: int, min_timescale: float, max_timescale: float,
 
 def model_psum(y: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``y`` over the ranks of ``group`` (a mesh's model axis,
-    ``parallel/sharding.py``), in place, in ``y``'s dtype; ``y`` itself for
-    no group.  Forward only: the gradient of a sum over ranks is not
-    written yet (training under a mesh), so a tensor that requires grad
-    raises rather than get a wrong one."""
+    ``parallel/sharding.py``), in ``y``'s dtype; ``y`` itself for no group.
+    Each rank holds a partial sum of a row-parallel product (``o_proj``,
+    ``wo``), and the sum is every rank's whole output.  Under autograd its
+    backward is the identity: each rank's partial takes the whole output
+    gradient.  Without a gradient to keep, the sum is taken in place."""
     if group is None:
         return y
     if torch.is_grad_enabled() and y.requires_grad:
-        raise NotImplementedError("the model-axis all-reduce is forward only: training under "
-                                  "a mesh (Trainer(mesh=), FSDP) is not ported yet")
+        return _ModelSum.apply(y, group)
     import torch.distributed as dist
 
     y = y.contiguous()
@@ -195,12 +195,55 @@ def model_psum(y: torch.Tensor, group) -> torch.Tensor:
     return y
 
 
+def model_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, a replicated activation about to enter a column-parallel
+    product (q/k/v, the cross-attention q and K/V, ``wi_fused``), under a
+    mesh's model group: the identity forward, and under autograd a backward
+    that sums the input gradient over the ranks of ``group``, since each
+    rank's product sees only its own columns.  ``model_psum``'s partner (the
+    f and g operators of Megatron-LM's tensor parallelism).  ``x`` itself,
+    with no autograd node, for no group or where no gradient flows."""
+    if group is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ModelCopy.apply(x, group)
+
+
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        import torch.distributed as dist
+
+        out = y.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 def mlp_block(params: Params, x: torch.Tensor, group=None) -> torch.Tensor:
     """SwiGLU MLP with the fused gate/up kernel [D, 2, F] (reference:
     dia/layers.py:69-105); SiLU on the gate runs in float32.  Under a model
     group each rank holds a slice of F, and the ranks' partial sums over D
-    are added (``model_psum``)."""
-    fused = dense_general(x, params["wi_fused"]["kernel"])  # [..., 2, F]
+    are added (``model_psum``); the gradient of ``x`` is summed over them
+    (``model_copy``)."""
+    fused = dense_general(model_copy(x, group), params["wi_fused"]["kernel"])  # [..., 2, F]
     gate, up = fused[..., 0, :], fused[..., 1, :]
     hidden = F.silu(gate.float()).to(x.dtype) * up
     return model_psum(dense_general(hidden, params["wo"]["kernel"]), group)
@@ -301,7 +344,11 @@ def attention(
     group=None,
 ) -> torch.Tensor:
     """Full-sequence attention with projections (encoder self-attention);
-    ``group`` as in ``attention_out``."""
+    ``group`` as in ``attention_out``, and the gradients of ``x_q`` and
+    ``x_kv`` summed over it (``model_copy``)."""
+    self_attention = x_kv is x_q  # one copy: its gradient adds the q, k and v shares first
+    x_q = model_copy(x_q, group)
+    x_kv = x_q if self_attention else model_copy(x_kv, group)
     q, k, v = attention_qkv(params, x_q, x_kv, q_positions, kv_positions, rope_min, rope_max)
     out = full_attention(q, k, v, is_causal, q_segment_ids, kv_segment_ids)
     return attention_out(params, out, group)

@@ -246,7 +246,7 @@ def fake_quant_ste(w: torch.Tensor, fq: torch.Tensor) -> torch.Tensor:
 
 
 def fake_quant_params_ste(params: Params, mode: str, scope: str | None = "decoder",
-                          group: int | None = 128) -> Params:
+                          group: int | None = 128, model_group=None) -> Params:
     """Quantization-aware-training view of the params: every dense kernel
     inside ``scope`` is replaced by its fake-quantized value behind a
     straight-through estimator.  The values are those of
@@ -255,17 +255,22 @@ def fake_quant_params_ste(params: Params, mode: str, scope: str | None = "decode
     live weights every step).  ``mode``: ``int8`` | ``int4`` (grouped,
     ``group`` rows per scale) | ``int4_hybrid`` (int4 MLP kernels, int8
     elsewhere).  ``scope`` defaults to ``decoder``, the serving quantizers'
-    scope."""
+    scope.  ``model_group``: ``params`` are a rank's local shards under a
+    mesh (whole along the data axis), quantized as the packers quantize them
+    there: a row-parallel kernel's per-column scales span every rank's slice
+    of K, group scales stay within a rank's slice."""
     if mode not in ("int8", "int4", "int4_hybrid"):
         raise ValueError(f"Unknown QAT mode: {mode!r}")
 
     def fq(w, path):
         a = _quant_args_for(path)
         with torch.no_grad():
+            rows = _row_group(path, model_group)
             if mode == "int4" or (mode == "int4_hybrid" and "mlp" in path):
-                deq = dequantize4(quantize_int4(w, group=group, **a), dtype=w.dtype)
+                deq = dequantize4(quantize_int4(w, group=group, model_group=rows, **a),
+                                  dtype=w.dtype)
             else:
-                deq = dequantize(quantize_int8(w, **a), dtype=w.dtype)
+                deq = dequantize(quantize_int8(w, model_group=rows, **a), dtype=w.dtype)
         return fake_quant_ste(w, deq)
 
     return _map_scope(params, scope, fq)

@@ -14,9 +14,14 @@ is who does the work:
   and contiguous tensors, so there is no ``DTensor`` in between.
 * The collectives are written out: ``o_proj`` and ``wo`` leave a partial sum
   over D on every rank, and ``ops/modules.py`` all-reduces it over the
-  mesh's model group (``attention_out`` and ``mlp_block``), forward only.
-  Those two points are the only places where the ranks of a model group
-  meet while they compute.
+  mesh's model group (``model_psum`` in ``attention_out`` and
+  ``mlp_block``).  Those two points are the only places where the ranks of
+  a model group meet in a forward pass.  Training adds their partners
+  (``model_copy``: the gradient of a replicated activation that enters a
+  column-parallel product, summed over the model group), the FSDP pair
+  (``data_gather``: a leaf's data shard all-gathered before use, its
+  gradient reduce-scattered) and the gradient sums over the batch axes
+  (``train.py``).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over a process
 group that the caller has initialized, and so whose backend the caller
@@ -196,13 +201,13 @@ def param_specs(config: DiaConfig) -> Params:
     }
 
 
-def _map_specs(fn, specs: Params, params: Params, path: tuple = ()) -> Params:
+def map_specs(fn, specs: Params, params: Params, path: tuple = ()) -> Params:
     """``fn(spec, leaf, path)`` over the spec tree and the params tree, which
     must hold the same keys."""
     if set(specs) != set(params):
         raise ValueError(f"params at {'.'.join(path) or '<root>'} hold {sorted(params)}, the "
                          f"sharding rules {sorted(specs)}")
-    return {k: _map_specs(fn, s, params[k], path + (k,)) if isinstance(s, dict)
+    return {k: map_specs(fn, s, params[k], path + (k,)) if isinstance(s, dict)
             else fn(s, params[k], path + (k,)) for k, s in specs.items()}
 
 
@@ -212,8 +217,8 @@ def fsdp_param_specs(config: DiaConfig, params: Params, mesh,
     axis on one free dimension of every leaf of at least ``min_elements``
     (the largest free dimension that the data axis divides).  A pure
     function of the leaves' shapes and the data axis's size; ``mesh`` may be
-    a mapping of axis sizes.  Training under a mesh, which would use it, is
-    not ported yet."""
+    a mapping of axis sizes.  ``Trainer(mesh=)`` gathers each such leaf
+    before use (``data_gather``) and keeps its moments shard-sized."""
     dsize = axis_size(mesh, AXIS_DATA)
 
     def add_data_axis(spec: P, leaf, path) -> P:
@@ -230,7 +235,7 @@ def fsdp_param_specs(config: DiaConfig, params: Params, mesh,
         dims[best] = AXIS_DATA
         return P(*dims)
 
-    return _map_specs(add_data_axis, param_specs(config), params)
+    return map_specs(add_data_axis, param_specs(config), params)
 
 
 def self_cache_spec() -> P:
@@ -281,11 +286,12 @@ def shard_params(params: Params, mesh, specs: Params | None = None,
                  config: DiaConfig | None = None, fsdp: bool = False) -> Params:
     """Each rank's local shard of every leaf (``local_shard``) with the
     tensor-parallel layout; ``fsdp=True`` also splits storage over the data
-    axis (``fsdp_param_specs``), the layout of training under a mesh, which
-    serving does not take.  Float tensors only: a packed or block-sparse
-    kernel raises — shard the float tree, then quantize it under the mesh
-    (``Dia.shard`` then ``Dia.quantize_int8`` / ``quantize_int4``), so that
-    the row-parallel kernels' scales are taken over the whole K."""
+    axis (``fsdp_param_specs``), a layout that ``Trainer(mesh=)`` takes and
+    serving does not.  ``gather_params`` is the inverse.  Float tensors
+    only: a packed or block-sparse kernel raises — shard the float tree,
+    then quantize it under the mesh (``Dia.shard`` then
+    ``Dia.quantize_int8`` / ``quantize_int4``), so that the row-parallel
+    kernels' scales are taken over the whole K."""
     if specs is None:
         specs = fsdp_param_specs(config, params, mesh) if fsdp else param_specs(config)
 
@@ -296,7 +302,103 @@ def shard_params(params: Params, mesh, specs: Params | None = None,
                             f"tree, then quantize it under the mesh")
         return local_shard(x, spec, mesh, what)
 
-    return _map_specs(one, specs, params)
+    return map_specs(one, specs, params)
+
+
+def local_shape(shape, spec: P, mesh) -> tuple[int, ...]:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``
+    (``local_shard``'s), divisibility not checked; ``mesh`` may be a mapping
+    of axis sizes."""
+    out = list(shape)
+    for dim, axis in enumerate(spec):
+        for a in () if axis is None else axis if isinstance(axis, tuple) else (axis,):
+            out[dim] //= axis_size(mesh, a)
+    return tuple(out)
+
+
+def _host_staged(x: torch.Tensor, group) -> bool:
+    """gloo all-gathers and reduce-scatters host tensors only: a CUDA tensor
+    goes through the host (NCCL takes it as it is)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` concatenated along ``dim``, in rank
+    order (a mesh axis's group: coordinate order).  A collective call."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    if _host_staged(src, group):
+        src = src.cpu()
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.to(x.device).movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of the ranks' ``x`` of ``group``, cut into as many blocks
+    along ``dim`` as the group has ranks, this rank's block taken.  A
+    collective call."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    if _host_staged(src, group):
+        src = src.cpu()
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.to(x.device).movedim(0, dim).contiguous()
+
+
+class _DataGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # summed in float32, rounded once to the leaf's dtype
+        return reduce_scatter_dim(grad.float(), ctx.dim, ctx.group).to(grad.dtype), None, None
+
+
+def data_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """An FSDP leaf's whole block along ``dim`` from the data shards of
+    ``group`` (the mesh's data axis), gathered before use.  Under autograd
+    its backward is the reduce-scatter (sum) of the gradient, so the leaf's
+    gradient arrives already summed over the data axis; the sum is taken in
+    float32.  A collective call."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _DataGather.apply(x, dim, group)
+    return all_gather_dim(x, dim, group)
+
+
+@torch.no_grad()
+def gather_leaf(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's block under ``spec`` (``local_shard``'s
+    inverse), detached (``x`` itself, detached, where ``spec`` shards nothing
+    on this mesh).  A collective call."""
+    for dim, axis in enumerate(spec):
+        # local_shard numbers blocks outer axis first: gather the inner one first
+        for a in reversed(() if axis is None else axis if isinstance(axis, tuple) else (axis,)):
+            if axis_size(mesh, a) > 1:
+                x = all_gather_dim(x, dim, mesh.get_group(a))
+    return x.detach()
+
+
+def gather_params(local: Params, mesh, specs: Params) -> Params:
+    """The whole tree from every rank's local shards under ``specs``: the
+    inverse of ``shard_params``, every rank getting every leaf whole.  A
+    collective call."""
+    return map_specs(lambda spec, x, path: gather_leaf(x, spec, mesh), specs, local)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The axes the batch is split over (``batch_spec``): data, and replica
+    on a hybrid mesh."""
+    names = mesh.mesh_dim_names
+    return tuple(a for a in (AXIS_REPLICA, AXIS_DATA) if a in names)
 
 
 def shard_batch(tree, mesh):
@@ -358,8 +460,7 @@ def checksum(arrays) -> int:
 def check_agree(mesh, arrays, device, what: str) -> None:
     """Raise unless every rank of the mesh holds the same ``arrays`` (host
     numpy arrays): an all-reduce of their checksum and its negation, max,
-    over every axis (gloo has no all-gather of CUDA tensors).  A collective
-    call."""
+    over every axis.  A collective call."""
     crc = checksum(arrays)
     t = torch.tensor([crc, -crc], dtype=torch.int64, device=device)
     for name in mesh.mesh_dim_names:

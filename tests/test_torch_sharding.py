@@ -23,7 +23,9 @@ that dies fails the test and never hangs the run.
   columns byte for byte, scales included; the float shards concatenate to
   the full leaves.
 * The loss forward under a mesh equals the unsharded loss (rtol 1e-5, the
-  JAX test's: summation order), and a gradient under a mesh raises.
+  JAX test's: summation order), and so do its gradients: a rank's rows of
+  a row-parallel kernel, and two replicated leaves whose gradients pass
+  every model-axis sum (rtol 1e-5, atol 1e-7).
 * A two-rank ``ContinuousBatcher`` gives each lane (greedy, seeded, streamed)
   its solo codes; a follower that fails fails the waiting request and ends.
 * ``app --device cpu --tp 2 --continuous-batch`` serves the bytes that the
@@ -58,7 +60,15 @@ from dia_tts_prune_tpu_torch.checkpoint import params_from_jax
 from dia_tts_prune_tpu_torch.parallel import sharding as tsh
 from dia_tts_prune_tpu_torch.train import compute_loss
 from tests.test_sharding import _tp_config
-from tests.torch_tp_worker import PACKED, TEXT, TOKENS, loss_batch, tp_config, unpacked
+from tests.torch_tp_worker import (
+    PACKED,
+    TEXT,
+    TOKENS,
+    loss_batch,
+    loss_grads,
+    tp_config,
+    unpacked,
+)
 
 torch.set_num_threads(1)
 
@@ -167,6 +177,7 @@ def tp(tmp_path_factory):
                     for a, k in PACKED}
     with torch.no_grad():
         ref["loss"] = float(compute_loss(whole.params, whole.config, loss_batch(whole.config)))
+    ref["grads"] = loss_grads(whole.params, whole.config, loss_batch(whole.config))
     ref["solo"] = [whole.generate_codes(text, max_tokens=CB_TOKENS, temperature=t, seed=s)
                    for text, t, s in CB_REQUESTS]
     runs = {name: _finish(procs, out / name, "cbatch" if name == "cbatch" else "generate")
@@ -342,11 +353,18 @@ def test_float_shards_concatenate_to_the_whole(tp, name):
 
 @pytest.mark.parametrize("name", list(MESHES))
 def test_sharded_loss_forward_equals_unsharded(tp, name):
+    """The loss under the mesh, and its gradients: ``wo``'s (the rank's rows
+    of F) and two replicated leaves' (every rank's whole)."""
     runs, ref = tp
+    M = MESHES[name][1][1]
     for rank in runs[name]:
         np.testing.assert_allclose(rank["loss"], ref["loss"], rtol=1e-5)
-        assert rank["grad"].startswith("NotImplementedError: the model-axis all-reduce is "
-                                       "forward only")
+        m = rank["coord"][1]
+        for key, want in ref["grads"].items():
+            if key.endswith("wo.kernel"):
+                f = want.shape[1] // M
+                want = want[:, m * f:(m + 1) * f]
+            torch.testing.assert_close(rank["grads"][key], want, rtol=1e-5, atol=1e-7)
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,19 @@ Jobs:
 * ``generate`` — ``Dia.shard`` on a (data, model) mesh of ``ARGS["mesh"]``,
   then greedy codes of the float, int8 (int8 KV caches) and int4 (group 16,
   halfsplit) routes, each packed shard unpacked, a few float shards, the loss
-  forward under the mesh and the error of its gradient; with
+  forward under the mesh and its gradients (``loss_grads``); with
   ``ARGS["mesh_checks"]`` (4 ranks) the mesh shapes and errors, with
   ``ARGS["route_checks"]`` every route that must raise under a mesh.
 * ``cbatch`` — a two-rank ``ContinuousBatcher(mesh=)``: rank 0 submits a
   greedy, a seeded and a streamed request while rank 1 follows; then a
   second batcher whose follower fails at its first admission.
+* ``train`` — ``Trainer(mesh=)`` on each case of ``ARGS["cases"]``
+  (``TRAIN_CASES``: a mesh, a layout, a mode and its steps) from the fp32
+  weights ``ARGS["weights"]`` and the global batches ``ARGS["batches"]``:
+  the reduced gradients before the first step, every step's metrics, the
+  whole trained tree or adapter after them, the moments' shapes; a case
+  with ``save`` writes a checkpoint after its first step, one with
+  ``resume`` starts from a checkpoint.
 """
 
 from __future__ import annotations
@@ -120,6 +127,33 @@ def loss_batch(cfg):
             build_train_batch(cfg, text, codes).items()}
 
 
+GRAD_LEAVES = (("decoder", "layers", "mlp", "wo", "kernel"),
+               ("decoder", "layers", "pre_sa_norm", "scale"),
+               ("encoder", "embedding", "embedding"))
+
+
+def loss_grads(params, cfg, batch, group=None) -> dict:
+    """The gradients of the loss (the whole batch) with respect to
+    ``GRAD_LEAVES``: a row-parallel kernel (a rank's rows under a mesh) and
+    two replicated leaves upstream of every model-axis sum."""
+    from dia_tts_prune_tpu_torch.train import compute_loss
+
+    def swap(tree, path, leaf):  # a copy of the tree with the leaf at path replaced
+        if len(path) == 1:
+            return {**tree, path[0]: leaf}
+        return {**tree, path[0]: swap(tree[path[0]], path[1:], leaf)}
+
+    leaves = []
+    for path in GRAD_LEAVES:
+        node = params
+        for k in path:
+            node = node[k]
+        leaves.append(node.detach().requires_grad_(True))
+        params = swap(params, path, leaves[-1])
+    grads = torch.autograd.grad(compute_loss(params, cfg, batch, group=group), leaves)
+    return {".".join(p): g for p, g in zip(GRAD_LEAVES, grads)}
+
+
 def job_generate(rank: int, args: dict) -> dict:
     from dia_tts_prune_tpu_torch.train import compute_loss
 
@@ -137,10 +171,7 @@ def job_generate(rank: int, args: dict) -> dict:
             batch = loss_batch(dia.config)
             with torch.no_grad():
                 out["loss"] = float(compute_loss(dia.params, dia.config, batch, group=group))
-            wo = layers["mlp"]["wo"]["kernel"].requires_grad_(True)
-            out["grad"] = raises(lambda: compute_loss(dia.params, dia.config, batch,
-                                                      group=group).backward())
-            wo.requires_grad_(False)
+            out["grads"] = loss_grads(dia.params, dia.config, batch, group)
         elif route == "int8":
             dia.quantize_int8()
         else:
@@ -236,6 +267,89 @@ def job_cbatch(rank: int, args: dict) -> dict:
     return out
 
 
+# name: (mesh (data, model) or (replica, data, model), fsdp, TrainConfig fields, steps)
+TRAIN_CASES = {
+    "full_12": ((1, 2), False, {}, 1),
+    "full_21": ((2, 1), False, {}, 1),
+    "full_22": ((2, 2), False, {}, 1),
+    "fsdp_21": ((2, 1), True, {}, 2),
+    "fsdp_22": ((2, 2), True, {}, 1),
+    "hybrid_212": ((2, 1, 2), False, {}, 1),
+    "lora_12": ((1, 2), False, {"adapter_mode": "lora"}, 2),
+    "lora_22": ((2, 2), False, {"adapter_mode": "lora"}, 2),
+    "qat_12": ((1, 2), False, {"qat_mode": "int8"}, 1),
+    "accum_21": ((2, 1), False, {"gradient_accumulation_steps": 2}, 2),
+    "resume_12": ((1, 2), False, {}, 1),
+    "remat_12": ((1, 2), False, {"remat": True}, 1),
+    "one_11": ((1, 1), False, {"adapter_mode": "lora"}, 1),
+}
+LORA_TARGETS = ("q_proj", "v_proj", "o_proj", "wi_fused", "wo")
+
+
+def train_config(fields: dict):
+    """JAX's test_sharding TrainConfig (lr 3e-3, no remat, clip 1.0) with
+    ``fields``; LoRA on column and row-parallel targets."""
+    from dia_tts_prune_tpu_torch.lora import LoraConfig
+    from dia_tts_prune_tpu_torch.train import TrainConfig
+
+    kw = {"learning_rate": 3e-3, "remat": False, "max_grad_norm": 1.0,
+          "lora": LoraConfig(r=4, alpha=8.0, target_modules=LORA_TARGETS)}
+    return TrainConfig(**{**kw, **fields})
+
+
+def column_max_differs(params, mesh) -> bool:
+    """Whether some column of a row-parallel decoder kernel has its largest
+    |w| outside this rank's slice of K (so QAT needs the mesh-wide max)."""
+    import torch.distributed as dist
+
+    layers = params["decoder"]["layers"]
+    for kernel in (layers["mlp"]["wo"]["kernel"], layers["self_attention"]["o_proj"]["kernel"]):
+        local = kernel.abs().flatten(1, -2).amax(dim=1)  # [L, N]: o_proj [L, N, H, D] -> K = N*H
+        whole = local.clone()
+        dist.all_reduce(whole, op=dist.ReduceOp.MAX, group=sharding.model_group(mesh))
+        if bool((local != whole).any()):
+            return True
+    return False
+
+
+def job_train(rank: int, args: dict) -> dict:
+    from dia_tts_prune_tpu_torch.train import Trainer
+
+    weights = torch.load(args["weights"])
+    batches = [dict(np.load(b)) for b in args["batches"]]
+    out = {}
+    for name in args["cases"]:
+        shape, fsdp, fields, steps = TRAIN_CASES[name]
+        mesh = (sharding.make_mesh(replica=shape[0], data=shape[1], model=shape[2], device="cpu")
+                if len(shape) == 3 else sharding.make_mesh(*shape, device="cpu"))
+        cfg = tp_config()
+        local = sharding.shard_params(weights, mesh, config=cfg, fsdp=fsdp)
+        tr = Trainer(local, cfg, train_config(fields), 10, mesh=mesh)
+        rec = {"coord": mesh.get_coordinate()}
+        if name == "resume_12":
+            tr.restore(args["resume_from"])
+        loss, grads = tr.gradients(batches[0])
+        rec["grad_loss"] = loss
+        rec["replicated_grads"] = {n: g.clone() for n, g in grads.items()
+                                   if not tr.plan.leaves[n].axes}
+        rec["moment_shapes"] = {n: tuple(m.shape) for n, m in tr.optimizer.mu.items()}
+        rec["leaf_shapes"] = {n: tuple(p.shape) for n, p in tr.optimizer.leaves.items()}
+        if fields.get("qat_mode"):
+            rec["column_max_differs"] = column_max_differs(local, mesh)
+        lora = fields.get("adapter_mode") == "lora"
+        rec["metrics"] = []
+        for i in range(steps):
+            rec["metrics"].append(tr.step(batches[i % len(batches)]))
+            if i == 0 and args.get("save") == name:
+                tr.save(args["save_to"], step=1)
+            if i == 0 and not lora:
+                rec["first_step"] = tr.trained_params()
+        rec["adapter"] = tr.adapter()
+        rec["trained"] = None if lora else tr.trained_params()
+        out[name] = rec
+    return out
+
+
 def main() -> int:
     job, rank, world, init, out_dir, args = sys.argv[1:7]
     rank, world, args = int(rank), int(world), json.loads(args)
@@ -243,7 +357,8 @@ def main() -> int:
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
                             timeout=TIMEOUT)
     try:
-        result = {"job_generate": job_generate, "job_cbatch": job_cbatch}["job_" + job](rank, args)
+        result = {"job_generate": job_generate, "job_cbatch": job_cbatch,
+                  "job_train": job_train}["job_" + job](rank, args)
         torch.save(result, Path(out_dir) / f"{job}.rank{rank}.pt")
     except Exception:
         traceback.print_exc()
