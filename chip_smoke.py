@@ -8,7 +8,10 @@ script exits non-zero:
 
 1. build     — compile every CUDA kernel from ``dia_tts_prune_tpu_torch/csrc``
                and the planted-fault copies of the fused step (one nvcc per
-               source, all at once), and report the registers and spills of
+               source) and the native audio libraries of
+               ``dia_tts_prune_tpu_torch/native`` (one g++ each; the libav
+               shim where the FFmpeg libraries are), all at once, and report
+               g++'s seconds and the registers and spills of
                the flash, block-sparse, decode-attention, bf16 int8-matmul,
                int4-GEMV and fused-step kernels (``nvcc -Xptxas -v``);
 2. kernels   — each kernel against its plain PyTorch version at the main
@@ -134,11 +137,15 @@ script exits non-zero:
                equal to the original params' —; a model directory (a bf16
                ``pytorch_model.bin``) and a LoRA adapter; a FLAC voice
                prompt written and read back equal as 16-bit PCM; the
+               committed mp3 prompt (``tests/fixtures/torch_mp3_prompt``)
+               through the port's mp3dec within 1 LSB of its record; the
                generation CLI in a subprocess with ``--dac-checkpoint``,
-               ``--adapter-path`` and the FLAC ``--audio-prompt``, its FLAC
+               ``--adapter-path`` and the mp3 ``--audio-prompt``, its WAV
                within PCM_LSB_TOL of the same call made in process, flash
                and decode attention launched in it; the prompt cache (a
-               second ``load_audio`` encodes nothing); three ``datagen``
+               second ``load_audio`` of the FLAC and of the mp3 prompt
+               encodes nothing); where the libav shim built, .ogg and .mp3
+               outputs written and read back; three ``datagen``
                samples read back and encoded by ``data.FineTuneDataset``;
 8. speculative — speculative decoding at the same full width
                (``Dia.generate_codes(speculative=W, spec_draft_layers=Ld)``,
@@ -405,10 +412,16 @@ def ptxas_report(log: str) -> dict:
 
 def phase_build() -> dict:
     """Every kernel, and the planted-fault copies of the fused step (``FUSED_FAULTS``),
-    one nvcc each, all at once; returns {fault: library path}."""
+    one nvcc each, and the three native audio libraries, one g++ each, all at once;
+    returns {fault: library path}.  ``mp3dec`` and ``audioproc`` must build;
+    ``audiodec`` builds where the FFmpeg development libraries are, and the line
+    says whether it did."""
+    from dia_tts_prune_tpu_torch import native
     from dia_tts_prune_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
+    gxx = concurrent.futures.ThreadPoolExecutor(1)
+    host_libs = gxx.submit(native.build_all)  # g++ beside nvcc
     faults_dir = _build.BUILD_DIR / "faults"
     faults_dir.mkdir(parents=True, exist_ok=True)
     source = (_build.CSRC_DIR / "fused_step.cu").read_text()
@@ -428,12 +441,21 @@ def phase_build() -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"fault {name}: nvcc failed\n{log.decode(errors='replace')}")
+    native_libs = host_libs.result()
+    gxx.shutdown()
+    for name in ("audioproc", "mp3dec"):
+        if "error" in native_libs[name]:
+            raise RuntimeError(f"native lib{name}: {native_libs[name]['error']}")
+    audiodec_error = native_libs["audiodec"].pop("error", None)
+    if audiodec_error:  # the first lines of g++'s output say which header or library is missing
+        native_libs["audiodec"]["error"] = audiodec_error.splitlines()[:4]
     ptxas = {}
     for name in PTXAS_SOURCES:
         ptxas.update(ptxas_report(libs[name].pop("log")))
     emit({"phase": "build", "ok": True, "seconds": round(time.perf_counter() - t0, 3),
           "nvcc": _build.nvcc_path(), "libs": libs, "planted_faults": sorted(running),
-          "ptxas": ptxas})
+          "gxx": native.compiler(), "native_libs": native_libs,
+          "audiodec_built": audiodec_error is None, "ptxas": ptxas})
     return {name: lib for name, (_, lib) in running.items()}
 
 
@@ -3033,8 +3055,8 @@ def phase_cbatch(torch) -> dict:
     return rec
 
 
-# the voice prompt: a greedy run's whole waveform (~1.3 s).  The CLI's --max-tokens
-# counts the prompt's rows too, so a longer prompt would leave it fewer to generate
+# the FLAC voice prompt: a greedy run's whole waveform (~1.3 s).  The CLI's --max-tokens
+# counts the prompt's rows too: the 2 s mp3 prompt (173 rows) leaves it 83 to generate
 # the files phase's model: the seed weights' first FILES_LAYERS layers of each
 # stack, every width kept (cut from 12 + 18 for the script's time; what the
 # phase checks is files, not depth)
@@ -3044,6 +3066,11 @@ FILES_PROMPT_TEXT = "[S1] Dia is an open weights text to dialogue model."
 FILES_CLI_TEXT = "[S2] You get full control over scripts and voices. [S1] Wow. Amazing."
 FILES_CLI_TOKENS = 256
 FILES_DATAGEN = {"num_samples": 3, "max_tokens": 172}
+# the committed mp3 voice prompt (2 s, 44.1 kHz mono; tools/make_torch_mp3_fixture.py)
+# and its decode by the JAX package's mp3dec: int16 codes, float32 sha256, length, rate
+FILES_MP3 = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_mp3_prompt"
+FILES_MP3_TEXT = "[S1] A voice prompt as users send it, in mp3."
+MP3_LSB_TOL = 1  # the port's decode against the record, in 16-bit steps
 
 
 def _weight_norm_state_dict(torch, sd):
@@ -3078,21 +3105,28 @@ def phase_files(torch, tmp: Path) -> dict:
     in the reference key schema) and a LoRA adapter (``q_proj``,
     ``v_proj``, r = 8, seeded non-zero B); (3) a FLAC prompt, a 128-token
     greedy waveform, written by ``write_flac`` and read back equal as int16
-    PCM; (4) the generation CLI in a subprocess, as ``python -m`` runs it,
-    with ``--dac-checkpoint``, ``--adapter-path`` and the FLAC
-    ``--audio-prompt``: exit 0, its FLAC within PCM_LSB_TOL of the same call
-    made here (``from_pretrained(..., dac_checkpoint=...)``,
-    ``load_adapter_weights``, ``generate``), flash and decode attention
-    launched in it; (5) the prompt cache: a second ``load_audio`` of the
-    prompt encodes nothing and gives equal codes; (6) ``datagen``: three
-    samples that ``data.FineTuneDataset`` reads and encodes on the card.  The
-    directory is deleted when the phase ends."""
+    PCM; (3b) the committed mp3 prompt (``FILES_MP3``) decoded by the port's
+    mp3dec, built on this host: the recorded length and rate, within
+    MP3_LSB_TOL of the recorded int16 PCM at every sample, whether its
+    float32 sha256 is the recorded one, and its decode ms; (4) the
+    generation CLI in a subprocess, as ``python -m`` runs it, with
+    ``--dac-checkpoint``, ``--adapter-path`` and the mp3 ``--audio-prompt``:
+    exit 0, its WAV within PCM_LSB_TOL of the same call made here
+    (``from_pretrained(..., dac_checkpoint=...)``, ``load_adapter_weights``,
+    ``generate``), flash and decode attention launched in it; (5) the
+    prompt cache: a second ``load_audio`` of each prompt, FLAC and mp3,
+    encodes nothing and gives equal codes; (5b) whether the libav shim
+    built here, and only if it did, the FLAC prompt's waveform written as
+    .ogg and .mp3 and read back (rate, length, correlation); (6)
+    ``datagen``: three samples that ``data.FineTuneDataset`` reads and
+    encodes on the card.  The directory is deleted when the phase ends."""
+    import hashlib
     import os
 
     import numpy as np
 
     import dia_tts_prune_tpu_torch.api as api
-    from dia_tts_prune_tpu_torch import Dia, dia_1_6b_config
+    from dia_tts_prune_tpu_torch import Dia, dia_1_6b_config, native
     from dia_tts_prune_tpu_torch.checkpoint import to_torch_state_dict
     from dia_tts_prune_tpu_torch.data import FineTuneDataset
     from dia_tts_prune_tpu_torch.datagen import generate_dataset
@@ -3106,6 +3140,12 @@ def phase_files(torch, tmp: Path) -> dict:
         to_dac_torch_state_dict,
     )
     from dia_tts_prune_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from dia_tts_prune_tpu_torch.utils.audio_io import (
+        f32_to_pcm16,
+        read_audio,
+        read_wav,
+        write_audio,
+    )
     from dia_tts_prune_tpu_torch.utils.flac import read_flac, write_flac
 
     t0 = time.perf_counter()
@@ -3235,6 +3275,29 @@ def phase_files(torch, tmp: Path) -> dict:
     if not flac_equal:
         failures.append("flac")
 
+    # (3b) the committed mp3 prompt through the port's mp3dec, against its record
+    mp3 = FILES_MP3 / "prompt.mp3"
+    record = json.loads((FILES_MP3 / "decoded.json").read_text())
+    data = mp3.read_bytes()
+    decode_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        pcm, sr, bad = native.decode_mp3(data)
+        decode_ms.append(1e3 * (time.perf_counter() - t))
+    recorded = np.load(FILES_MP3 / "decoded.npz")["pcm16"].astype(np.int32)
+    ours = np.clip(np.round(pcm.astype(np.float64) * 32768.0), -32768, 32767).astype(np.int32)
+    lsb = int(np.abs(ours - recorded).max()) if ours.shape == recorded.shape else None
+    rec["mp3"] = {"bytes": len(data), "audio_s": pcm.shape[0] / sr, "length": int(pcm.shape[0]),
+                  "sample_rate": sr, "bad_frames": bad, "max_lsb_diff_record": lsb,
+                  "mp3_lsb_tol": MP3_LSB_TOL,
+                  "sha256_equal_record": hashlib.sha256(pcm.tobytes()).hexdigest()
+                  == record["sha256_float32"],
+                  "decode_ms": decode_ms, "decode_ms_median": float(np.median(decode_ms))}
+    emit({"phase": "files", "part": "mp3", "record": rec["mp3"]})
+    if (pcm.shape[0], sr, bad) != (record["length"], record["sample_rate"], 0) \
+            or lsb is None or lsb > MP3_LSB_TOL:
+        failures.append("mp3")
+
     # (5) the prompt cache: the first load_audio encodes, the second does not
     encodes = []
     real_encode = api.encode_audio
@@ -3244,28 +3307,51 @@ def phase_files(torch, tmp: Path) -> dict:
         return real_encode(*a, **kw)
 
     api.encode_audio = counted_encode
+    rec["cache"] = {}
     try:
-        timed = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            prompt_codes = dia.load_audio(prompt)
-            timed.append((time.perf_counter() - t, len(encodes), prompt_codes))
+        for name, path in (("flac", prompt), ("mp3", mp3)):
+            timed, before = [], len(encodes)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                prompt_codes = dia.load_audio(path)
+                timed.append((time.perf_counter() - t, len(encodes), prompt_codes))
+            rec["cache"][name] = {
+                "first_s": timed[0][0], "hit_s": timed[1][0],
+                "encodes": [timed[0][1] - before, timed[1][1] - timed[0][1]],
+                "prompt_frames": int(timed[0][2].shape[0]),
+                "hit_codes_equal": bool(np.array_equal(timed[0][2], timed[1][2]))}
     finally:
         api.encode_audio = real_encode
-    rec["cache"] = {"first_s": timed[0][0], "hit_s": timed[1][0],
-                    "encodes": [timed[0][1], timed[1][1] - timed[0][1]],
-                    "prompt_frames": int(timed[0][2].shape[0]),
-                    "hit_codes_equal": bool(np.array_equal(timed[0][2], timed[1][2]))}
     emit({"phase": "files", "part": "cache", "record": rec["cache"]})
-    if rec["cache"]["encodes"] != [1, 0] or not rec["cache"]["hit_codes_equal"]:
+    if any(c["encodes"] != [1, 0] or not c["hit_codes_equal"] for c in rec["cache"].values()):
         failures.append("cache")
 
+    # (5b) compressed outputs, where the libav shim built on this host
+    rec["compressed"] = {"audiodec_built": native.load_audiodec() is not None}
+    if rec["compressed"]["audiodec_built"]:
+        for ext in (".ogg", ".mp3"):
+            t = time.perf_counter()
+            write_audio(tmp / f"out{ext}", prompt_wav, dac_cfg.sample_rate)
+            write_s = time.perf_counter() - t
+            back, sr = read_audio(tmp / f"out{ext}")
+            n = min(back.shape[1], prompt_wav.shape[0])
+            corr = float(np.corrcoef(back[0, :n], np.clip(prompt_wav[:n], -1, 1))[0, 1])
+            rec["compressed"][ext] = {"bytes": (tmp / f"out{ext}").stat().st_size,
+                                      "write_s": write_s, "sample_rate": sr,
+                                      "length": int(back.shape[1]),
+                                      "input_length": int(prompt_wav.shape[0]),
+                                      "correlation": corr}
+            if sr != dac_cfg.sample_rate or back.shape[1] != prompt_wav.shape[0] \
+                    or not np.isfinite(back).all() or not corr > 0.5:
+                failures.append(f"compressed {ext}")
+    emit({"phase": "files", "part": "compressed", "record": rec["compressed"]})
+
     # (4) the CLI as users run it, in a subprocess, and the same call here
-    out = tmp / "out.flac"
+    out = tmp / "out.wav"
     cli_args = [FILES_CLI_TEXT, "--output", str(out), "--model-path", str(model_dir),
                 "--dac-checkpoint", str(pth), "--adapter-path", str(adapter_dir),
-                "--audio-prompt", str(prompt), "--audio-prompt-text", FILES_PROMPT_TEXT,
+                "--audio-prompt", str(mp3), "--audio-prompt-text", FILES_MP3_TEXT,
                 "--max-tokens", str(FILES_CLI_TOKENS), "--seed", "7",
                 "--compute-dtype", "bfloat16"]
     # ``python -m dia_tts_prune_tpu_torch.cli ARGS``, run by runpy as -m runs
@@ -3287,16 +3373,17 @@ def phase_files(torch, tmp: Path) -> dict:
                      if line.startswith("LAUNCHES ")), {})
     dia.load_adapter_weights(adapter_dir)
     reset_launch_counts()
-    ref = dia.generate(FILES_CLI_TEXT, max_tokens=FILES_CLI_TOKENS, audio_prompt=str(prompt),
-                       audio_prompt_text=FILES_PROMPT_TEXT, seed=7)
+    ref = dia.generate(FILES_CLI_TEXT, max_tokens=FILES_CLI_TOKENS, audio_prompt=str(mp3),
+                       audio_prompt_text=FILES_MP3_TEXT, seed=7)
     in_process_launches = launch_counts()
     lsb = None
-    if proc.returncode == 0 and out.exists():
-        got, sr = read_flac(out)
+    if proc.returncode == 0 and out.exists() and ref is not None:
+        got, sr = read_wav(out)
         got16 = np.round(got[0] * 32768.0).astype(np.int32)
-        want16 = np.round(np.clip(ref, -1, 1) * 32767.0).astype(np.int32)
+        want16 = f32_to_pcm16(ref).astype(np.int32)
         lsb = int(np.abs(got16 - want16).max()) if got16.shape == want16.shape else None
-    rec["cli"] = {"rc": proc.returncode, "wall_s": cli_s, "max_lsb_diff_in_process": lsb,
+    rec["cli"] = {"rc": proc.returncode, "prompt": "mp3", "wall_s": cli_s,
+                  "max_lsb_diff_in_process": lsb,
                   "audio_s": None if ref is None else ref.shape[0] / dac_cfg.sample_rate,
                   "launches": launched, "in_process_launches": in_process_launches,
                   "stderr_tail": proc.stderr[-1500:] if proc.returncode else ""}
@@ -3337,7 +3424,7 @@ def phase_files(torch, tmp: Path) -> dict:
     emit({k: v for k, v in rec.items() if k in ("phase", "config", "write", "seconds")})
     if failures:
         raise RuntimeError(f"files: {failures} failed: "
-                           f"{ {k: rec.get(k) for k in ('dac', 'flac', 'cache', 'cli', 'datagen')} }")
+                           f"{ {k: rec.get(k) for k in ('dac', 'flac', 'mp3', 'cache', 'compressed', 'cli', 'datagen')} }")
     return rec
 
 
@@ -4824,7 +4911,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
             phase_tp(torch, Path(tmp))
         lap("tp")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0] if smi else "nvidia-smi: no card listed"
     if only:
+        print(card, flush=True)
         print(f"# chip_smoke partial run {sorted(only)}: {time.perf_counter() - t0:.1f} s",
               file=sys.stderr)
         return 0
@@ -4862,9 +4953,7 @@ def main() -> int:
                  f"{' density %.3f' % rec['density'] if 'density' in rec else ''}".strip(),
          "path": path}
         for name, pick, path, replaces in lines for rec in (picked[pick],)]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0] if smi else "nvidia-smi: no card listed", flush=True)
+    print(card, flush=True)
     print(f"# chip_smoke total {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,11 +4,13 @@ reference: dia/model.py:101-846).
 ``Dia.from_pretrained(local_dir)`` / ``Dia.from_local(config, checkpoint)``
 (each with an optional torch DAC checkpoint, ``dac_checkpoint=``) /
 ``Dia.random_init(config, seed)``, ``generate_codes(text)`` → codec tokens,
-``generate(text)`` → waveform and ``save_audio`` (16-bit PCM WAV or FLAC, by
-extension); ``quantize_int8()`` / ``quantize_int4()`` switch the decoder to
-packed weights before generating; ``load_audio`` turns a WAV or FLAC file
-into codec tokens (voice-cloning prompts, fine-tuning data), keeping the
-last 16 encodings; ``load_dac`` loads a published torch DAC checkpoint;
+``generate(text)`` → waveform and ``save_audio`` (16-bit PCM WAV, FLAC, or
+mp3 / ogg / opus / m4a / aac through the libav shim, by extension);
+``quantize_int8()`` / ``quantize_int4()`` switch the decoder to packed weights
+before generating; ``load_audio`` turns a WAV, FLAC or mp3 file (or ogg, m4a,
+… where the system FFmpeg libraries are) into codec tokens (voice-cloning
+prompts, fine-tuning data), keeping the last 16 encodings; ``load_dac`` loads
+a published torch DAC checkpoint;
 ``prune_block_sparse()`` / ``sparsify_block()`` swap the decoder to
 block-sparse kernels (pruned blocks are never read); ``generate_batch``
 decodes N texts in one loop;
@@ -298,7 +300,7 @@ class Dia:
                  seed: int | None = None, verbose: bool = False, speculative: bool | int = False,
                  spec_draft_layers: int | None = None) -> np.ndarray | None:
         """Text → waveform (float32 [T_audio]), None when nothing was generated.
-        ``audio_prompt`` is a WAV or FLAC path (encoded by ``load_audio``) or
+        ``audio_prompt`` is an audio file's path (encoded by ``load_audio``) or
         a pre-encoded [T, C] code array; ``speculative`` as in
         ``generate_codes``."""
         if isinstance(audio_prompt, (str, Path)):
@@ -460,8 +462,10 @@ class Dia:
         return sparsity_summary(self.params)
 
     def load_audio(self, audio_path: str | Path) -> np.ndarray:
-        """WAV or FLAC file → DAC codes int32 [T_codes, C] (reference:
-        dia/model.py:546-576): mono, resampled to the codec's rate, padded to a
+        """Audio file → DAC codes int32 [T_codes, C] (reference:
+        dia/model.py:546-576): read by ``read_audio`` (WAV, FLAC, mp3; ogg,
+        m4a, … through the FFmpeg libraries), mono, resampled to the codec's
+        rate, padded to a
         hop multiple, encoded on this model's device.
 
         The last ``AUDIO_CACHE`` encodings are kept, keyed by (resolved path,
@@ -546,6 +550,7 @@ class Dia:
 
     def save_audio(self, path: str | Path, audio: np.ndarray | None,
                    sample_rate: int = DEFAULT_SAMPLE_RATE) -> None:
-        """Waveform → file by extension: .wav or .flac (``write_audio``)."""
+        """Waveform → file by extension (``write_audio``): .wav, .flac, or
+        .mp3 / .ogg / .opus / .m4a / .aac through the libav shim."""
         if audio is not None:
             write_audio(path, audio, sample_rate)

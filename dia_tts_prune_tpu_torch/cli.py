@@ -4,9 +4,10 @@ reference: cli.py:35-233).
 Flag-compatible with the JAX CLI: text + ``--output``, model loading
 (``--model-path`` / ``--config`` / ``--pruned-checkpoint`` /
 ``--adapter-path``, the codec from ``--dac-checkpoint`` / ``--dac-config``),
-voice cloning (``--audio-prompt`` / ``--audio-prompt-text``, WAV or FLAC),
-sampling parameters, dtype, seeding.  Runs on CUDA unless ``--device cpu``
-is given; the output's extension picks WAV or FLAC.
+voice cloning (``--audio-prompt`` / ``--audio-prompt-text``: WAV, FLAC, mp3,
+or ogg / m4a / … where the system FFmpeg libraries are), sampling parameters,
+dtype, seeding.  Runs on CUDA unless ``--device cpu`` is given; the output's
+extension picks the format (``utils/audio_io.py::write_audio``).
 
 Run: ``python -m dia_tts_prune_tpu_torch.cli "[S1] Hello." --output out.wav
 --model-path DIR`` where DIR holds config.json and model.safetensors (or
@@ -27,7 +28,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("text", type=str,
                         help="Input text to generate (not the prompt transcript).")
     parser.add_argument("--output", type=str, required=True,
-                        help="Output audio path (.wav or .flac).")
+                        help="Output audio path (.wav, .flac; .mp3, .ogg, .opus, .m4a, "
+                             ".aac through the system FFmpeg libraries).")
 
     model_group = parser.add_argument_group("Model Loading")
     model_group.add_argument("--model-path", type=str, default="nari-labs/Dia-1.6B",
@@ -47,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     prompt_group = parser.add_argument_group("Audio Prompting (Voice Cloning)")
     prompt_group.add_argument("--audio-prompt", type=str, default=None,
-                              help="Audio prompt (WAV or FLAC) for voice cloning "
+                              help="Audio prompt (WAV, FLAC, mp3; ogg, m4a, ... through "
+                                   "the system FFmpeg libraries) for voice cloning "
                                    "(5-10 s recommended).")
     prompt_group.add_argument("--audio-prompt-text", type=str, default=None,
                               help="Required: exact transcript of --audio-prompt.")

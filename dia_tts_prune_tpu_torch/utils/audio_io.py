@@ -2,12 +2,13 @@
 
 The reference uses torchaudio + soundfile (dia/model.py:546-595).  Here WAV
 files are read and written with the stdlib ``wave`` module (8/16/24/32-bit
-PCM in, 16-bit PCM out), FLAC with the in-repo codec (``utils/flac.py``),
-resampled with scipy's polyphase filter and sped up or slowed down by linear
-interpolation (``speed_change``) — host work, no kernel.  mp3, ogg and m4a
-need the JAX package's native codec shim, which is not ported: reading or
-writing them raises a ``ValueError`` that says so.  The optional
-``soundfile`` and ``ffmpeg`` readers are not ported either.
+PCM in, 16-bit PCM out), FLAC with the in-repo codec (``utils/flac.py``), mp3
+with the in-repo decoder (``native/mp3dec.cpp``), and ogg, m4a, aac, opus
+and the like, in and out, through the shim over the system FFmpeg libraries
+(``native/audiodec.cpp``), where they exist.  Audio is resampled with
+scipy's polyphase filter and sped up or slowed down by linear interpolation
+(``speed_change``) — host work, no kernel.  The JAX package's optional
+``soundfile`` and ``ffmpeg``-binary readers are not ported.
 """
 
 from __future__ import annotations
@@ -21,17 +22,30 @@ import numpy as np
 DEFAULT_SAMPLE_RATE = 44100
 
 
+def f32_to_pcm16(audio: np.ndarray) -> np.ndarray:
+    """Float audio → int16 codes, as ``native.f32_to_pcm16`` (and the JAX
+    ``write_wav`` with its native library) computes them, bit for bit:
+    clipped to [-1, 1], ``v * 32767`` in float32, then 0.5 added (or
+    subtracted, below zero) in float32 and truncated — halves round away
+    from zero."""
+    v = np.clip(np.asarray(audio, np.float32), np.float32(-1.0), np.float32(1.0))
+    scaled = v * np.float32(32767.0)
+    half = np.where(scaled >= 0, np.float32(0.5), np.float32(-0.5)).astype(np.float32)
+    return np.trunc(scaled + half).astype(np.int16)
+
+
 def write_wav(path: str | Path, audio: np.ndarray,
               sample_rate: int = DEFAULT_SAMPLE_RATE) -> None:
     """Mono or [C, T] float audio → 16-bit PCM WAV, clipped to [-1, 1]
-    (reference save path semantics: dia/model.py:578-595); integer samples
-    are scaled by their type's maximum first."""
+    (reference save path semantics: dia/model.py:578-595) and rounded as
+    ``f32_to_pcm16``; integer samples are scaled by their type's maximum
+    first."""
     audio = np.asarray(audio)
     if audio.ndim == 1:
         audio = audio[None, :]
     if not np.issubdtype(audio.dtype, np.floating):
         audio = audio.astype(np.float32) / np.iinfo(audio.dtype).max
-    pcm = np.round(np.clip(audio, -1.0, 1.0).T * 32767.0).astype("<i2")  # [T, C]
+    pcm = f32_to_pcm16(audio.T).astype("<i2")  # [T, C]
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     with wave.open(str(path), "wb") as f:
         f.setnchannels(pcm.shape[1])
@@ -65,10 +79,50 @@ def read_wav(path: str | Path) -> tuple[np.ndarray, int]:
     return data.reshape(-1, n_channels).T, rate  # [C, T]
 
 
+def looks_like_mp3(head: bytes, suffix: str) -> bool:
+    """An ``ID3`` tag, a Layer III frame header (sync ``0xFF`` ``0xE?``, any
+    MPEG version, layer bits ``01``, with or without CRC), or the ``.mp3``
+    suffix."""
+    frame = len(head) >= 2 and head[0] == 0xFF and (head[1] & 0xE0) == 0xE0 \
+        and (head[1] >> 1) & 3 == 1
+    return frame or head[:3] == b"ID3" or suffix.lower() == ".mp3"
+
+
+def _read_via_mp3dec(path: Path) -> "tuple[np.ndarray, int] | None":
+    """The in-repo mp3 decoder (``native/mp3dec.cpp``), for what looks like
+    mp3; None for anything else and for a stream with bad frames, which goes
+    on to libav for a second opinion (the JAX ``_read_via_mp3dec``)."""
+    data = path.read_bytes()
+    if not looks_like_mp3(data[:4], path.suffix):
+        return None
+    from .. import native
+
+    got = native.decode_mp3(data)
+    if got is None:
+        return None
+    pcm, rate, bad = got
+    if bad > 0:
+        return None
+    return (pcm[None, :] if pcm.ndim == 1 else pcm.T), rate
+
+
+def _read_via_libav(path: Path) -> "tuple[np.ndarray, int] | None":
+    """The system FFmpeg libraries through ``native/audiodec.cpp``; None when
+    they are missing or cannot read the file."""
+    from .. import native
+
+    got = native.decode_audio_file(path)
+    if got is None:
+        return None
+    pcm, rate = got
+    return (pcm[None, :] if pcm.ndim == 1 else pcm.T), rate
+
+
 def read_audio(path: str | Path) -> tuple[np.ndarray, int]:
-    """Read an audio file → (float32 [C, T] in [-1, 1], sample_rate), by its
-    magic bytes as the JAX ``read_audio`` (:153-187): ``RIFF`` is WAV,
-    ``fLaC`` is FLAC; anything else raises."""
+    """Read an audio file → (float32 [C, T] in [-1, 1], sample_rate), as the
+    JAX ``read_audio`` (:153-187): ``RIFF`` is WAV, ``fLaC`` is FLAC, then the
+    in-repo mp3 decoder, then libav.  Raises a ValueError naming the formats
+    when no decoder can read the file."""
     p = Path(path)
     with p.open("rb") as f:
         head = f.read(4)
@@ -78,10 +132,15 @@ def read_audio(path: str | Path) -> tuple[np.ndarray, int]:
         from .flac import read_flac
 
         return read_flac(p)
+    for reader in (_read_via_mp3dec, _read_via_libav):
+        got = reader(p)
+        if got is not None:
+            return got
     suffix = p.suffix or "<no extension>"
-    raise ValueError(f"Unsupported audio format {suffix!r} for {p}: this package reads WAV and "
-                     "FLAC; mp3, ogg and m4a wait for the native codec shim, which is not "
-                     "ported. Convert the file to .wav or .flac.")
+    raise ValueError(
+        f"Unsupported audio format {suffix!r} for {p}: WAV, FLAC and mp3 decode natively; "
+        f"other formats (ogg, m4a, …) require the system FFmpeg libraries, which are not "
+        f"available or cannot read this file. Convert the prompt to .wav or .flac.")
 
 
 def to_mono(audio_CxT: np.ndarray) -> np.ndarray:
@@ -126,9 +185,10 @@ def speed_change(audio: np.ndarray, speed_factor: float) -> np.ndarray:
 def write_audio(path: str | Path, audio: np.ndarray,
                 sample_rate: int = DEFAULT_SAMPLE_RATE) -> None:
     """Write audio by extension (the JAX ``write_audio``, :229-260): .wav
-    (or none) as 16-bit PCM WAV, .flac with the in-repo codec.  .mp3, .ogg,
-    .opus, .m4a and .aac need the native codec shim, which is not ported;
-    they raise, as any other extension does."""
+    (or none) as 16-bit PCM WAV, .flac with the in-repo codec, .mp3, .ogg,
+    .opus, .m4a and .aac through the libav shim (``native.encode_audio``).
+    A failed encode raises a ValueError naming the codec and rate (libopus
+    refuses 44.1 kHz, for one); any other extension raises too."""
     p = Path(path)
     ext = p.suffix.lower()
     if ext in ("", ".wav"):
@@ -140,6 +200,18 @@ def write_audio(path: str | Path, audio: np.ndarray,
         write_flac(p, np.asarray(audio), sample_rate)
         return
     if ext in (".mp3", ".ogg", ".opus", ".m4a", ".aac"):
-        raise ValueError(f"{ext} export needs the native codec shim, which this package does "
-                         f"not have; write {p.stem}.wav or {p.stem}.flac instead")
-    raise ValueError(f"Unsupported audio output format {ext!r}: use .wav or .flac")
+        from .. import native
+
+        a = np.asarray(audio, np.float32)
+        if a.ndim == 2 and a.shape[0] in (1, 2) and a.shape[0] < a.shape[1]:
+            a = a.T  # [C, T] -> [T, C]
+        p.parent.mkdir(parents=True, exist_ok=True)
+        if native.encode_audio(p, np.clip(a, -1.0, 1.0), sample_rate):
+            return
+        why = ("the shim did not build: it needs the system FFmpeg libraries"
+               if native.load_audiodec() is None else "the encoder refused it")
+        raise ValueError(f"{ext} export failed: the libav shim (native/audiodec.cpp) could not "
+                         f"encode {ext} at {sample_rate} Hz ({why}); write {p.stem}.wav or "
+                         f"{p.stem}.flac instead")
+    raise ValueError(f"Unsupported audio output format {ext!r}: use .wav, .flac, .mp3, "
+                     ".ogg, .opus or .m4a")

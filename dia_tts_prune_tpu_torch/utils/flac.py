@@ -4,9 +4,11 @@ only, no kernel).
 
 The reference loads voice-clone prompts through torchaudio, which decodes any
 libsox/ffmpeg format (dia/model.py:551-559).  The port depends on neither
-torchaudio, soundfile nor ffmpeg, so compressed prompts need an in-repo
-decoder: FLAC is the one lossless, fully-specified format that is practical
-to implement exactly.
+torchaudio nor soundfile: mp3 decodes with the in-repo ``native/mp3dec.cpp``,
+other compressed formats through the system FFmpeg libraries
+(``native/audiodec.cpp``) where they exist, and FLAC, the one lossless,
+fully-specified format that is practical to implement exactly, here in
+numpy.
 
 * ``read_flac`` is a complete subset decoder: STREAMINFO parsing, frame
   headers (fixed + variable blocking), all four subframe types (CONSTANT,

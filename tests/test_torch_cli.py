@@ -2,9 +2,10 @@
 the JAX CLI's whole flag surface, on the CPU: the four tests of
 tests/test_cli.py (generate, the pruned-checkpoint path, the missing prompt
 transcript, the missing model) against a tiny local model directory with a
-torch DAC checkpoint, then ``--adapter-path`` and a FLAC ``--audio-prompt``
-against the same calls made in process, the port's output against the JAX
-CLI's on ``tests/fixtures/trained_small``, and ``--dac-checkpoint`` on the
+torch DAC checkpoint, then ``--adapter-path``, a FLAC ``--audio-prompt`` and
+an mp3 ``--audio-prompt`` with an mp3 ``--output`` against the same calls
+made in process, the port's output against the JAX CLI's on
+``tests/fixtures/trained_small``, and ``--dac-checkpoint`` on the
 ``finetune`` and ``app`` CLIs.
 """
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from dia_tts_prune_tpu_torch import Dia, tiny_test_config
+from dia_tts_prune_tpu_torch import Dia, native, tiny_test_config
 from dia_tts_prune_tpu_torch import api as tapi
 from dia_tts_prune_tpu_torch.checkpoint import to_torch_state_dict
 from dia_tts_prune_tpu_torch.cli import main
@@ -27,7 +28,7 @@ from dia_tts_prune_tpu_torch.models.dac import (
     init_dac_params,
     to_dac_torch_state_dict,
 )
-from dia_tts_prune_tpu_torch.utils.audio_io import read_audio
+from dia_tts_prune_tpu_torch.utils.audio_io import f32_to_pcm16, read_audio, write_audio
 from dia_tts_prune_tpu_torch.utils.flac import write_flac
 
 # Several pytest workers run at once: one intra-op thread each keeps torch's
@@ -64,6 +65,15 @@ def _codec(d):
             "--dac-config", str(d.parent / "dac_config.json")]
 
 
+def _stored(wav, out):
+    """``wav`` as the writer of ``out``'s format stores it, read back as
+    floats: WAV rounds halves away from zero (``f32_to_pcm16``), FLAC to
+    even (``utils/flac.py``), as in the JAX package."""
+    if Path(out).suffix == ".flac":
+        return np.round(np.clip(wav, -1, 1) * 32767) / 32768.0
+    return f32_to_pcm16(wav) / 32768.0
+
+
 def _in_process(d, text, adapter=None, **kw):
     """The CLI's call made in this process: its waveform."""
     dia = Dia.from_pretrained(d, dac_checkpoint=d.parent / "dac.pth",
@@ -83,7 +93,7 @@ def test_cli_generate(model_dir, tmp_path, name):
     got, sr = read_audio(out)
     want = _in_process(model_dir, "[S1] CLI end to end.", max_tokens=48)
     assert sr == 44100 and got.shape == (1, want.shape[0])
-    np.testing.assert_array_equal(got[0], np.round(np.clip(want, -1, 1) * 32767) / 32768.0)
+    np.testing.assert_array_equal(got[0], _stored(want, out))
 
 
 def test_cli_pruned_checkpoint_path(model_dir, tmp_path):
@@ -139,7 +149,7 @@ def test_cli_adapter_path(model_dir, tmp_path):
     want = _in_process(model_dir, "[S1] With an adapter.", adapter=tmp_path / "adapter",
                        max_tokens=40)
     plain = _in_process(model_dir, "[S1] With an adapter.", max_tokens=40)
-    np.testing.assert_array_equal(got[0], np.round(np.clip(want, -1, 1) * 32767) / 32768.0)
+    np.testing.assert_array_equal(got[0], _stored(want, out))
     assert want.shape != plain.shape or not np.array_equal(want, plain)
 
 
@@ -157,7 +167,32 @@ def test_cli_flac_audio_prompt(model_dir, tmp_path):
     got, _ = read_audio(out)
     want = _in_process(model_dir, "[S2] More.", max_tokens=96, audio_prompt=prompt,
                        audio_prompt_text="[S1] Hello.")
-    np.testing.assert_array_equal(got[0], np.round(np.clip(want, -1, 1) * 32767) / 32768.0)
+    np.testing.assert_array_equal(got[0], _stored(want, out))
+
+
+def test_cli_mp3_audio_prompt_and_output(model_dir, tmp_path):
+    """``--audio-prompt x.mp3 --output y.mp3``: exit 0, and the file reads
+    back as the in-process waveform written by ``write_audio`` and read back
+    (libmp3lame is deterministic)."""
+    if native.load_audiodec() is None:
+        pytest.skip("mp3 output needs the libav shim (the system FFmpeg libraries)")
+    prompt = tmp_path / "prompt.mp3"
+    rng = np.random.default_rng(7)
+    assert native.encode_mp3(prompt, (rng.normal(size=24 * TINY_DAC.hop_length) * 0.2).astype(
+        np.float32), 44100)
+    out = tmp_path / "cloned.mp3"
+    rc = main(["[S2] More.", "--output", str(out), "--model-path", str(model_dir),
+               *_codec(model_dir), "--audio-prompt", str(prompt),
+               "--audio-prompt-text", "[S1] Hello.", "--temperature", "0.0",
+               "--max-tokens", "96", *CPU])
+    assert rc == 0
+    got, sr = read_audio(out)
+    want = _in_process(model_dir, "[S2] More.", max_tokens=96, audio_prompt=prompt,
+                       audio_prompt_text="[S1] Hello.")
+    write_audio(tmp_path / "in_process.mp3", want, 44100)
+    ref, rsr = read_audio(tmp_path / "in_process.mp3")
+    assert sr == rsr == 44100 and got.shape == ref.shape == (1, want.shape[0])
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_cli_output_equals_jax_cli(tmp_path):

@@ -27,13 +27,14 @@ from dia_tts_prune_tpu.api import load_dac_config as jax_load_dac_config
 from dia_tts_prune_tpu.config import DiaConfig as JaxDiaConfig
 from dia_tts_prune_tpu.models import dac as jdac
 from dia_tts_prune_tpu.utils import audio_io as jaudio
-from dia_tts_prune_tpu_torch import Dia
+from dia_tts_prune_tpu_torch import Dia, native
 from dia_tts_prune_tpu_torch import checkpoint as tckpt
 from dia_tts_prune_tpu_torch import data as tdata
 from dia_tts_prune_tpu_torch.api import write_wav
 from dia_tts_prune_tpu_torch.models import dac as tdac
 from dia_tts_prune_tpu_torch.utils import audio_io as taudio
 from dia_tts_prune_tpu_torch.utils.prefetch import prefetch
+from tests.torch_native_support import jax_native
 
 # Several pytest workers run at once: one intra-op thread each keeps torch's
 # thread pools from spinning on each other's cores (these tensors are tiny).
@@ -127,10 +128,31 @@ def test_load_audio_mono_equals_jax(tmp_path, width, channels, rate):
 
 
 def test_other_formats_raise(tmp_path):
-    p = tmp_path / "x.ogg"  # WAV and FLAC read (tests/test_torch_files.py); ogg does not
+    p = tmp_path / "x.ogg"  # an Ogg page header and nothing after it: no decoder reads it
     p.write_bytes(b"OggS" + bytes(40))
-    with pytest.raises(ValueError, match="reads WAV and FLAC"):
+    with pytest.raises(ValueError, match="WAV, FLAC and mp3 decode natively"):
         taudio.load_audio_mono(p)
+
+
+def test_finetune_dataset_mp3_and_ogg_items_equal_jax(codecs, tmp_path):
+    """A manifest with an mp3 item (the in-repo decoder in both packages) and
+    an ogg item (the libav shim in both): the port's batches equal the JAX
+    dataset's."""
+    if native.load_audiodec() is None or jax_native(audiodec=True) is None:
+        pytest.skip("the libav shim needs the system FFmpeg libraries")
+    jcfg, jparams, dia = codecs
+    (tmp_path / "wavs").mkdir()
+    for name, seed, n in (("a0.mp3", 30, 9000), ("a1.ogg", 31, 7001)):
+        assert native.encode_audio(tmp_path / "wavs" / name, _wave(seed, n), 44100)
+    (tmp_path / "metadata.csv").write_text("a0.mp3|[S1] Hello there.\na1.ogg|[S2] Hi.\n")
+    jds = jdata.FineTuneDataset(tmp_path / "metadata.csv", tmp_path / "wavs",
+                                JaxDiaConfig.load(SMALL / "config.json"), jparams, jcfg)
+    tds = tdata.FineTuneDataset(tmp_path / "metadata.csv", tmp_path / "wavs", dia.config,
+                                dia.dac_params, dia.dac_config)
+    jb, tb = list(jds.batches(2, shuffle=False)), list(tds.batches(2, shuffle=False))
+    assert len(tb) == len(jb) == 1 and tb[0]["text_ids"].shape[0] == 2
+    for key in jb[0]:
+        np.testing.assert_array_equal(tb[0][key], jb[0][key], err_msg=key)
 
 
 @pytest.fixture(scope="module")

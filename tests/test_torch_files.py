@@ -1,6 +1,8 @@
 """The files around the model, port against the JAX package (CPU): FLAC in and
-out, ``read_audio`` / ``write_audio``, torch DAC checkpoints, ``Dia.load_dac``
-and the constructors' codec options, the prompt cache, ``Dia.random_init``.
+out, ``read_audio`` / ``write_audio`` (mp3 through the in-repo decoder, ogg,
+m4a and aac through the libav shim), torch DAC checkpoints, ``Dia.load_dac``
+and the constructors' codec options, the prompt cache, an mp3 voice prompt's
+greedy codes, ``Dia.random_init``.
 
 * FLAC is numpy on both sides and deterministic (VERBATIM subframes), so the
   port's bytes and decoded samples equal the JAX package's exactly.
@@ -29,18 +31,20 @@ from dia_tts_prune_tpu.config import tiny_test_config as jax_tiny_config
 from dia_tts_prune_tpu.models import dac as jdac
 from dia_tts_prune_tpu.utils import audio_io as jaudio
 from dia_tts_prune_tpu.utils import flac as jflac
-from dia_tts_prune_tpu_torch import Dia, tiny_test_config
+from dia_tts_prune_tpu_torch import Dia, native, tiny_test_config
 from dia_tts_prune_tpu_torch import api as tapi
 from dia_tts_prune_tpu_torch.checkpoint import to_torch_state_dict
 from dia_tts_prune_tpu_torch.models import dac as tdac
 from dia_tts_prune_tpu_torch.utils import audio_io as taudio
 from dia_tts_prune_tpu_torch.utils import flac as tflac
+from tests.torch_native_support import jax_native
 
 # Several pytest workers run at once: one intra-op thread each keeps torch's
 # thread pools from spinning on each other's cores (these tensors are tiny).
 torch.set_num_threads(1)
 
 SMALL = Path(__file__).parent / "fixtures" / "trained_small"
+MP3_PROMPT = Path(__file__).parent / "fixtures" / "torch_mp3_prompt" / "prompt.mp3"
 # the tiny codec of tests/test_audio_io.py:237-239 (and of the trained fixtures)
 TINY_DAC = dict(encoder_dim=8, encoder_rates=(2, 4), decoder_dim=32, decoder_rates=(4, 2),
                 n_codebooks=9, codebook_size=1024, codebook_dim=4)
@@ -77,7 +81,7 @@ def test_read_flac_equals_jax(tmp_path, channels, n, block):
     want, jsr = jflac.read_flac(p)
     assert sr == jsr == 44100 and got.shape == (channels, n) and got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    pcm = np.round(np.clip(audio, -1, 1) * 32767.0).astype(np.int16)
+    pcm = np.round(np.clip(audio, -1, 1) * 32767.0).astype(np.int16)  # FLAC: half to even
     np.testing.assert_array_equal(np.round(got * 32768.0).astype(np.int16).reshape(pcm.shape),
                                   pcm)
 
@@ -151,9 +155,14 @@ def test_read_audio_dispatches_and_names_the_formats(tmp_path):
         want, jsr = jaudio.read_audio(tmp_path / name)
         assert sr == jsr == 16000
         np.testing.assert_array_equal(got, want)
-    (tmp_path / "x.mp3").write_bytes(b"\xff\xfb\x90\x00" + b"\x00" * 64)
-    with pytest.raises(ValueError, match=r"WAV and FLAC.*mp3, ogg and m4a.*native"):
-        taudio.read_audio(tmp_path / "x.mp3")
+    assert jax_native() is not None
+    got, sr = taudio.read_audio(MP3_PROMPT)  # the in-repo mp3 decoder in both packages
+    want, jsr = jaudio.read_audio(MP3_PROMPT)
+    assert sr == jsr == 44100 and got.shape == want.shape == (1, 88200)
+    np.testing.assert_array_equal(got, want)
+    (tmp_path / "x.ogg").write_bytes(b"OggS" + bytes(60))  # no decoder reads it
+    with pytest.raises(ValueError, match=r"WAV, FLAC and mp3 decode natively.*FFmpeg"):
+        taudio.read_audio(tmp_path / "x.ogg")
 
 
 @pytest.mark.parametrize("ext", [".wav", ".flac", ""])
@@ -165,15 +174,37 @@ def test_write_audio_round_trips(tmp_path, ext):
     want, jsr = jaudio.read_audio(p)
     assert sr == jsr == 24000
     np.testing.assert_array_equal(got, want)
-    pcm = np.round(np.clip(audio, -1, 1) * 32767.0).astype(np.int16)
+    # WAV: halves away from zero (native f32_to_pcm16); FLAC: half to even, in both packages
+    pcm = (np.round(np.clip(audio, -1, 1) * 32767.0).astype(np.int16) if ext == ".flac"
+           else taudio.f32_to_pcm16(audio))
     np.testing.assert_array_equal(np.round(got[0] * 32768.0).astype(np.int16), pcm)
 
 
 @pytest.mark.parametrize("ext", [".mp3", ".ogg", ".opus", ".m4a", ".aac"])
 def test_write_audio_compressed_names_the_shim(tmp_path, ext):
-    with pytest.raises(ValueError, match="native codec shim"):
-        taudio.write_audio(tmp_path / f"x{ext}", np.zeros(100, np.float32))
-    assert not (tmp_path / f"x{ext}").exists()
+    """Compressed files are written through the libav shim: read back, the
+    port's equals the JAX writer's file as the JAX reader reads it.  .opus at
+    44.1 kHz, which libopus refuses, raises naming the shim, the codec and
+    the rate (the JAX ``write_audio`` says the shim is unavailable: a pinned
+    divergence)."""
+    if native.load_audiodec() is None or jax_native(audiodec=True) is None:
+        pytest.skip("the libav shim needs the system FFmpeg libraries")
+    audio = np.stack([_audio(7, 1, 20000), _audio(8, 1, 20000)]) * 0.5  # [C, T]
+    if ext == ".opus":
+        with pytest.raises(ValueError, match=r"\.opus export failed: the libav shim.*"
+                                             r"\.opus at 44100 Hz.*encoder refused"):
+            taudio.write_audio(tmp_path / "x.opus", audio, 44100)
+        with pytest.raises(ValueError, match="shim.*unavailable"):
+            jaudio.write_audio(tmp_path / "j.opus", audio, 44100)
+        assert not (tmp_path / "x.opus").exists()
+        return
+    taudio.write_audio(tmp_path / f"port{ext}", audio, 44100)
+    jaudio.write_audio(tmp_path / f"jax{ext}", audio, 44100)
+    got, sr = taudio.read_audio(tmp_path / f"port{ext}")
+    want, jsr = jaudio.read_audio(tmp_path / f"jax{ext}")
+    assert sr == jsr == 44100 and got.shape == want.shape and got.shape[0] == 2
+    assert got.shape[1] >= 20000
+    np.testing.assert_array_equal(got, want)
 
 
 def test_write_audio_unknown_extension_raises(tmp_path):
@@ -379,6 +410,26 @@ def test_prompt_cache_edited_file_reencodes(tmp_path, counted, edit):
         assert second.shape[0] == 9
     dia.load_audio(p)
     assert len(calls) == 2
+
+
+def test_mp3_prompt_greedy_codes_equal_jax(tmp_path):
+    """``trained_small`` with an mp3 voice prompt (24 frames of the tiny
+    codec, hop 8, written by the port's libav shim): both packages decode it
+    with their mp3dec to the same samples and encode equal codes, and the
+    greedy codes prompted with them are the JAX ``Dia``'s."""
+    if native.load_audiodec() is None or jax_native() is None:
+        pytest.skip("making the mp3 needs the libav shim (the system FFmpeg libraries)")
+    p = tmp_path / "prompt.mp3"
+    assert native.encode_mp3(p, _audio(12, 1, 24 * 8) * 0.4, 44100)
+    dia, jd = Dia.from_pretrained(SMALL, device="cpu"), JaxDia.from_pretrained(str(SMALL))
+    codes, jcodes = dia.load_audio(p), np.asarray(jd.load_audio(p))
+    assert codes.shape == (24, 9)
+    np.testing.assert_array_equal(codes, jcodes)
+    kw = dict(max_tokens=96, temperature=0.0, audio_prompt_text="[S1] An mp3 prompt.")
+    got = dia.generate_codes("[S2] Then the reply.", audio_prompt_codes=codes, **kw)
+    want = np.asarray(jd.generate_codes("[S2] Then the reply.", audio_prompt_codes=jcodes, **kw))
+    assert got.shape[0] > 0
+    np.testing.assert_array_equal(got, want)
 
 
 def test_prompt_cache_evicts_the_oldest_of_17(tmp_path, counted):

@@ -107,8 +107,11 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 for name in ("ops.quant", "ops.kernels.int8_matmul", "ops.kernels.int4_gemv", "train", "lora",
              "finetune", "data", "utils.audio_io", "utils.prefetch", "checkpoint", "prune",
              "offline_prune", "ops.sparse", "ops.kernels.sparse_matmul", "utils.flac", "datagen",
-             "cli"):
+             "cli", "native"):
     assert pkg.__name__ + "." + name in sys.modules, name
+from dia_tts_prune_tpu_torch.utils.audio_io import read_audio
+mp3, sr = read_audio("tests/fixtures/torch_mp3_prompt/prompt.mp3")  # builds and loads mp3dec
+assert sr == 44100 and mp3.shape == (1, 88200)
 dia = pkg.Dia.from_pretrained("tests/fixtures/trained_small", device="cpu")
 from dia_tts_prune_tpu_torch.train import TrainConfig, Trainer, build_train_batch
 import numpy as np
