@@ -13,7 +13,8 @@ script exits non-zero:
                shim where the FFmpeg libraries are), all at once, and report
                g++'s seconds and the registers and spills of
                the flash, block-sparse, decode-attention, bf16 int8-matmul,
-               int4-GEMV and fused-step kernels (``nvcc -Xptxas -v``);
+               int4-GEMV, fused-step and dense-rows kernels (``nvcc -Xptxas
+               -v``);
 2. kernels   — each kernel against its plain PyTorch version at the main
                paths' shapes, fp32 and bf16: max abs error beside the stated
                tolerance, kernel and library times (device time: calls
@@ -27,10 +28,16 @@ script exits non-zero:
                decode step and a few odd ones (unaligned weights), and the
                decode kernel's window form (B = 2 cache rows x W = 8 query
                rows, T = 3072, ends 1537-1544: bit-equal to eight one-query
-               calls, SDPA on the same masked window); a row-bits probe (the
-               same bf16 rows at 2 and at 16 through ``fixed_rows_matmul``,
-               ``rms_norm``, the int8 matmul, the int4 GEMV and the
-               block-sparse matmul: bit-equal, or not, per op); the
+               calls, SDPA on the same masked window); the two kernels of the
+               port's own (no Pallas counterpart): ``dense_rows`` (bf16 and
+               fp32 at the five decode shapes, 2, 8, 64 and 80 rows, beside
+               cuBLAS at those rows and padded to 64-row groups; odd shapes,
+               unaligned weights, 130 rows) and ``rms_norm`` (D = 2048 and
+               1024 at 2, 64 and 2048 rows, beside the ATen composition and
+               ``F.rms_norm``); a row-bits probe (the same bf16 rows at 80,
+               16 and 2 at a time through ``dense_rows``, ``rms_norm``, the
+               int8 matmul, the int4 GEMV and the block-sparse matmul:
+               bit-equal, or not, per op; the first two must be); the
                three training kernels (flash forward with log-sum-exp,
                dK/dV, dQ) at the three attention
                shapes of a Dia-1.6B training step, decoder self-attention at
@@ -75,8 +82,10 @@ script exits non-zero:
 4. full_width — Dia-1.6B shapes in bf16 and the 44.1 kHz DAC with weights
                from a numpy seed, every serving route on the CUDA-graph
                decode loop (``graphed_route``; each call with the launch
-               counts zeroed just before and read just after): an eager
-               reference call at 128 tokens whose codes the graph loop must
+               counts zeroed just before and read just after; every norm on
+               the norm kernel, every float contraction of a step on the
+               dense-rows kernel, every packed one on its GEMV kernel): an eager
+               reference call at 96 tokens whose codes the graph loop must
                equal bit for bit, then a call that captures at 512 and three
                from the kept graph — ms/step (median, spread), host against
                device ms/step, capture seconds, graph nodes per step against
@@ -127,7 +136,10 @@ script exits non-zero:
                ``quantize_int8()`` with int8 caches: every lane's codes
                equal its solo graph-loop run bit for bit, the served PCM
                equals the solo waveform, the ``/stream`` bytes the in-process
-               ``generate_stream``'s;
+               ``generate_stream``'s; 40 bf16 lanes (80 rows a step): the
+               first, middle and last equal their solo runs; 33 int8 lanes:
+               the last equals its solo run (ms a step, tokens/s, graph
+               nodes a step);
 7. files     — the files a user brings to the model and takes away, at
                the same full width, four layers a stack (``FILES_LAYERS``,
                ``Dia.random_init`` weights): a torch
@@ -156,6 +168,7 @@ script exits non-zero:
                and q passes'): (a) W = 8, Ld = 6 greedy codes equal the
                graphed loop's bit for bit, a second call captures nothing,
                eager speculation equals graphed; (b) Ld = 18: equal, alpha 1.0;
+               (f) W = 40 (80 verify rows), Ld = 18: equal, alpha 1.0;
                (e) seeded sampled: codes in range, a seed repeats; (c) a
                voice prompt, W = 6: equal; (d) ``quantize_int8()`` against
                the int8 loop with float caches: equal.  Device ms of a
@@ -176,7 +189,7 @@ script exits non-zero:
 10. tp       — tensor-parallel serving at the same full width on the one
                card (``phase_tp``), at full width and four layers a stack
                (``TP_LAYERS``): (a) two spawned ranks over gloo, float /
-               int8 / int4 after ``Dia.shard``, 64 greedy eager tokens each:
+               int8 / int4 after ``Dia.shard``, 40 greedy eager tokens each:
                the ranks equal each other and their in-process emulation bit
                for bit, the first 8 steps' logits within TP_LOGIT_TOL of the
                single process's (planted missing all-reduces read above
@@ -354,7 +367,7 @@ def flash_tiles(torch, route, q_seg, kv_seg, causal) -> dict:
 
 # registers and spills reported
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "block_sparse_matmul",
-                 "decode_attention", "int8_matmul", "int4_gemv", "fused_step")
+                 "decode_attention", "int8_matmul", "int4_gemv", "fused_step", "dense_rows")
 
 
 def ptxas_report(log: str) -> dict:
@@ -364,7 +377,8 @@ def ptxas_report(log: str) -> dict:
     the decode kernel at head dim 128 by q and cache type and query heads held,
     the bf16 int8-matmul kernel by n-tiles of 8 rows and weight copy width, the
     bf16 int4 GEMV by n-tiles, layout, copy width and whether scale segments
-    may end inside a k-step, the fused step by n-tiles of x a pass."""
+    may end inside a k-step, the fused step by n-tiles of x a pass, the
+    bf16 dense-rows kernel by n-tiles and weight copy width."""
     import re
 
     report, name = {}, None
@@ -376,10 +390,14 @@ def ptxas_report(log: str) -> dict:
     i4 = re.compile(r"Function properties for \S*?int4_gemv_mma_kernelILi(\d+)ELi([01])ELi(\d+)"
                     r"ELb([01])E")
     fs = re.compile(r"Function properties for \S*?fused_step_kernelILi(\d+)E")
+    dr = re.compile(r"Function properties for \S*?dense_rows_mma_kernelILi(\d+)ELi(\d+)E")
     types = {"13__nv_bfloat16S1_": "bf16, bf16", "13__nv_bfloat16a": "bf16, int8",
              "ff": "float, float", "fa": "float, int8"}
     for line in log.splitlines():
-        if m := fs.search(line):
+        if m := dr.search(line):
+            name = f"dense_rows_mma_kernel<{m.group(1)} n-tiles, copies of {m.group(2)} B>"
+            report[name] = {}
+        elif m := fs.search(line):
             name = f"fused_step_kernel<{m.group(1)} n-tiles>"
             report[name] = {}
         elif m := i4.search(line):
@@ -1068,44 +1086,51 @@ def sparse_rows_case(torch) -> None:
                 raise RuntimeError(f"block_sparse_matmul {dtype}: a row depends on the row count")
 
 
-PROBE_ROWS = (2, 16)  # a decode step's rows, and the W = 8 verify pass's
+PROBE_ROWS = (2, 16, 80)  # a decode step's rows, the W = 8 verify pass's, 40 lanes'
 PROBE_SHAPES = {"attn_2048x2048": (2048, 2048), "mlp_wi_2048x16384": (2048, 16384),
                 "mlp_wo_8192x2048": (8192, 2048), "logits_2048x9252": (2048, 9252)}
 
 
 def row_bits_probe(torch) -> dict:
-    """The verify pass sends 2W rows through the ops a decode step sends 2
-    rows through: do a row's bits depend on the row count?  The same bf16 x
-    rows, 16 at once and two at a time, through ``fixed_rows_matmul``,
+    """The verify pass and continuous-batching lanes send more rows through
+    the ops a decode step sends 2 rows through: do a row's bits depend on the
+    row count?  The same bf16 x rows, 80 at once (two groups of 64 for the
+    kernels that cut rows so), 16 and two at a time, through ``dense_rows``,
     ``rms_norm`` (width 2048), the int8 matmul, the int4 GEMV (group 128,
     halfsplit: ``quantize_int4()``'s default) and the block-sparse matmul
     (0.5 of 256 x 256 blocks) at the decode step's widths.  The float gates
-    of the ``speculative`` phase rest on the first two (the script fails if
-    they differ); the int8 route's gate reads the int8 result."""
+    of the ``speculative`` and ``cbatch`` phases rest on the first two (the
+    script fails if they differ); the int8 routes' gates read the int8
+    result."""
     from dia_tts_prune_tpu_torch.ops import quant
-    from dia_tts_prune_tpu_torch.ops.kernels import block_sparse_matmul, int4_gemv, int8_matmul
-    from dia_tts_prune_tpu_torch.ops.modules import fixed_rows_matmul, rms_norm
+    from dia_tts_prune_tpu_torch.ops.kernels import (
+        block_sparse_matmul,
+        dense_rows,
+        int4_gemv,
+        int8_matmul,
+        rms_norm,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(12)
     dt = torch.bfloat16
-    lo, hi = PROBE_ROWS
+    most = PROBE_ROWS[-1]
 
     def same(fn, x):
         full = fn(x)
-        return all(torch.equal(fn(x[r:r + lo].contiguous()), full[r:r + lo])
-                   for r in range(0, hi, lo))
+        return all(torch.equal(fn(x[r:r + m].contiguous()), full[r:r + m])
+                   for m in PROBE_ROWS[:-1] for r in range(0, most, m))
 
     result: dict = {"rms_norm": {}}
     scale = 1.0 + 0.1 * torch.randn(2048, generator=g, device="cuda")
     result["rms_norm"]["2048"] = same(lambda x: rms_norm(x, scale, 1e-5),
-                                      torch.randn(hi, 2048, generator=g, device="cuda").to(dt))
-    for op in ("fixed_rows_matmul", "int8_matmul", "int4_gemv", "block_sparse_matmul"):
+                                      torch.randn(most, 2048, generator=g, device="cuda").to(dt))
+    for op in ("dense_rows", "int8_matmul", "int4_gemv", "block_sparse_matmul"):
         result[op] = {}
     for name, (K, N) in PROBE_SHAPES.items():
         w = torch.randn(K, N, generator=g, device="cuda") / K ** 0.5
-        x = torch.randn(hi, K, generator=g, device="cuda").to(dt)
+        x = torch.randn(most, K, generator=g, device="cuda").to(dt)
         wb = w.to(dt)
-        result["fixed_rows_matmul"][name] = same(lambda a: fixed_rows_matmul(a, wb), x)
+        result["dense_rows"][name] = same(lambda a: dense_rows(a, wb), x)
         q8 = quant.quantize_int8(w)
         result["int8_matmul"][name] = same(
             lambda a: int8_matmul(a, q8.values, q8.scale.reshape(N)), x)
@@ -1117,11 +1142,154 @@ def row_bits_probe(torch) -> dict:
             lambda a: block_sparse_matmul(a, sk.values, sk.indices, sk.counts, *SPARSE_BLOCK), x)
         del w, wb, q8, q4, sk
     verdict = {op: all(v.values()) for op, v in result.items()}
-    emit({"phase": "kernels", "case": "row bits at 2 and 16 rows", "dtype": "bfloat16",
+    emit({"phase": "kernels", "case": "row bits at 2, 16 and 80 rows", "dtype": "bfloat16",
           "rows": list(PROBE_ROWS), "equal": result, "all_equal": verdict})
-    if not (verdict["fixed_rows_matmul"] and verdict["rms_norm"]):
+    if not (verdict["dense_rows"] and verdict["rms_norm"]):
         raise RuntimeError(f"row-bits probe: a float op's row depends on the row count: {result}")
     return verdict
+
+
+DENSE_ROWS = (2, 8, 64, 80)  # one stream, four streams, the old 64-row cap, 40 lanes
+
+
+def dense_rows_case(torch, dtype, M, K, N, time_it=True, offset=0) -> dict:
+    """``dense_rows`` on a seed-made [K, N] weight against its plain version
+    (fp32, same values), within the GEMV gate; bit-identical over two runs;
+    bf16 one kernel a call.  Times over copies of the weight that together
+    exceed the L2, as a decode step finds them cold; beside it cuBLAS
+    (``torch.matmul``, the library call) at the real M and at M padded to
+    whole groups of 64 rows (the retired ``fixed_rows_matmul``'s padding).
+    ``offset`` > 0: the weight starts that many values into its storage."""
+    import importlib
+
+    from dia_tts_prune_tpu_torch.ops.kernels import dense_rows, dense_rows_plain
+
+    dr = importlib.import_module("dia_tts_prune_tpu_torch.ops.kernels.dense_rows")
+    i8 = importlib.import_module("dia_tts_prune_tpu_torch.ops.kernels.int8_matmul")
+    g = torch.Generator(device="cuda").manual_seed(13)
+    dt = getattr(torch, dtype)
+    w = (torch.randn(K, N, generator=g, device="cuda") / K ** 0.5).to(dt)
+    if offset:
+        w = torch.empty(K * N + offset, dtype=dt, device="cuda")[offset:].view(K, N)
+        w.copy_((torch.randn(K, N, generator=g, device="cuda") / K ** 0.5).to(dt))
+    x = torch.randn(M, K, generator=g, device="cuda").to(dt)
+    before = dense_rows.launches
+    out = dense_rows(x, w)
+    launches = dense_rows.launches - before
+    again = dense_rows(x, w)
+    torch.cuda.synchronize()
+    ref = dense_rows_plain(x.float(), w.float())
+    diff = (out.float() - ref).abs()
+    tol = GEMV_SUM_TOL * (x.float().abs() @ w.float().abs()) + TOL[dtype]["rtol"] * ref.abs()
+    rec = {"phase": "kernels", "kernel": "dense_rows", "dtype": dtype,
+           "shape": {"M": M, "K": K, "N": N}, "max_abs_err": diff.max().item(),
+           "max_err_over_tol": (diff / tol).max().item(),
+           "tol": {"sum_abs": GEMV_SUM_TOL, "rtol": TOL[dtype]["rtol"]}, "launches": launches,
+           "bit_identical_over_two_runs": bool(torch.equal(out, again)),
+           "weight_offset_values": offset}
+    if dtype == "bfloat16":
+        rec["route"] = "mma_bf16"
+        rec["plan"] = {"copy_bytes": dr.copy_width(N, w.data_ptr()),
+                       "cluster_slice": list(i8.cluster_plan(K, N)),
+                       "row_groups": -(-M // dr.GROUP_ROWS)}
+        rec["kernels_per_call"] = kernels_per_call(torch, lambda: dense_rows(x, w))
+    else:
+        vec = dr.vector_width(N, w.data_ptr())
+        rec["route"] = "fma_fp32"
+        rec["plan"] = {"vec": vec, "n_split": i8.split_plan(K, N, vec)}
+    ok = (rec["max_err_over_tol"] <= 1.0 and rec["bit_identical_over_two_runs"]
+          and launches == 1 and rec.get("kernels_per_call", 1) == 1)
+    e = w.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(e * (K * N + M * K + M * N), 2.0 * M * K * N, dtype)
+    if time_it:
+        n = max(2, min(64, -(-COLD_BYTES // (e * K * N))))
+        ws = [w.clone() for _ in range(n)]
+        padded = torch.zeros(-(-M // dr.GROUP_ROWS) * dr.GROUP_ROWS, K, dtype=dt, device="cuda")
+        padded[:M] = x
+        turn = iter(range(1 << 30))
+        rec["ms"] = graph_ms(torch, lambda: dense_rows(x, ws[next(turn) % n]), iters=2 * n)
+        rec["eager_ms"] = cuda_ms(torch, lambda: dense_rows(x, ws[next(turn) % n]),
+                                  iters=max(32, 2 * n))
+        rec["plain_ms"] = cuda_ms(torch, lambda: dense_rows_plain(x, ws[next(turn) % n]),
+                                  iters=max(32, 2 * n))
+        rec["library_ms"] = graph_ms(torch, lambda: torch.matmul(x, ws[next(turn) % n]),
+                                     iters=2 * n)
+        rec["library_padded_ms"] = graph_ms(
+            torch, lambda: torch.matmul(padded, ws[next(turn) % n]), iters=2 * n)
+        rec["library_padded_rows"] = padded.shape[0]
+        rec["weight_copies"] = n
+        del ws, padded
+    emit(rec)
+    if not ok:
+        raise RuntimeError(f"dense_rows: kernel disagrees with its plain version, is not "
+                           f"repeatable or is not one launch: {rec}")
+    return rec
+
+
+def rms_norm_case(torch, dtype, rows, D, time_it=True) -> dict:
+    """The RMSNorm kernel on seed-made rows (a bf16 scale, as the model's
+    bf16 weights carry) against its plain version in fp32 (``TOL``), bit-
+    identical over two runs, one launch; times from graph replays beside
+    the plain ATen composition's (graph replays and eager) and one
+    ``torch.nn.functional.rms_norm`` call's (the library call)."""
+    import torch.nn.functional as F
+
+    from dia_tts_prune_tpu_torch.ops.kernels import rms_norm, rms_norm_plain
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    dt = getattr(torch, dtype)
+    x = torch.randn(rows, D, generator=g, device="cuda").to(dt)
+    scale = (1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(torch.bfloat16)
+    before = rms_norm.launches
+    out = rms_norm(x, scale, 1e-5)
+    launches = rms_norm.launches - before
+    again = rms_norm(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    rec = {"phase": "kernels", "kernel": "rms_norm", "dtype": dtype,
+           "shape": {"rows": rows, "D": D}, "launches": launches,
+           "bit_identical_over_two_runs": bool(torch.equal(out, again)),
+           **check(torch, "rms_norm", dtype, out, lambda a, s: rms_norm_plain(a, s, 1e-5),
+                   (x, scale))}
+    e = x.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(2 * e * rows * D + 2 * D, 4.0 * rows * D, dtype)
+    if time_it:
+        sx = scale.to(dt)
+        rec["ms"] = graph_ms(torch, lambda: rms_norm(x, scale, 1e-5))
+        rec["eager_ms"] = cuda_ms(torch, lambda: rms_norm(x, scale, 1e-5), iters=64)
+        rec["plain_ms"] = cuda_ms(torch, lambda: rms_norm_plain(x, scale, 1e-5), iters=64)
+        rec["plain_graph_ms"] = graph_ms(torch, lambda: rms_norm_plain(x, scale, 1e-5))
+        rec["plain_kernels_per_call"] = kernels_per_call(
+            torch, lambda: rms_norm_plain(x, scale, 1e-5))
+        rec["library_ms"] = graph_ms(torch, lambda: F.rms_norm(x, (D,), sx, 1e-5))
+    emit(rec)
+    if launches != 1 or not rec["bit_identical_over_two_runs"]:
+        raise RuntimeError(f"rms_norm: not one launch or not repeatable: {rec}")
+    return rec
+
+
+def phase_row_kernels(torch) -> dict:
+    """The two kernels of the port's own (no Pallas counterpart): ``dense_rows``
+    at the five decode shapes, bf16 and fp32, at ``DENSE_ROWS`` rows, and odd
+    shapes (K not a multiple of 16, N a multiple of 4 or of nothing, a weight
+    that starts 8 or 2 bytes past a 16-byte boundary, 130 rows); ``rms_norm``
+    at D = 2048 and 1024, at 2, 64 and 2048 rows.  Returns the bf16 records of
+    the MLP input projection at 2 rows and of the decoder's norm at 2 rows."""
+    for dtype in ("float32", "bfloat16"):
+        for name, (K, N) in GEMV_SHAPES.items():
+            for M in DENSE_ROWS:
+                rec = dense_rows_case(torch, dtype, M, K, N)
+                if dtype == "bfloat16" and name == "mlp_wi_2048x16384" and M == 2:
+                    dense = rec
+        for M, K, N, offset in ((3, 1000, 1027, 0), (3, 40, 7, 0), (130, 1000, 520, 0),
+                                (5, 2048, 9252, 4), (5, 1000, 1042, 1)):
+            dense_rows_case(torch, dtype, M, K, N, time_it=False, offset=offset)
+        for D in (2048, 1024):
+            for rows in (2, 64, 2048):
+                rec = rms_norm_case(torch, dtype, rows, D)
+                if dtype == "bfloat16" and D == 2048 and rows == 2:
+                    norm = rec
+        rms_norm_case(torch, dtype, 3, 20, time_it=False)
+    return {"dense_rows": dense, "rms_norm": norm}
 
 
 def phase_sparse_kernels(torch) -> dict:
@@ -1533,6 +1701,7 @@ def phase_kernels(torch, faults: dict) -> dict:
                   "decode_attention_mixed_ends": mixed, "decode_attention_int8_mixed_ends": mixed8,
                   "decode_attention_window": window,
                   "int8_matmul": mlp8, "int4_gemv": mlp4, **train}
+    picked.update(phase_row_kernels(torch))
     picked["row_bits"] = row_bits_probe(torch)
     picked["block_sparse_matmul"] = phase_sparse_kernels(torch)
     picked["fused_decode_step"] = phase_fused_kernels(torch, faults)
@@ -2053,7 +2222,9 @@ def step_and_loop_nodes(torch, dia, key, buffers) -> dict:
             "loop_device_ms": graph_ms(torch, rest, iters=16, replays=3)}
 
 
-EAGER_TOKENS = 128  # a route's eager reference: the graph loop's codes must equal it
+# a route's eager reference: the graph loop's codes must equal it (192 to PR 16, 128 to
+# PR 20, 96 since PR 21: cut for the script's time as its phases grew)
+EAGER_TOKENS = 96
 GRAPH_TOKENS = 512  # a route's timed graph calls
 GRAPH_RUNS = 3  # timed graph calls of a route, after the one that captures
 
@@ -2178,17 +2349,21 @@ def phase_full_width(torch) -> dict:
         return lambda loop, n: [model.generate_codes(text, max_tokens=n, loop=loop, **kw)]
 
     def unfused(gemv=None):
-        """Every step: two decode-attention calls a layer, and with packed
-        weights the 145 contractions on the GEMV kernel and none on the other."""
-        other = {"int8_matmul": "int4_gemv", "int4_gemv": "int8_matmul"}.get(gemv)
+        """Every step: two decode-attention calls a layer and the step's 3L + 1
+        norms on the norm kernel (more for the encoder and prefill); the 145
+        contractions on the dense-rows kernel with float weights, on the GEMV
+        kernel with packed ones (and none on the other two)."""
+        kernel = gemv or "dense_rows"
+        others = {"int8_matmul", "int4_gemv", "dense_rows"} - {kernel}
 
         def expect(counts, stats):
-            ok = counts["decode_attention"] == 2 * L * stats.host_steps
-            if gemv:
-                ok &= counts[gemv] == DECODER_GEMVS * stats.host_steps and counts[other] == 0
+            ok = (counts["decode_attention"] == 2 * L * stats.host_steps
+                  and counts["rms_norm"] >= (3 * L + 1) * stats.host_steps
+                  and counts[kernel] == DECODER_GEMVS * stats.host_steps
+                  and not any(counts[k] for k in others))
             if not ok:
-                raise RuntimeError(f"full width: expected {2 * L} decode-attention "
-                                   f"{f'and {DECODER_GEMVS} {gemv} ' if gemv else ''}launches "
+                raise RuntimeError(f"full width: expected {2 * L} decode-attention, "
+                                   f"{DECODER_GEMVS} {kernel} and {3 * L + 1} rms_norm launches "
                                    f"in each of {stats.host_steps} host steps: {counts}")
         return expect
 
@@ -2237,7 +2412,8 @@ def phase_full_width(torch) -> dict:
                  "fused_batched": "fused_decode_step"}
     for name, path in paths.items():
         attention = () if name.startswith("fused") else ("decode_attention",)
-        ran = ("flash_attention", *attention, *([kernel_of[name]] if name in kernel_of else []))
+        ran = ("flash_attention", "rms_norm", *attention,
+               kernel_of.get(name, "dense_rows"))
         missing = [k for k in ran if path["launches"][k] <= 0]
         if missing:
             raise RuntimeError(f"the {name} path never launched {missing}: {path['launches']}")
@@ -2803,6 +2979,10 @@ def phase_serving(torch) -> dict:
 
 
 CB_TOKENS = 256  # the continuous batcher's max_tokens (its self-cache length)
+CB_MANY = 40  # lanes of the many-lane group: 80 rows a step, past one 64-row kernel launch
+CB_MANY_INT8 = 33  # lanes of the int8 many-lane group: 66 rows
+CB_MANY_TOKENS = 96  # max_tokens of the many-lane groups' requests
+CB_MANY_CHECKED = (0, CB_MANY // 2, CB_MANY - 1)  # lanes held to their solo runs
 CB_PROMPT_FRAMES = 100  # the voice-prompted request's prompt: codes from a numpy seed
 # the cbatch phase's six requests: (text, max_tokens, temperature, top_p, cfg_scale, seed,
 # voice-prompted); the first four fill the four lanes, the last two queue behind them
@@ -2829,9 +3009,14 @@ def phase_cbatch(torch) -> dict:
     others.  (d) The HTTP app with a batcher: two concurrent ``/generate``
     whose PCM equals their solo waveforms, one ``/stream`` whose bytes equal
     the in-process ``generate_stream``'s.  (b) After ``quantize_int8()``,
-    int8 KV caches: a greedy and a seeded lane equal their solo runs.  One
-    capture a batcher; flash and decode attention launched in each group,
-    ``int8_matmul`` in (b).  Recorded: capture seconds, device and host ms a
+    int8 KV caches: a greedy and a seeded lane equal their solo runs.  (e)
+    ``CB_MANY`` = 40 lanes (80 rows a step) at ``CB_MANY_TOKENS``, bf16, one
+    greedy request a lane: the first, middle and last lanes equal their solo
+    graph-loop runs bit for bit; (f) after ``quantize_int8()``, 33 lanes:
+    the last lane (rows 64 and 65, the second group of the GEMV kernels)
+    equals its solo run.  One capture a batcher; flash and decode attention
+    launched in each group, ``dense_rows`` and ``rms_norm`` in the float
+    groups, ``int8_matmul`` in (b) and (f).  Recorded: capture seconds, device and host ms a
     step with four live lanes, aggregate tokens/s, admission delay, request
     latencies, occupancy, graph nodes a step, and beside them the same
     width in lockstep (``generate_tokens_batch``, four streams) and one
@@ -2873,9 +3058,9 @@ def phase_cbatch(torch) -> dict:
         return {"device_ms_per_step": stats.device_ms_per_replayed_step,
                 "host_ms_per_step": 1e3 * stats.wall_seconds / stats.decode_steps}
 
-    def new_batcher(n_slots=4):
+    def new_batcher(n_slots=4, **kw):
         reset_launch_counts()
-        cb = ContinuousBatcher(dia, **{**shape, "n_slots": n_slots})
+        cb = ContinuousBatcher(dia, **{**shape, "n_slots": n_slots, **kw})
         if cb.stats["captures"] != 1 or cb.loop != "graph":
             raise RuntimeError(f"cbatch: a batcher captured {cb.stats['captures']} graphs "
                                f"on the {cb.loop} loop")
@@ -2921,6 +3106,36 @@ def phase_cbatch(torch) -> dict:
         return out
 
     attention = ("flash_attention", "decode_attention")
+    floats = attention + ("dense_rows", "rms_norm")
+
+    def many_lanes(group, n, checked):
+        """``n`` lanes at once, one greedy request each; the ``checked``
+        lanes against their solo graph-loop runs."""
+        reqs = [(f"[S{1 + i % 2}] Lane {i} of {n} speaks at once. [S{2 - i % 2}] Yes.",
+                 CB_MANY_TOKENS, 0.0, 0.95, 3.0, i, False) for i in range(n)]
+        solo_many = {i: dia.generator.generate_tokens(reqs[i][0], **kwargs(reqs[i]))
+                     for i in checked}
+        cb = new_batcher(n_slots=n, max_tokens=CB_MANY_TOKENS)
+        try:
+            t = time.perf_counter()
+            futs = [submit(cb, r, []) for r in reqs]
+            for f in futs:
+                f.result(900)
+            out = report(group, cb, futs, [solo_many.get(i) for i in range(n)],
+                         time.perf_counter() - t,
+                         attention + (("int8_matmul",) if cb.kv_int8 else ("dense_rows",
+                                                                          "rms_norm")))
+            out["lanes"], out["checked_lanes"] = n, list(checked)
+            out["nodes_per_step"] = graph_nodes(torch, cb._buffers.graph) / GRAPH_STEPS
+            emit({"phase": "cbatch", "part": f"{group}_steps", "record": {
+                k: out[k] for k in ("lanes", "checked_lanes", "lanes_equal_solo",
+                                    "full_lanes_device_ms_per_step",
+                                    "full_lanes_host_ms_per_step", "aggregate_tokens_per_s",
+                                    "nodes_per_step")}})
+        finally:
+            cb.shutdown()
+        return out
+
     solo = solo_codes(CB_REQUESTS)
     solo_codes(CB_REQUESTS[5:])  # again, from its kept graph: one seeded stream's step
     solo_step = step_ms(dia.generator.last_stats)
@@ -2933,7 +3148,7 @@ def phase_cbatch(torch) -> dict:
     futs += [submit(cb, r, times) for r in CB_REQUESTS[4:]]
     for f in futs:
         f.result(600)
-    rec["mixed"] = report("mixed", cb, futs, solo, time.perf_counter() - t, attention,
+    rec["mixed"] = report("mixed", cb, futs, solo, time.perf_counter() - t, floats,
                           latency_s=sorted(times))
     rec["mixed"]["nodes_per_step"] = graph_nodes(torch, cb._buffers.graph) / GRAPH_STEPS
     cb.shutdown()
@@ -3033,6 +3248,10 @@ def phase_cbatch(torch) -> dict:
     del cb, server
     torch.cuda.empty_cache()
 
+    # (e) 40 float lanes: 80 rows a step
+    rec["many"] = many_lanes("many", CB_MANY, CB_MANY_CHECKED)
+    torch.cuda.empty_cache()
+
     # (b) int8 weights and KV caches: a greedy and a seeded lane
     dia.quantize_int8()
     pair = (CB_REQUESTS[0], CB_REQUESTS[2])
@@ -3048,6 +3267,8 @@ def phase_cbatch(torch) -> dict:
     cb.shutdown()
     if not cb.kv_int8:
         raise RuntimeError("cbatch int8: the batcher's caches are not int8")
+    # (f) 33 int8 lanes: the last lane's rows are the second group of the GEMV kernels
+    rec["int8_many"] = many_lanes("int8_many", CB_MANY_INT8, (CB_MANY_INT8 - 1,))
     rec["seconds"] = time.perf_counter() - t0
     emit({k: v for k, v in rec.items() if k in ("phase", "config", "seconds")})
     del dia, cb
@@ -3431,6 +3652,7 @@ def phase_files(torch, tmp: Path) -> dict:
 SPEC_TOKENS = 256  # max_tokens of the speculative phase's calls
 SPEC_EAGER_TOKENS = 64  # the eager speculative call (Python steps every window)
 SPEC_WINDOW, SPEC_DRAFT = 8, 6  # W and Ld: Dia.speculative_generator's defaults at 18 layers
+SPEC_WIDE = 40  # the wide greedy window: 80 verify rows, past one 64-row kernel launch
 SPEC_PROMPT_FRAMES = 64  # the voice-prompted route's prompt: the loop's first codes
 SPEC_PROMPT_TEXT = "[S2] And it clones voices from a prompt."
 
@@ -3471,7 +3693,8 @@ def phase_speculative(torch, row_bits: dict | None) -> dict:
     counts zeroed just before and read just after: (a) float greedy, W = 8,
     Ld = 6: the codes of a capturing and a replaying call equal the graphed
     loop's bit for bit, and eager speculation equals graphed speculation;
-    (b) Ld = 18: codes equal, every draft accepted (alpha 1.0); (e) seeded
+    (b) Ld = 18: codes equal, every draft accepted (alpha 1.0); (f) W = 40
+    (80 verify rows), Ld = 18: codes equal, alpha 1.0; (e) seeded
     sampled: codes in [0, 1023], one seed twice equal; (c) voice-prompted
     greedy, W = 6: codes equal the prompted loop's; (d) ``quantize_int8()``
     against the int8 loop with float caches (``kv_int8=False``).  The
@@ -3569,6 +3792,11 @@ def phase_speculative(torch, row_bits: dict | None) -> dict:
     b, routes["spec_full_draft"] = spec(W, L, **kw)
     gates["b_equals_loop"] = bool(np.array_equal(b, loop))
     gates["b_alpha_is_1"] = routes["spec_full_draft"]["acceptance"] == 1.0
+    # (f) W = 40 with the full model as the draft: every verify pass 80 rows
+    f, routes["spec_wide"] = spec(SPEC_WIDE, L, **kw)
+    gates["f_wide_equals_loop"] = bool(np.array_equal(f, loop))
+    gates["f_wide_alpha_is_1"] = routes["spec_wide"]["acceptance"] == 1.0
+    gates["f_wide_windows_ran"] = routes["spec_wide"]["windows"] > 0
     # (e) seeded sampled, one seed twice
     sampled = dict(kw, temperature=1.3, seed=5)
     e1, routes["spec_sampled"] = spec(W, Ld, **sampled)
@@ -3893,7 +4121,9 @@ def phase_training(torch, tmp: Path) -> dict:
     return paths
 
 
-TP_TOKENS = 64  # greedy tokens of each route of the two-rank run (the eager loop)
+# greedy tokens of each route of the two-rank run (the eager loop; 64 to PR 20, cut for
+# the script's time in PR 21)
+TP_TOKENS = 40
 TP_FAULT_TOKENS = 10  # max_tokens of a planted fault's emulated run (its logits read over 8 steps)
 TP_LOGIT_STEPS = 8  # steps whose logits the two ranks hold to the single process's
 # Two ranks against one process in bf16, as a share of the largest |logit|
@@ -4565,7 +4795,7 @@ def phase_tp(torch, tmp: Path) -> dict:
     card machine has one H100, so: (a) two ranks on it
     over gloo (CUDA tensors staged through the host), each a spawned
     process, the eager loop: float, ``quantize_int8()`` (int8 KV caches) and
-    ``quantize_int4()`` after ``Dia.shard`` on a (1, 2) mesh, 64 greedy
+    ``quantize_int4()`` after ``Dia.shard`` on a (1, 2) mesh, 40 greedy
     tokens each.  On each route the two ranks equal each other and the
     in-process emulation of the same two ranks (``tp_emulated``) bit for
     bit, every token and every step's logits; each rank's decode-attention
@@ -4941,10 +5171,17 @@ def main() -> int:
              ("int8_matmul", "int8_matmul", "int8", "int8_matmul.py:53"),
              ("int4_gemv", "int4_gemv", "int4", "int4_gemv.py:129"),
              ("block_sparse_matmul", "block_sparse_matmul", "pruned", "sparse_matmul.py:121"),
-             ("fused_decode_step", "fused_decode_step", "fused_int8", "fused_step.py:1018")]
+             ("fused_decode_step", "fused_decode_step", "fused_int8", "fused_step.py:1018"),
+             # kernels of the port's own: no Pallas counterpart, the JAX package's XLA function
+             ("dense_rows", "dense_rows", "bf16",
+              "dia_tts_prune_tpu/ops/modules.py:45 (dense_general: XLA, no Pallas kernel)"),
+             ("rms_norm", "rms_norm", "bf16",
+              "dia_tts_prune_tpu/ops/modules.py:217 (rms_norm: XLA, no Pallas kernel)")]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"{csrc}{SOURCES.get(name, name)}.cu",
-         "core_route": rec.get("route"), "replaces": jax_kernels + replaces,
+         "core_route": rec.get("route"),
+         "replaces": (replaces if replaces.startswith("dia_tts_prune_tpu/")
+                      else jax_kernels + replaces),
          "launches": paths[path]["launches"].get(pick, paths[path]["launches"][name]),
          "max_abs_err": rec["max_abs_err"],
          "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

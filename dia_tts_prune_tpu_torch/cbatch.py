@@ -98,7 +98,6 @@ from .models.dia import (
     quantize_cache,
 )
 from .ops.delay import revert_audio_delay_np
-from .ops.modules import MAX_ROWS
 from .parallel.sharding import TIMEOUT, capturable, checksum
 from .state import prepare_audio_prompt
 from .tokenizer import build_effective_text, encode_cfg_batch
@@ -276,10 +275,6 @@ class ContinuousBatcher:
                              f"{dist.get_backend(self._group)}: build the mesh over NCCL")
         if self.n_slots < 1 or self.segment_steps < 1:
             raise ValueError("n_slots and segment_steps must be positive")
-        if CFG_BATCH * self.n_slots > MAX_ROWS:  # a step's rows: a CFG pair a lane
-            raise ValueError(f"n_slots must be at most {MAX_ROWS // CFG_BATCH}, got "
-                             f"{self.n_slots}: a lane's rows keep their solo bits only up "
-                             f"to {MAX_ROWS} rows a step (ops.modules.fixed_rows_matmul)")
         if self.loop == "graph" and self.segment_steps % GRAPH_STEPS:
             raise ValueError(f"segment_steps must be a multiple of {GRAPH_STEPS} on the card "
                              f"(a segment is whole graph replays), got {self.segment_steps}")

@@ -143,7 +143,14 @@ def load_torch_checkpoint(path: str | Path, config: DiaConfig, dtype=torch.float
 
 def load_checkpoint(path: str | Path, config: DiaConfig, dtype=torch.float32,
                     device: str | torch.device = "cuda") -> Params:
-    """A safetensors or torch checkpoint, by suffix."""
+    """A safetensors or torch checkpoint, by suffix.  A directory (an orbax
+    checkpoint of the JAX package) raises ``ValueError``: orbax needs JAX."""
+    if Path(path).is_dir():
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint?): the port reads a safetensors file "
+            f"or a torch state dict (pytorch_model.bin / .pth).  A model directory written by "
+            f"the JAX package's Dia.save_pretrained crosses over: load it with "
+            f"Dia.from_pretrained.")
     if Path(path).suffix == ".safetensors":
         return load_safetensors_checkpoint(path, config, dtype=dtype, device=device)
     return load_torch_checkpoint(path, config, dtype=dtype, device=device)

@@ -478,9 +478,6 @@ def write_slots(write_slot, batch: int, cache_len: int,
     return slots, slots + torch.arange(0, batch * cache_len, cache_len, device=device)
 
 
-MAX_WINDOW = 32  # query rows a stream of a decode window: 2W rows stay within fixed_rows_matmul's
-
-
 def decode_step(
     params: Params,
     config: DiaConfig,
@@ -536,10 +533,11 @@ def decode_step(
     computes what the step at that slot computes from the same cache — on
     the card bit for bit: per layer the W rows' K/V are committed first,
     then each query row attends its own range through the decode-attention
-    kernel's window form, and every float product goes through
-    ``fixed_rows_matmul`` at 2W <= 64 rows.  A window takes float self and
-    cross caches only (the JAX speculative path's ``kv_quant=False``); W
-    above ``MAX_WINDOW`` raises (the JAX function has no cap)."""
+    kernel's window form, and every product through a kernel whose rows keep
+    their bits at any row count (``dense_general(decode=True)``, the norms'
+    kernel).  A window takes float self and cross caches only (the JAX
+    speculative path's ``kv_quant=False``); like the JAX function, it takes
+    any W."""
     m = config.model
     eps = m.normalization_layer_epsilon
     B, W = tgt_BxWxC.shape[:2]
@@ -547,8 +545,6 @@ def decode_step(
     quant = isinstance(self_cache, QuantKVCache)
     if W > 1 and (quant or isinstance(cross_cache, QuantKVCache)):
         raise ValueError("decode_step: a window (W > 1 rows) takes float self and cross caches")
-    if W > MAX_WINDOW:
-        raise ValueError(f"decode_step: window {W} > {MAX_WINDOW} rows")
     slots, flat_slots = write_slots(write_slot, B, self_cache.k.shape[2], dev)
     if W > 1:  # query row (b, i) writes slot slot[b] + i and attends through it
         offs = torch.arange(W, device=dev)
@@ -572,7 +568,7 @@ def decode_step(
         lp = _layer(layers, i)
         h = rms_norm(x, lp["pre_sa_norm"]["scale"], eps)
         q, k, v = attention_qkv(lp["self_attention"], h, h, position, position,
-                                m.rope_min_timescale, m.rope_max_timescale)
+                                m.rope_min_timescale, m.rope_max_timescale, decode=True)
         if quant:
             k1, v1 = rows(k).contiguous(), rows(v).contiguous()
             sa = decode_attention(rows(q).contiguous(), self_cache.k[i], self_cache.v[i],
@@ -583,21 +579,21 @@ def decode_step(
             _commit(self_cache, i, flat_slots, rows(k), rows(v))
             sa = decode_attention(rows(q).contiguous(), self_cache.k[i], self_cache.v[i],
                                   self_start, self_end, queries_per_row=W)
-        x = x + attention_out(lp["self_attention"], sa.unflatten(0, (B, W)), group)
+        x = x + attention_out(lp["self_attention"], sa.unflatten(0, (B, W)), group, decode=True)
 
         h = rms_norm(x, lp["pre_ca_norm"]["scale"], eps)
-        cq = dense_general(h, lp["cross_attention"]["q_proj"]["kernel"])
+        cq = dense_general(h, lp["cross_attention"]["q_proj"]["kernel"], decode=True)
         cq = rope(cq, position, m.rope_min_timescale, m.rope_max_timescale)
         ca = decode_attention(rows(cq).contiguous(), cross_cache.k[i], cross_cache.v[i],
                               cross_start, cross_end, *(t[i] for t in cross_cache[2:]),
                               queries_per_row=W)
-        x = x + attention_out(lp["cross_attention"], ca.unflatten(0, (B, W)), group)
+        x = x + attention_out(lp["cross_attention"], ca.unflatten(0, (B, W)), group, decode=True)
 
         h = rms_norm(x, lp["pre_mlp_norm"]["scale"], eps)
-        x = x + mlp_block(lp["mlp"], h, group)
+        x = x + mlp_block(lp["mlp"], h, group, decode=True)
 
     x = rms_norm(x, params["decoder"]["norm"]["scale"], eps)
-    return dense_general(x, params["decoder"]["logits_dense"]["kernel"]).float()
+    return dense_general(x, params["decoder"]["logits_dense"]["kernel"], decode=True).float()
 
 
 def _depth(n_layer: int, n_layers: int | None) -> int:
@@ -653,4 +649,4 @@ def decode_step_fused(
     _, flat_slots = write_slots(write_slot, x.shape[0], self_cache.k.shape[2], dev)
     _commit(self_cache, None, flat_slots, k_new, v_new)
     h = rms_norm(x_out[:, None].to(compute_dtype), params["decoder"]["norm"]["scale"], eps)
-    return dense_general(h, params["decoder"]["logits_dense"]["kernel"]).float()
+    return dense_general(h, params["decoder"]["logits_dense"]["kernel"], decode=True).float()

@@ -5,6 +5,7 @@ kernel's window form counts apart (``decode_attention.window_launches``,
 ``"decode_attention_window"`` in ``launch_counts``)."""
 
 from .decode_attention import decode_attention, decode_attention_plain
+from .dense_rows import dense_rows, dense_rows_plain
 from .flash_attention import (
     flash_attention,
     flash_attention_bwd_kv,
@@ -19,6 +20,7 @@ from .flash_attention import (
 from .fused_step import fused_decode_step, fused_decode_step_plain
 from .int4_gemv import int4_gemv, int4_gemv_plain
 from .int8_matmul import int8_matmul, int8_matmul_plain
+from .rms_norm import rms_norm, rms_norm_plain
 from .sparse_matmul import block_sparse_matmul, block_sparse_matmul_plain
 
 KERNEL_WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decode_attention,
@@ -27,7 +29,8 @@ KERNEL_WRAPPERS = {"flash_attention": flash_attention, "decode_attention": decod
                    "flash_attention_bwd_kv": flash_attention_bwd_kv,
                    "flash_attention_bwd_q": flash_attention_bwd_q,
                    "block_sparse_matmul": block_sparse_matmul,
-                   "fused_decode_step": fused_decode_step}
+                   "fused_decode_step": fused_decode_step,
+                   "dense_rows": dense_rows, "rms_norm": rms_norm}
 
 
 def reset_launch_counts() -> None:
@@ -43,9 +46,10 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNEL_WRAPPERS", "block_sparse_matmul", "block_sparse_matmul_plain", "decode_attention",
-    "decode_attention_plain", "flash_attention", "flash_attention_bwd_kv",
+    "decode_attention_plain", "dense_rows", "dense_rows_plain", "flash_attention", "flash_attention_bwd_kv",
     "flash_attention_bwd_plain", "flash_attention_bwd_q", "flash_attention_lse",
     "flash_attention_lse_plain", "flash_attention_plain", "flash_attention_trainable",
     "fused_decode_step", "fused_decode_step_plain", "int4_gemv", "int4_gemv_plain",
-    "int8_matmul", "int8_matmul_plain", "launch_counts", "reset_launch_counts", "tile_visits",
+    "int8_matmul", "int8_matmul_plain", "launch_counts", "reset_launch_counts", "rms_norm",
+    "rms_norm_plain", "tile_visits",
 ]

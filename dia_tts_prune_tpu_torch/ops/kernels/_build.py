@@ -26,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "int8_matmul",
-                  "int4_gemv", "block_sparse_matmul", "fused_step")
+                  "int4_gemv", "block_sparse_matmul", "fused_step", "dense_rows", "rms_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -18,7 +18,8 @@ partial sums, one per (group, column), which is the arithmetic of
 in the compute dtype before its dot (int4_gemv.py:78-79), rounding each to
 bf16 — an artefact of feeding the matrix unit; fp32 sums are cheaper here and
 closer to the dequantized kernel.  The Pallas kernel's lane constraints
-(``K % 256``, ``N % 128``) do not apply: any K, N with 1..64 rows is served.
+(``K % 256``, ``N % 128``) do not apply: any K, N and row count is served
+(above 64 rows in groups of 64, one launch each with the same plan).
 
 bf16 activations in the two nibble layouts (the decode path) take the tensor
 cores in one cluster launch, the int8 matmul's design: a cluster of blocks
@@ -41,7 +42,7 @@ import torch
 from ..quant import unpack_nibble_rows
 # the tensor-core route plans byte rows with the bf16 int8 route's rule (a stage
 # holds STAGE_ROWS byte rows, each two rows of K); it never sees the row count
-from .int8_matmul import MAX_ROWS, cluster_plan, copy_width, split_plan, vector_width
+from .int8_matmul import cluster_plan, copy_width, in_row_groups, split_plan, vector_width
 
 LAYOUTS = {"halfsplit": 0, "parity": 1, "unpacked": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -99,8 +100,8 @@ def _check(x, w_b, scale, layout):
             raise ValueError(f"int4_gemv halfsplit needs (K/2) % group == 0: K {K}, group {group}")
         if layout == "parity" and group % 2:
             raise ValueError(f"int4_gemv parity needs an even group, got {group}")
-    if not 1 <= x.shape[0] <= MAX_ROWS:
-        raise ValueError(f"int4_gemv takes 1..{MAX_ROWS} rows, got {x.shape[0]}")
+    if x.shape[0] < 1:
+        raise ValueError("int4_gemv takes at least one row")
     if any(t.device != x.device for t in (w_b, scale)):
         raise ValueError("int4_gemv inputs must be on one device")
     if not all(t.is_contiguous() for t in (x, w_b, scale)):
@@ -109,10 +110,12 @@ def _check(x, w_b, scale, layout):
 
 
 def launch(x: torch.Tensor, w_b: torch.Tensor, scale: torch.Tensor, layout: str, K: int,
-           group: int | None, vec: int, n_split: int, slice_rows: int) -> torch.Tensor:
-    """Launch the kernel on checked CUDA inputs with a given copy or load width
-    and slices of byte rows (``int4_gemv`` plans them; a tuning sweep sets
-    them).  Tensor-core route: the slices are the blocks of a cluster, no
+           group: int | None, vec: int, n_split: int, slice_rows: int,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel on checked CUDA inputs of at most 64 rows with a
+    given copy or load width and slices of byte rows (``int4_gemv`` plans
+    them; a tuning sweep sets them), into ``out`` (contiguous rows) or a new
+    tensor.  Tensor-core route: the slices are the blocks of a cluster, no
     scratch; CUDA-core route: an fp32 scratch of ``n_split`` partials."""
     from ._build import kernel_function
 
@@ -126,7 +129,8 @@ def launch(x: torch.Tensor, w_b: torch.Tensor, scale: torch.Tensor, layout: str,
         S = K // group
         seg = group // 2 if layout == "parity" else group
         hi_off = S // 2 if layout == "halfsplit" else 0
-    out = torch.empty(B, N, dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty(B, N, dtype=x.dtype, device=x.device)
     part = None
     if not uses_mma(x.dtype, layout) and n_split > 1:
         part = torch.empty(n_split * B * N, dtype=torch.float32, device=x.device)
@@ -144,7 +148,8 @@ def launch(x: torch.Tensor, w_b: torch.Tensor, scale: torch.Tensor, layout: str,
 def int4_gemv(x: torch.Tensor, w_b: torch.Tensor, scale: torch.Tensor,
               layout: str = "halfsplit") -> torch.Tensor:
     """``x [B, K] @ dequant(w_b, scale)`` in ``x.dtype``, shape [B, N].  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel or raise
+    (above 64 rows once a group of 64, each with the same plan)."""
     if x.device.type == "cpu":
         return int4_gemv_plain(x, w_b, scale, layout)
     if x.device.type != "cuda":
@@ -152,11 +157,13 @@ def int4_gemv(x: torch.Tensor, w_b: torch.Tensor, scale: torch.Tensor,
     K, group = _check(x, w_b, scale, layout)
     R, N = w_b.shape
     if uses_mma(x.dtype, layout):
-        return launch(x, w_b, scale, layout, K, group, copy_width(N, w_b.data_ptr()),
-                      *cluster_plan(R, N))
-    vec = vector_width(N, w_b.data_ptr())
-    n_split = split_plan(R, N, vec, max_slice=MAX_SLICE)
-    return launch(x, w_b, scale, layout, K, group, vec, n_split, -(-R // n_split))
+        plan = (copy_width(N, w_b.data_ptr()), *cluster_plan(R, N))
+    else:
+        vec = vector_width(N, w_b.data_ptr())
+        n_split = split_plan(R, N, vec, max_slice=MAX_SLICE)
+        plan = (vec, n_split, -(-R // n_split))
+    return in_row_groups(x, N, lambda xg, out: launch(xg, w_b, scale, layout, K, group, *plan,
+                                                      out=out))
 
 
 int4_gemv.launches = 0

@@ -8,7 +8,8 @@ ctypes).  It replaces the Pallas kernel
 rounding to ``x.dtype``.  Activations are never quantized.
 
 At B <= 64 rows (the decode step has 2) this is a GEMV whose cost is the
-int8 weight bytes.  bf16 activations (the decode path) take the tensor cores
+int8 weight bytes; more rows (continuous-batching lanes past 32) go in
+groups of 64, one launch each with the same plan.  bf16 activations (the decode path) take the tensor cores
 in one cluster launch: a cluster of blocks owns a strip of ``STRIP`` columns,
 each block a K slice (``cluster_plan``, from the weight's shape alone), and
 the blocks add their fp32 partials in rank order on chip; the weight is read
@@ -24,7 +25,7 @@ import ctypes
 
 import torch
 
-MAX_ROWS = 64  # the JAX dispatcher's gate (ops/modules.py:160)
+MAX_ROWS = 64  # rows of one launch (the JAX dispatcher's gate, ops/modules.py:160); more go in groups
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # fp32 route (and the int4 GEMV, which shares it): from tools/torch_port_gemv_sweep.py
@@ -98,8 +99,8 @@ def _check(x, w_q, scale):
         raise ValueError(f"int8_matmul shapes: x {tuple(x.shape)}, w_q {tuple(w_q.shape)}")
     if scale.shape != (w_q.shape[1],):
         raise ValueError(f"int8_matmul scale must be [N]: {tuple(scale.shape)}")
-    if not 1 <= x.shape[0] <= MAX_ROWS:
-        raise ValueError(f"int8_matmul takes 1..{MAX_ROWS} rows, got {x.shape[0]}")
+    if x.shape[0] < 1:
+        raise ValueError("int8_matmul takes at least one row")
     if any(t.device != x.device for t in (w_q, scale)):
         raise ValueError("int8_matmul inputs must be on one device")
     if not all(t.is_contiguous() for t in (x, w_q, scale)):
@@ -107,17 +108,19 @@ def _check(x, w_q, scale):
 
 
 def launch(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, vec: int, n_split: int,
-           slice_rows: int) -> torch.Tensor:
-    """Launch the kernel on checked CUDA inputs with a given load width and K
-    slices (``int8_matmul`` plans them; a tuning sweep sets them).  bf16: the
-    slices are the blocks of a cluster, no scratch; fp32: an fp32 scratch of
-    ``n_split`` partials."""
+           slice_rows: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel on checked CUDA inputs of at most ``MAX_ROWS`` rows
+    with a given load width and K slices (``int8_matmul`` plans them; a
+    tuning sweep sets them), into ``out`` (contiguous rows) or a new tensor.
+    bf16: the slices are the blocks of a cluster, no scratch; fp32: an fp32
+    scratch of ``n_split`` partials."""
     from ._build import kernel_function
 
     fn = kernel_function("int8_matmul", "int8_matmul_fwd", _ARGTYPES)
     B, K = x.shape
     N = w_q.shape[1]
-    out = torch.empty(B, N, dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty(B, N, dtype=x.dtype, device=x.device)
     part = None
     if x.dtype == torch.float32 and n_split > 1:
         part = torch.empty(n_split * B * N, dtype=torch.float32, device=x.device)
@@ -133,7 +136,10 @@ def launch(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, vec: int, n_
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``x [B, K] @ (w_q int8 [K, N] * scale [N])`` in ``x.dtype``.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    tensors take the plain version; CUDA tensors launch the kernel or raise.
+    Above ``MAX_ROWS`` rows the kernel runs once for each group of
+    ``MAX_ROWS`` rows, each with the same plan: a row's bits depend on its
+    own values and the weight's shape only."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_q, scale)
     if x.device.type != "cuda":
@@ -141,10 +147,25 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torc
     _check(x, w_q, scale)
     K, N = w_q.shape
     if x.dtype == torch.bfloat16:
-        return launch(x, w_q, scale, copy_width(N, w_q.data_ptr()), *cluster_plan(K, N))
-    vec = vector_width(N, w_q.data_ptr())
-    n_split = split_plan(K, N, vec)
-    return launch(x, w_q, scale, vec, n_split, -(-K // n_split))
+        plan = (copy_width(N, w_q.data_ptr()), *cluster_plan(K, N))
+    else:
+        vec = vector_width(N, w_q.data_ptr())
+        n_split = split_plan(K, N, vec)
+        plan = (vec, n_split, -(-K // n_split))
+    return in_row_groups(x, N, lambda xg, out: launch(xg, w_q, scale, *plan, out=out))
+
+
+def in_row_groups(x: torch.Tensor, n_cols: int, launch_group) -> torch.Tensor:
+    """``launch_group(x_rows, out_rows)`` once for each group of ``MAX_ROWS``
+    rows of ``x``, writing the rows of one [B, n_cols] output; one launch
+    and no copy for up to ``MAX_ROWS`` rows."""
+    B = x.shape[0]
+    if B <= MAX_ROWS:
+        return launch_group(x, None)
+    out = torch.empty(B, n_cols, dtype=x.dtype, device=x.device)
+    for g in range(0, B, MAX_ROWS):
+        launch_group(x[g:g + MAX_ROWS], out[g:g + MAX_ROWS])
+    return out
 
 
 int8_matmul.launches = 0

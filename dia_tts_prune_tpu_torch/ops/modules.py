@@ -6,14 +6,15 @@ in the JAX layout:
 
 * ``dense_general`` contracts the trailing axes of ``x`` against the leading
   axes of a kernel stored ``in_shapes + out_features`` (reference:
-  dia/layers.py:35-66), one ``tensordot`` (on the card, up to 64 rows at
-  exactly 64: ``fixed_rows_matmul``); a packed kernel
-  (``ops/quant.py``) goes to the int8-matmul or int4-GEMV kernel, a
+  dia/layers.py:35-66), one ``tensordot`` (a decode step's on the
+  dense-rows kernel, whose rows keep their bits at any row count); a packed
+  kernel (``ops/quant.py``) goes to the int8-matmul or int4-GEMV kernel, a
   block-sparse one (``ops/sparse.py``) to the block-sparse matmul;
 * GQA attention reshapes queries to [B, T, Nkv, G, H] and contracts them
   against un-repeated K/V;
 * norms, the SiLU gate, RoPE trig and softmax run in float32 whatever the
-  compute dtype (reference: dia/layers.py:101,161-173,393).
+  compute dtype (reference: dia/layers.py:101,161-173,393); ``rms_norm``
+  is the RMSNorm kernel's wrapper (``ops/kernels/rms_norm.py``).
 
 A float32 contraction on the card must stay true fp32: PyTorch's default
 ``torch.backends.cuda.matmul.allow_tf32 = False`` gives that; callers that
@@ -29,9 +30,11 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from .kernels.dense_rows import dense_rows
 from .kernels.flash_attention import flash_attention, flash_attention_trainable
 from .kernels.int4_gemv import int4_gemv
 from .kernels.int8_matmul import MAX_ROWS, int8_matmul
+from .kernels.rms_norm import rms_norm  # noqa: F401  (the model's norm, imported from here)
 from .kernels.sparse_matmul import block_sparse_matmul
 from .quant import Quantized4Kernel, QuantizedKernel, dequantize4
 from .sparse import BlockSparseKernel
@@ -41,54 +44,57 @@ Params = dict[str, Any]
 NEG = torch.finfo(torch.float32).min
 
 
-def dense_general(x: torch.Tensor, kernel, axis: tuple[int, ...] = (-1,)) -> torch.Tensor:
+def dense_general(x: torch.Tensor, kernel, axis: tuple[int, ...] = (-1,),
+                  decode: bool = False) -> torch.Tensor:
     """Contract ``axis`` of ``x`` against the leading axes of ``kernel``
     (reference: dia/layers.py:55-66).  No bias.  ``kernel`` is a tensor, a
     packed ``QuantizedKernel`` / ``Quantized4Kernel`` or a
-    ``BlockSparseKernel`` (trailing axes only)."""
+    ``BlockSparseKernel`` (trailing axes only).
+
+    ``decode``: a decode step's contraction (``models.dia.decode_step`` says
+    so), whose rows must keep their bits whatever the other rows of the call
+    are — a continuous-batching lane equals its solo run, a speculative
+    verify row the loop step at its slot.  A float one that needs no
+    gradient goes to ``dense_rows`` (on the card its kernel, whose plan is
+    read from the weight's shape alone; cuBLAS picks its sum order by the row
+    count).  Prompt prefill, the cross-attention K/V and everything under
+    autograd keep ``torch.tensordot``: the JAX package computes them outside
+    any Pallas kernel too."""
     if isinstance(kernel, (QuantizedKernel, Quantized4Kernel)):
-        return _dense_general_packed(x, kernel, axis)
+        return _dense_general_packed(x, kernel, axis, decode)
     if isinstance(kernel, BlockSparseKernel):
         return _dense_general_sparse(x, kernel, axis)
     n_in = len(axis)
     norm_axis = [ax if ax >= 0 else x.dim() + ax for ax in axis]
     x = x.to(kernel.dtype)
-    lead = x.shape[: x.dim() - n_in]
-    if x.is_cuda and norm_axis == list(range(x.dim() - n_in, x.dim())) \
-            and math.prod(lead) <= MAX_ROWS:
+    if decode and norm_axis == list(range(x.dim() - n_in, x.dim())) and not (
+            torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad)):
+        lead = x.shape[: x.dim() - n_in]
         K = math.prod(x.shape[x.dim() - n_in:])
-        y = fixed_rows_matmul(x.reshape(-1, K), kernel.reshape(K, -1))
+        y = dense_rows(x.reshape(-1, K).contiguous(), kernel.reshape(K, -1))
         return y.reshape(*lead, *kernel.shape[n_in:])
     return torch.tensordot(x, kernel, dims=(norm_axis, list(range(n_in))))
 
 
-def fixed_rows_matmul(x2: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """``x2 @ w2`` for up to ``MAX_ROWS`` rows (every float contraction of a
-    decode step), computed at exactly ``MAX_ROWS`` rows, the rest zeros.
-    cuBLAS picks its algorithm, and with it the order in which each output
-    sums, by the row count: at 2 rows against 4 it sums Dia-1.6B's logits
-    head (2048 x 9252) in another order, so a batched stream's logits left
-    its single-stream run's by a bf16 step.  At one row count a row's bits do
-    not depend on the rows beside it, for any batch of up to 32 streams."""
-    rows = x2.shape[0]
-    return (F.pad(x2, (0, 0, 0, MAX_ROWS - rows)) @ w2)[:rows]
-
-
-def _dense_general_packed(x: torch.Tensor, qk, axis: tuple[int, ...]) -> torch.Tensor:
+def _dense_general_packed(x: torch.Tensor, qk, axis: tuple[int, ...],
+                          decode: bool) -> torch.Tensor:
     """Contraction against a packed kernel; activations keep their dtype.
 
     The route follows the JAX dispatcher's own rule (its ops/modules.py:160,
-    ops/kernels/int4_gemv.py:98), by shape and device only:
+    ops/kernels/int4_gemv.py:98), by shape and device, and keeps a decode
+    step's contractions on the kernels at any row count:
 
-    * up to 64 rows — every contraction of a decode step — the int8-matmul
-      or int4-GEMV wrapper: the CUDA kernel on the card, the plain version
-      on the CPU;
-    * more rows on the card (prompt prefill, the cross-attention K/V of the
-      text) are large matrix products, which the JAX package also computes
-      outside any Pallas kernel (``int8_matmul_upcast``,
-      ``int4_matmul_halfsplit*``): the weight is widened to ``x.dtype`` and
-      goes to ``torch.matmul``; int8 scales multiply the fp32 result, int4
-      scales (per group) are folded into the widened weight.
+    * a decode step's contractions (``decode``), and up to 64 rows of any
+      other, the int8-matmul or int4-GEMV wrapper: the CUDA kernel on the
+      card (above 64 rows in groups of 64, each with the plan of a 64-row
+      call, so a lane's rows keep their bits), the plain version on the CPU;
+    * more rows outside a decode step on the card (prompt prefill, the
+      cross-attention K/V of the text) are large matrix products, which the
+      JAX package also computes outside any Pallas kernel
+      (``int8_matmul_upcast``, ``int4_matmul_halfsplit*``): the weight is
+      widened to ``x.dtype`` and goes to ``torch.matmul``; int8 scales
+      multiply the fp32 result, int4 scales (per group) are folded into the
+      widened weight.
     """
     n_in = len(axis)
     if n_in != len(qk.in_shape):
@@ -98,7 +104,7 @@ def _dense_general_packed(x: torch.Tensor, qk, axis: tuple[int, ...]) -> torch.T
     lead = x.shape[: x.dim() - n_in]
     x2 = x.reshape(-1, K).contiguous()
     int8 = isinstance(qk, QuantizedKernel)
-    if x2.is_cuda and x2.shape[0] > MAX_ROWS:
+    if x2.is_cuda and x2.shape[0] > MAX_ROWS and not decode:
         if int8:
             y = ((x2 @ qk.values.to(x2.dtype)).float() * qk.scale.reshape(1, N)).to(x2.dtype)
         else:
@@ -127,27 +133,6 @@ def _dense_general_sparse(x: torch.Tensor, sk: BlockSparseKernel,
     x2 = x.reshape(-1, K).to(sk.values.dtype).contiguous()
     y = block_sparse_matmul(x2, sk.values, sk.indices, sk.counts, sk.block_k, sk.block_n)
     return y.reshape(*lead, *sk.out_shape)
-
-
-NORM_PARTS = 16  # partial means a row's mean of squares is taken from
-
-
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in float32 (reference: torch.nn.RMSNorm at dia/layers.py:360-393).
-
-    The mean of squares is the mean of ``NORM_PARTS`` partial means of a
-    row's consecutive values.  A CUDA reduction's launch shape — how many
-    threads share an output, and so the order its sum is taken in — follows
-    its output count, and from 16 outputs on it no longer changes: split so,
-    a row's bits do not depend on how many rows the call holds (a decode step
-    holds two a stream, so a batched stream would otherwise leave its
-    single-stream run).  The width must be a multiple of ``NORM_PARTS``."""
-    D = x.shape[-1]
-    if D % NORM_PARTS:
-        raise ValueError(f"rms_norm width {D} is not a multiple of {NORM_PARTS}")
-    x32 = x.float()
-    var = x32.square().unflatten(-1, (NORM_PARTS, D // NORM_PARTS)).mean(-1).mean(-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def rope(
@@ -237,16 +222,17 @@ class _ModelCopy(torch.autograd.Function):
         return grad, None
 
 
-def mlp_block(params: Params, x: torch.Tensor, group=None) -> torch.Tensor:
+def mlp_block(params: Params, x: torch.Tensor, group=None, decode: bool = False) -> torch.Tensor:
     """SwiGLU MLP with the fused gate/up kernel [D, 2, F] (reference:
     dia/layers.py:69-105); SiLU on the gate runs in float32.  Under a model
     group each rank holds a slice of F, and the ranks' partial sums over D
     are added (``model_psum``); the gradient of ``x`` is summed over them
-    (``model_copy``)."""
-    fused = dense_general(model_copy(x, group), params["wi_fused"]["kernel"])  # [..., 2, F]
+    (``model_copy``).  ``decode`` as in ``dense_general``."""
+    fused = dense_general(model_copy(x, group), params["wi_fused"]["kernel"],
+                          decode=decode)  # [..., 2, F]
     gate, up = fused[..., 0, :], fused[..., 1, :]
     hidden = F.silu(gate.float()).to(x.dtype) * up
-    return model_psum(dense_general(hidden, params["wo"]["kernel"]), group)
+    return model_psum(dense_general(hidden, params["wo"]["kernel"], decode=decode), group)
 
 
 def sdpa(
@@ -291,20 +277,24 @@ def attention_qkv(
     kv_positions: torch.Tensor,  # [B, Tkv]
     rope_min: float,
     rope_max: float,
+    decode: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project q/k/v and apply RoPE to q and k (reference: dia/layers.py:271-279)."""
-    q = dense_general(x_q, params["q_proj"]["kernel"])
-    k = dense_general(x_kv, params["k_proj"]["kernel"])
-    v = dense_general(x_kv, params["v_proj"]["kernel"])
+    """Project q/k/v and apply RoPE to q and k (reference: dia/layers.py:271-279);
+    ``decode`` as in ``dense_general``."""
+    q = dense_general(x_q, params["q_proj"]["kernel"], decode=decode)
+    k = dense_general(x_kv, params["k_proj"]["kernel"], decode=decode)
+    v = dense_general(x_kv, params["v_proj"]["kernel"], decode=decode)
     return rope(q, q_positions, rope_min, rope_max), rope(k, kv_positions, rope_min, rope_max), v
 
 
-def attention_out(params: Params, attn: torch.Tensor, group=None) -> torch.Tensor:
+def attention_out(params: Params, attn: torch.Tensor, group=None,
+                  decode: bool = False) -> torch.Tensor:
     """Output projection contracting (head, head_dim) (reference:
     dia/layers.py:222-227).  Under a model group each rank holds a slice of
     the heads, and the ranks' partial sums over D are added
-    (``model_psum``)."""
-    return model_psum(dense_general(attn, params["o_proj"]["kernel"], axis=(-2, -1)), group)
+    (``model_psum``).  ``decode`` as in ``dense_general``."""
+    return model_psum(dense_general(attn, params["o_proj"]["kernel"], axis=(-2, -1),
+                                    decode=decode), group)
 
 
 def full_attention(

@@ -50,3 +50,15 @@ def test_build_keeps_the_ptxas_report_beside_the_library(fake_nvcc):
     for name in names:
         assert again[name]["cached"] and again[name]["log"] == first[name]["log"]
     assert not [p for p in os.listdir(_build.BUILD_DIR) if p.startswith("tmp")]
+
+
+def test_kernel_sources_are_every_cuda_source(fake_nvcc):
+    """``KERNEL_SOURCES`` names every ``csrc/*.cu`` (the dense-rows and
+    RMSNorm kernels among them), and ``build_all`` builds each, one nvcc
+    a source."""
+    on_disk = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    assert sorted(_build.KERNEL_SOURCES) == on_disk
+    assert {"dense_rows", "rms_norm"} <= set(_build.KERNEL_SOURCES)
+    built = _build.build_all()
+    assert sorted(built) == on_disk and not any(v["cached"] for v in built.values())
+    assert len(fake_nvcc.read_text().splitlines()) == len(on_disk)

@@ -491,3 +491,19 @@ def test_random_init_default_device_needs_cuda():
         pytest.skip("this machine has CUDA; the refusal is for machines without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Dia.random_init(tiny_test_config())
+
+
+def test_orbax_directory_raises_a_value_error_naming_the_formats(tmp_path):
+    """An orbax checkpoint directory (the JAX ``save_checkpoint`` of a tiny
+    tree, which the JAX ``from_local`` restores) is refused with a
+    ``ValueError`` that names the formats the port reads and the way across,
+    not torch's ``IsADirectoryError``."""
+    from dia_tts_prune_tpu.checkpoint import save_checkpoint
+
+    ckpt = tmp_path / "orbax"
+    save_checkpoint(ckpt, {"w": np.zeros((2, 3), np.float32)})
+    assert ckpt.is_dir()
+    cfg_path = tmp_path / "config.json"
+    tiny_test_config().save(cfg_path)
+    with pytest.raises(ValueError, match="safetensors.*torch state dict.*save_pretrained"):
+        Dia.from_local(cfg_path, ckpt, device="cpu")

@@ -213,3 +213,25 @@ def test_the_slices_are_whole_stages(K, N):
     assert slice_ % KC == 0 and cluster * slice_ >= K
     assert cluster == 1 or slice_ >= i8.MIN_CLUSTER_SLICE
     assert -(-N // STRIP) * cluster <= max(i8.CLUSTER_BLOCKS, -(-N // STRIP))
+
+
+@pytest.mark.parametrize("B", [1, 64, 65, 80, 130])
+def test_rows_past_64_go_in_groups_of_64(B):
+    """The int8 and int4 wrappers' ``in_row_groups``: one launch with no
+    output of its own for up to 64 rows; above, one launch for each group of
+    64 rows (the last holds the rest), each writing its rows of one output."""
+    x = torch.arange(B * 3, dtype=torch.float32).reshape(B, 3)
+    groups = []
+
+    def launch_group(xg, out):
+        groups.append((xg.shape[0], out is None))
+        y = xg.sum(1, keepdim=True).expand(-1, 5)
+        if out is None:
+            return y.clone()
+        out.copy_(y)
+        return out
+
+    y = i8.in_row_groups(x, 5, launch_group)
+    torch.testing.assert_close(y, x.sum(1, keepdim=True).expand(-1, 5), rtol=0, atol=0)
+    sizes = [min(64, B - g) for g in range(0, B, 64)]
+    assert groups == [(n, B <= 64) for n in sizes]

@@ -440,14 +440,15 @@ def test_int8_kernel_matches_plain_on_card(cuda_device, dtype, rtol, atol, B, K,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K,N", [(2048, 2048), (1000, 1027)])
 def test_int8_rows_do_not_depend_on_the_batch(cuda_device, dtype, K, N):
-    """The rows of a B = 8 and a B = 64 call equal the same rows called two
-    at a time, bit for bit, and a second call gives the same bits: the
-    slices come from the weight's shape, never from B."""
+    """The rows of a B = 8, 64, 80 and 130 call (above 64 in groups of 64)
+    equal the same rows called two at a time, bit for bit, and a second call
+    gives the same bits: the slices come from the weight's shape, never from
+    B."""
     rng = np.random.default_rng(24)
     qk = quant.quantize_int8(_t(_normal(rng, (K, N))).to(cuda_device))
     scale = qk.scale.reshape(N)
-    x = _t(_normal(rng, (64, K))).to(cuda_device, dtype)
-    for B in (8, 64):
+    x = _t(_normal(rng, (130, K))).to(cuda_device, dtype)
+    for B in (8, 64, 80, 130):
         out = int8_matmul(x[:B].contiguous(), qk.values, scale)
         assert torch.equal(int8_matmul(x[:B].contiguous(), qk.values, scale), out)
         for i in range(0, B, 2):
@@ -513,16 +514,16 @@ INT4_FORMS = [(128, "halfsplit"), (None, "halfsplit"), (128, "parity"), (None, "
 @pytest.mark.parametrize("K,N,group,layout", [(2048, 2048, g, lay) for g, lay in INT4_FORMS] + [
     (1000, 1027, None, "halfsplit"), (1000, 1027, 100, "halfsplit"), (1000, 1027, 50, "parity")])
 def test_int4_rows_do_not_depend_on_the_batch(cuda_device, K, N, group, layout):
-    """bf16: the rows of a B = 8 and a B = 64 call equal the same rows called
-    two at a time and one at a time, bit for bit, and a second call gives the
-    same bits: the slices and the scale flushes come from the weight's shape,
-    never from B."""
+    """bf16: the rows of a B = 8, 64, 80 and 130 call (above 64 in groups of
+    64) equal the same rows called two at a time and one at a time, bit for
+    bit, and a second call gives the same bits: the slices and the scale
+    flushes come from the weight's shape, never from B."""
     rng = np.random.default_rng(26)
     qk = quant.quantize_int4(_t(_normal(rng, (K, N))).to(cuda_device), group=group,
                              halfsplit=layout == "halfsplit")
     assert (qk.layout, qk.group) == (layout, group)
-    x = _t(_normal(rng, (64, K))).to(cuda_device, torch.bfloat16)
-    for B in (8, 64):
+    x = _t(_normal(rng, (130, K))).to(cuda_device, torch.bfloat16)
+    for B in (8, 64, 80, 130):
         out = int4_gemv(x[:B].contiguous(), qk.values, qk.scale, layout)
         assert torch.equal(int4_gemv(x[:B].contiguous(), qk.values, qk.scale, layout), out)
         for i in range(0, B, 2):
@@ -561,18 +562,100 @@ def test_int4_bf16_call_is_one_kernel(cuda_device, group, layout, B):
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [2048, 1024])
 def test_rms_norm_rows_do_not_depend_on_the_batch(cuda_device, D):
-    """A row's RMSNorm is the same bits whether the call holds 1, 2, 8, 20
-    or 64 rows of one token, or 2048 rows (the decode step's and the
-    encoder's shapes)."""
+    """A row's RMSNorm is the same bits whether the call holds 1, 2, 8, 20,
+    64, 80 or 130 rows of one token, or 2048 rows (the decode step's, 40
+    lanes', and the encoder's shapes), one launch a call, within fp32
+    summation noise of the plain version."""
+    from dia_tts_prune_tpu_torch.ops.kernels import rms_norm_plain
     from dia_tts_prune_tpu_torch.ops.modules import rms_norm
 
     rng = np.random.default_rng(28)
     x = _t(_normal(rng, (2048, 1, D))).to(cuda_device, torch.bfloat16)
     scale = _t(_normal(rng, (D,))).to(cuda_device, torch.bfloat16)
+    before = rms_norm.launches
     full = rms_norm(x, scale, 1e-5)
-    for B in (1, 2, 8, 20, 64):
-        for i in (0, 5, 64 - B):
+    assert rms_norm.launches == before + 1
+    for B in (1, 2, 8, 20, 64, 80, 130):
+        for i in (0, 5, 130 - B):
             assert torch.equal(rms_norm(x[i:i + B], scale, 1e-5), full[i:i + B])
+    ref = rms_norm_plain(x.float(), scale, 1e-5)
+    assert bool(((full.float() - ref).abs() <= 1e-5 + 2.0 ** -8 * ref.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [2048, 1000, 20])
+def test_rms_norm_kernel_matches_plain_and_its_gradient_autograd(cuda_device, dtype, D):
+    """The kernel against the plain version (fp32 scale and bf16 scale), and
+    under autograd (the card's ``RmsNormFunction``) its gradients against
+    autograd through the plain version on the same values."""
+    from dia_tts_prune_tpu_torch.ops.kernels import rms_norm, rms_norm_plain
+
+    rng = np.random.default_rng(33)
+    x = _t(_normal(rng, (3, 5, D))).to(cuda_device, dtype)
+    for sdt in (torch.float32, torch.bfloat16):
+        scale = _t(1.0 + 0.1 * _normal(rng, (D,))).to(cuda_device, sdt)
+        out = rms_norm(x, scale, 1e-5)
+        assert out.dtype == dtype and out.shape == x.shape
+        ref = rms_norm_plain(x.float(), scale, 1e-5)
+        rtol = 0.0 if dtype == torch.float32 else 2.0 ** -8
+        assert bool(((out.float() - ref).abs() <= 1e-5 + rtol * ref.abs()).all())
+    xs = x.float().requires_grad_()
+    ss = scale.float().requires_grad_()
+    g = _t(_normal(rng, (3, 5, D))).to(cuda_device)
+    rms_norm(xs, ss, 1e-5).backward(g)
+    xr, sr = xs.detach().clone().requires_grad_(), ss.detach().clone().requires_grad_()
+    rms_norm_plain(xr, sr, 1e-5).backward(g)
+    torch.testing.assert_close(xs.grad, xr.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ss.grad, sr.grad, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol,atol", TOLS)
+@pytest.mark.parametrize("M,K,N,offset", [(2, 2048, 9252, 0), (80, 2048, 512, 0),
+                                          (130, 1000, 1027, 0), (1, 40, 7, 0),
+                                          (3, 2048, 9252, 8), (5, 1000, 1042, 2)])
+def test_dense_rows_kernel_matches_plain_on_card(cuda_device, dtype, rtol, atol, M, K, N, offset):
+    """``offset`` > 0: the weight is a view that starts that many bytes into
+    its storage, at least one value (8: 4-byte copies in bf16, 1-float loads
+    in fp32; 2: single values in bf16, 4 bytes in)."""
+    from dia_tts_prune_tpu_torch.ops.kernels import dense_rows, dense_rows_plain
+
+    rng = np.random.default_rng(34)
+    w0 = _t(_normal(rng, (K, N)) / np.sqrt(K)).to(cuda_device, dtype)
+    w = w0
+    if offset:
+        n = max(1, offset // w0.element_size())
+        w = torch.empty(K * N + n, dtype=dtype, device=cuda_device)[n:]
+        w = w.view(K, N)
+        w.copy_(w0)
+        assert w.data_ptr() % 16 != 0 and w.is_contiguous()
+    x = _t(_normal(rng, (M, K))).to(cuda_device, dtype)
+    before = dense_rows.launches
+    out = dense_rows(x, w)
+    assert dense_rows.launches == before + 1
+    assert out.dtype == dtype and out.shape == (M, N)
+    assert torch.equal(out, dense_rows(x, w))  # no atomics: repeatable
+    _assert_gemv_close(out, dense_rows_plain(x.float(), w0.float()), x, w0.float(), rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [2, 64, 80])
+def test_dense_rows_bf16_call_is_one_kernel(cuda_device, M):
+    """A bf16 call runs one kernel whatever M (grid.z walks the groups of 64
+    rows) and allocates nothing but its output."""
+    import chip_smoke
+    from dia_tts_prune_tpu_torch.ops.kernels import dense_rows
+
+    rng = np.random.default_rng(35)
+    w = _t(_normal(rng, (2048, 2048))).to(cuda_device, torch.bfloat16)
+    x = _t(_normal(rng, (M, 2048))).to(cuda_device, torch.bfloat16)
+    dense_rows(x, w)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = dense_rows(x, w)
+    assert torch.cuda.memory_allocated() - before == out.untyped_storage().nbytes()
+    assert chip_smoke.kernels_per_call(torch, lambda: dense_rows(x, w)) == 1
 
 
 @pytest.mark.gpu
@@ -580,22 +663,31 @@ def test_rms_norm_rows_do_not_depend_on_the_batch(cuda_device, D):
 @pytest.mark.parametrize("shape", [((2048,), (9, 1028)), ((2048,), (2048,)), ((2048,), (512,)),
                                    ((2048,), (2, 8192)), ((8192,), (2048,)), ((16, 128), (2048,))])
 def test_float_dense_rows_do_not_depend_on_the_batch(cuda_device, dtype, shape):
-    """A float decode-step contraction (``dense_general``, up to 64 rows)
-    gives a row the same bits whether the call holds 1, 2, 4, 8, 16 or 64
-    rows: the Dia-1.6B decode shapes, the logits head (2048 x 9 x 1028)
-    first, whose cuBLAS sums at 4 rows once differed from those at 2."""
+    """A float decode-step contraction (``dense_general(decode=True)``: the
+    dense-rows kernel) gives a row the same bits whether the call holds 1, 2,
+    4, 8, 16, 64, 80 or 130 rows: the Dia-1.6B decode shapes, the logits head
+    (2048 x 9 x 1028) first, whose cuBLAS sums at 4 rows once differed from
+    those at 2; and it stays within the GEMV gate of the plain version."""
+    from dia_tts_prune_tpu_torch.ops.kernels import dense_rows, dense_rows_plain
     from dia_tts_prune_tpu_torch.ops.modules import dense_general
 
     k_in, k_out = shape
     rng = np.random.default_rng(31)
     kernel = _t(_normal(rng, k_in + k_out) / np.sqrt(np.prod(k_in))).to(cuda_device, dtype)
-    x = _t(_normal(rng, (64, 1, *k_in))).to(cuda_device, dtype)
+    x = _t(_normal(rng, (130, 1, *k_in))).to(cuda_device, dtype)
     axis = tuple(range(-len(k_in), 0))
-    full = dense_general(x, kernel, axis)
-    assert full.shape == (64, 1, *k_out)
-    for B in (1, 2, 4, 8, 16, 64):
-        for i in (0, 6, 64 - B):
-            assert torch.equal(dense_general(x[i:i + B], kernel, axis), full[i:i + B]), (B, i)
+    before = dense_rows.launches
+    full = dense_general(x, kernel, axis, decode=True)
+    assert dense_rows.launches == before + 1
+    assert full.shape == (130, 1, *k_out)
+    for B in (1, 2, 4, 8, 16, 64, 80, 130):
+        for i in (0, 6, 130 - B):
+            assert torch.equal(dense_general(x[i:i + B], kernel, axis, decode=True),
+                               full[i:i + B]), (B, i)
+    K = int(np.prod(k_in))
+    x2, w2 = x.reshape(130, K).float(), kernel.reshape(K, -1).float()
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -8
+    _assert_gemv_close(full.reshape(130, -1), dense_rows_plain(x2, w2), x2, w2, rtol)
 
 
 @pytest.mark.gpu

@@ -24,6 +24,7 @@ from dia_tts_prune_tpu_torch.ops import delay as tdelay
 from dia_tts_prune_tpu_torch.ops import masks as tmasks
 from dia_tts_prune_tpu_torch.ops import modules as tmod
 from dia_tts_prune_tpu_torch.ops import sampling as tsamp
+from dia_tts_prune_tpu_torch.ops.kernels import dense_rows_plain
 
 # Several pytest workers run at once: one intra-op thread each keeps torch's
 # thread pools from spinning on each other's cores (these tensors are tiny).
@@ -60,12 +61,12 @@ def test_rms_norm(rng):
     _close(tmod.rms_norm(_t(x), _t(s), 1e-5), jmod.rms_norm(jnp.asarray(x), jnp.asarray(s), 1e-5))
 
 
-def test_rms_norm_width_must_be_a_multiple_of_its_parts():
-    """The mean of squares is always taken over ``NORM_PARTS`` partial means:
-    a width that does not split so is refused, not normed another way."""
-    x = torch.ones(2, 1, tmod.NORM_PARTS + 4)
-    with pytest.raises(ValueError, match="multiple"):
-        tmod.rms_norm(x, torch.ones(x.shape[-1]), 1e-5)
+@pytest.mark.parametrize("D", [20, 33, 1000])
+def test_rms_norm_any_width_equals_jax(rng, D):
+    """Any width is normed, one not a multiple of 16 among them (the plain
+    fp32 mean of squares, as the JAX ``rms_norm`` takes it)."""
+    x, s = rng.normal(size=(3, 2, D)).astype(np.float32), rng.normal(size=D).astype(np.float32)
+    _close(tmod.rms_norm(_t(x), _t(s), 1e-5), jmod.rms_norm(jnp.asarray(x), jnp.asarray(s), 1e-5))
 
 
 @pytest.mark.parametrize("H", [32, 64, 128])
@@ -90,16 +91,18 @@ def test_dense_general_and_mlp(rng):
            atol=1e-5)
 
 
-@pytest.mark.parametrize("rows", [1, 2, 7, 64])
-def test_fixed_rows_matmul_equals_jax_dense(rng, rows):
-    """The card's route for float contractions of up to 64 rows (computed
-    at 64 rows, the padding cut off) against the JAX contraction."""
+@pytest.mark.parametrize("rows", [1, 2, 7, 64, 80])
+def test_dense_rows_plain_equals_jax_dense(rng, rows):
+    """The decode step's route for float contractions (``dense_general(...,
+    decode=True)``: ``dense_rows``, on the CPU its plain version) against the
+    JAX contraction, at any row count."""
     x = rng.normal(size=(rows, 48)).astype(np.float32)
     w = rng.normal(size=(48, 3, 20)).astype(np.float32)
-    out = tmod.fixed_rows_matmul(_t(x), _t(w).reshape(48, -1))
+    out = dense_rows_plain(_t(x), _t(w).reshape(48, -1))
     assert out.shape == (rows, 60)
-    _close(out.reshape(rows, 3, 20), jmod.dense_general(jnp.asarray(x), jnp.asarray(w)),
-           atol=1e-5)
+    ref = jmod.dense_general(jnp.asarray(x), jnp.asarray(w))
+    _close(out.reshape(rows, 3, 20), ref, atol=1e-5)
+    _close(tmod.dense_general(_t(x), _t(w), decode=True), ref, atol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])

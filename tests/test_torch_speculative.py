@@ -393,17 +393,28 @@ def test_trained_deep_speculative_equals_golden():
 
 
 def test_limits_raise(models, step_inputs):
-    """W = 33 raises (the generator and ``decode_step`` on 33 rows), and so
-    does ``kv_int8=True`` and an int8 cache in a window ``decode_step``."""
+    """``kv_int8=True`` raises, and so does an int8 cache in a window
+    ``decode_step``; a window of 33 rows runs (the JAX ``decode_window`` has
+    no cap), and so does a generator of W = 33 (``test_window_33_equals_the_loop``)."""
     _, _, cfg, tp = models
-    with pytest.raises(ValueError, match="window"):
-        SpeculativeGenerator(tp, cfg, window=33, device="cpu")
     _, t_cache = _caches(step_inputs)
     tgt = torch.zeros(2, 33, cfg.data.channels, dtype=torch.int32)
-    with pytest.raises(ValueError, match="window 33"):
-        _window(tp, cfg, tgt, 0, t_cache, step_inputs)
+    assert _window(tp, cfg, tgt, 0, t_cache, step_inputs).shape[:2] == (2, 33)
     with pytest.raises(ValueError, match="float"):
         _window(tp, cfg, tgt[:, :4], 0, tdia.quantize_cache(t_cache), step_inputs)
     spec = SpeculativeGenerator(tp, cfg, window=4, device="cpu")
     with pytest.raises(ValueError, match="kv_int8"):
         spec.generate_tokens(TEXT, max_tokens=40, kv_int8=True)
+
+
+def test_window_33_equals_the_loop(models):
+    """W = 33 (66 verify rows, past the 64 of one kernel launch on the
+    card), the full model as the draft so that every window is accepted:
+    greedy tokens equal the loop's."""
+    _, _, cfg, tp = models
+    kw = dict(max_tokens=120, temperature=0.0)
+    loop = DiaGenerator(tp, cfg, device="cpu").generate_tokens(TEXT, **kw)
+    spec = SpeculativeGenerator(tp, cfg, n_draft_layers=cfg.model.decoder.n_layer, window=33,
+                                device="cpu")
+    np.testing.assert_array_equal(spec.generate_tokens(TEXT, **kw), loop)
+    assert spec.stats["windows"] > 0 and spec.acceptance_rate == 1.0
