@@ -30,14 +30,15 @@ script exits non-zero:
                rows, T = 3072, ends 1537-1544: bit-equal to eight one-query
                calls, SDPA on the same masked window); the two kernels of the
                port's own (no Pallas counterpart): ``dense_rows`` (bf16 and
-               fp32 at the five decode shapes, 2, 8, 64 and 80 rows, beside
-               cuBLAS at those rows and padded to 64-row groups; odd shapes,
-               unaligned weights, 130 rows) and ``rms_norm`` (D = 2048 and
+               fp32 at the five decode shapes, 2, 8, 64, 80 and 130 rows,
+               beside cuBLAS at those rows and padded to 64-row groups; odd
+               shapes, unaligned weights) and ``rms_norm`` (D = 2048 and
                1024 at 2, 64 and 2048 rows, beside the ATen composition and
-               ``F.rms_norm``); a row-bits probe (the same bf16 rows at 80,
-               16 and 2 at a time through ``dense_rows``, ``rms_norm``, the
-               int8 matmul, the int4 GEMV and the block-sparse matmul:
-               bit-equal, or not, per op; the first two must be); the
+               ``F.rms_norm``); a row-bits probe (the same bf16 rows 130 at
+               once and 128, 80, 64, 16, 2 and 1 at a time through
+               ``dense_rows``, ``rms_norm``, the int8 matmul, the int4 GEMV
+               and the block-sparse matmul: bit-equal, or not, per op; the
+               first two must be); the
                three training kernels (flash forward with log-sum-exp,
                dK/dV, dQ) at the three attention
                shapes of a Dia-1.6B training step, decoder self-attention at
@@ -378,7 +379,7 @@ def ptxas_report(log: str) -> dict:
     the bf16 int8-matmul kernel by n-tiles of 8 rows and weight copy width, the
     bf16 int4 GEMV by n-tiles, layout, copy width and whether scale segments
     may end inside a k-step, the fused step by n-tiles of x a pass, the
-    bf16 dense-rows kernel by n-tiles and weight copy width."""
+    bf16 dense-rows kernel by row tiles of 16 and weight route."""
     import re
 
     report, name = {}, None
@@ -390,12 +391,13 @@ def ptxas_report(log: str) -> dict:
     i4 = re.compile(r"Function properties for \S*?int4_gemv_mma_kernelILi(\d+)ELi([01])ELi(\d+)"
                     r"ELb([01])E")
     fs = re.compile(r"Function properties for \S*?fused_step_kernelILi(\d+)E")
-    dr = re.compile(r"Function properties for \S*?dense_rows_mma_kernelILi(\d+)ELi(\d+)E")
+    dr = re.compile(r"Function properties for \S*?dense_rows_wgmma_kernelILi(\d+)ELi(\d+)E")
     types = {"13__nv_bfloat16S1_": "bf16, bf16", "13__nv_bfloat16a": "bf16, int8",
              "ff": "float, float", "fa": "float, int8"}
     for line in log.splitlines():
         if m := dr.search(line):
-            name = f"dense_rows_mma_kernel<{m.group(1)} n-tiles, copies of {m.group(2)} B>"
+            route = ("TMA", "8-byte copies, x by TMA", "thread copies")[int(m.group(2))]
+            name = f"dense_rows_wgmma_kernel<{m.group(1)} row tiles, {route}>"
             report[name] = {}
         elif m := fs.search(line):
             name = f"fused_step_kernel<{m.group(1)} n-tiles>"
@@ -1086,7 +1088,10 @@ def sparse_rows_case(torch) -> None:
                 raise RuntimeError(f"block_sparse_matmul {dtype}: a row depends on the row count")
 
 
-PROBE_ROWS = (2, 16, 80)  # a decode step's rows, the W = 8 verify pass's, 40 lanes'
+# each count of rows against 130 at once: one row, a decode step's, the W = 8
+# verify pass's, the int8 matmul's 64-row group, 40 lanes', the dense-rows
+# kernel's 128-row group (and two groups at 130)
+PROBE_ROWS = (1, 2, 16, 64, 80, 128, 130)
 PROBE_SHAPES = {"attn_2048x2048": (2048, 2048), "mlp_wi_2048x16384": (2048, 16384),
                 "mlp_wo_8192x2048": (8192, 2048), "logits_2048x9252": (2048, 9252)}
 
@@ -1094,8 +1099,8 @@ PROBE_SHAPES = {"attn_2048x2048": (2048, 2048), "mlp_wi_2048x16384": (2048, 1638
 def row_bits_probe(torch) -> dict:
     """The verify pass and continuous-batching lanes send more rows through
     the ops a decode step sends 2 rows through: do a row's bits depend on the
-    row count?  The same bf16 x rows, 80 at once (two groups of 64 for the
-    kernels that cut rows so), 16 and two at a time, through ``dense_rows``,
+    row count?  The same bf16 x rows, 130 at once (two groups for the kernels
+    that cut rows so), and 128, 80, 64, 16, 2 and one at a time, through ``dense_rows``,
     ``rms_norm`` (width 2048), the int8 matmul, the int4 GEMV (group 128,
     halfsplit: ``quantize_int4()``'s default) and the block-sparse matmul
     (0.5 of 256 x 256 blocks) at the decode step's widths.  The float gates
@@ -1142,14 +1147,16 @@ def row_bits_probe(torch) -> dict:
             lambda a: block_sparse_matmul(a, sk.values, sk.indices, sk.counts, *SPARSE_BLOCK), x)
         del w, wb, q8, q4, sk
     verdict = {op: all(v.values()) for op, v in result.items()}
-    emit({"phase": "kernels", "case": "row bits at 2, 16 and 80 rows", "dtype": "bfloat16",
+    emit({"phase": "kernels", "case": "row bits at 1 to 128 rows against 130",
+          "dtype": "bfloat16",
           "rows": list(PROBE_ROWS), "equal": result, "all_equal": verdict})
     if not (verdict["dense_rows"] and verdict["rms_norm"]):
         raise RuntimeError(f"row-bits probe: a float op's row depends on the row count: {result}")
     return verdict
 
 
-DENSE_ROWS = (2, 8, 64, 80)  # one stream, four streams, the old 64-row cap, 40 lanes
+# one stream, four streams, the int8 matmul's 64-row group, 40 lanes, two 128-row groups
+DENSE_ROWS = (2, 8, 64, 80, 130)
 
 
 def dense_rows_case(torch, dtype, M, K, N, time_it=True, offset=0) -> dict:
@@ -1188,9 +1195,14 @@ def dense_rows_case(torch, dtype, M, K, N, time_it=True, offset=0) -> dict:
            "bit_identical_over_two_runs": bool(torch.equal(out, again)),
            "weight_offset_values": offset}
     if dtype == "bfloat16":
-        rec["route"] = "mma_bf16"
-        rec["plan"] = {"copy_bytes": dr.copy_width(N, w.data_ptr()),
-                       "cluster_slice": list(i8.cluster_plan(K, N)),
+        route = dr.weight_route(N, w.data_ptr())
+        x_tma = dr.x_by_tma(K, x.data_ptr())
+        if route == dr.TMA and not x_tma:
+            route = 8
+        rec["route"] = "wgmma_bf16"
+        rec["plan"] = {"weight": "tma" if route == dr.TMA else f"copies of {route} B",
+                       "x": "tma" if x_tma and route in (dr.TMA, 8) else "copies",
+                       "cluster_slice": list(dr.row_plan(K, N)),
                        "row_groups": -(-M // dr.GROUP_ROWS)}
         rec["kernels_per_call"] = kernels_per_call(torch, lambda: dense_rows(x, w))
     else:
@@ -1204,7 +1216,7 @@ def dense_rows_case(torch, dtype, M, K, N, time_it=True, offset=0) -> dict:
     if time_it:
         n = max(2, min(64, -(-COLD_BYTES // (e * K * N))))
         ws = [w.clone() for _ in range(n)]
-        padded = torch.zeros(-(-M // dr.GROUP_ROWS) * dr.GROUP_ROWS, K, dtype=dt, device="cuda")
+        padded = torch.zeros(-(-M // 64) * 64, K, dtype=dt, device="cuda")
         padded[:M] = x
         turn = iter(range(1 << 30))
         rec["ms"] = graph_ms(torch, lambda: dense_rows(x, ws[next(turn) % n]), iters=2 * n)
@@ -1269,15 +1281,16 @@ def rms_norm_case(torch, dtype, rows, D, time_it=True) -> dict:
 
 def phase_row_kernels(torch) -> dict:
     """The two kernels of the port's own (no Pallas counterpart): ``dense_rows``
-    at the five decode shapes, bf16 and fp32, at ``DENSE_ROWS`` rows, and odd
-    shapes (K not a multiple of 16, N a multiple of 4 or of nothing, a weight
-    that starts 8 or 2 bytes past a 16-byte boundary, 130 rows); ``rms_norm``
+    at the five decode shapes, bf16 and fp32, at ``DENSE_ROWS`` rows (fp32 at
+    130 checked, not timed: the parity fixtures run 2 rows), and odd shapes
+    (K not a multiple of 16, N a multiple of 4 or of nothing, a weight that
+    starts 8 or 2 bytes past a 16-byte boundary, 130 rows); ``rms_norm``
     at D = 2048 and 1024, at 2, 64 and 2048 rows.  Returns the bf16 records of
     the MLP input projection at 2 rows and of the decoder's norm at 2 rows."""
     for dtype in ("float32", "bfloat16"):
         for name, (K, N) in GEMV_SHAPES.items():
             for M in DENSE_ROWS:
-                rec = dense_rows_case(torch, dtype, M, K, N)
+                rec = dense_rows_case(torch, dtype, M, K, N, time_it=dtype == "bfloat16" or M < 130)
                 if dtype == "bfloat16" and name == "mlp_wi_2048x16384" and M == 2:
                     dense = rec
         for M, K, N, offset in ((3, 1000, 1027, 0), (3, 40, 7, 0), (130, 1000, 520, 0),
@@ -2979,7 +2992,7 @@ def phase_serving(torch) -> dict:
 
 
 CB_TOKENS = 256  # the continuous batcher's max_tokens (its self-cache length)
-CB_MANY = 40  # lanes of the many-lane group: 80 rows a step, past one 64-row kernel launch
+CB_MANY = 40  # lanes of the many-lane group: 80 rows a step, past the int8 matmul's 64-row group
 CB_MANY_INT8 = 33  # lanes of the int8 many-lane group: 66 rows
 CB_MANY_TOKENS = 96  # max_tokens of the many-lane groups' requests
 CB_MANY_CHECKED = (0, CB_MANY // 2, CB_MANY - 1)  # lanes held to their solo runs
@@ -3652,7 +3665,7 @@ def phase_files(torch, tmp: Path) -> dict:
 SPEC_TOKENS = 256  # max_tokens of the speculative phase's calls
 SPEC_EAGER_TOKENS = 64  # the eager speculative call (Python steps every window)
 SPEC_WINDOW, SPEC_DRAFT = 8, 6  # W and Ld: Dia.speculative_generator's defaults at 18 layers
-SPEC_WIDE = 40  # the wide greedy window: 80 verify rows, past one 64-row kernel launch
+SPEC_WIDE = 40  # the wide greedy window: 80 verify rows, past the int8 matmul's 64-row group
 SPEC_PROMPT_FRAMES = 64  # the voice-prompted route's prompt: the loop's first codes
 SPEC_PROMPT_TEXT = "[S2] And it clones voices from a prompt."
 

@@ -132,16 +132,6 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// bf16x2 words of two rows a, b of a k-major weight (each word two columns):
-// (a.low, b.low) and (a.high, b.high), the A fragment word of one column at
-// two consecutive k (the dense-rows kernel reads the weight untransposed)
-__device__ __forceinline__ uint32_t low_pair(uint32_t a, uint32_t b) {
-  return __byte_perm(a, b, 0x5410);
-}
-__device__ __forceinline__ uint32_t high_pair(uint32_t a, uint32_t b) {
-  return __byte_perm(a, b, 0x7632);
-}
-
 // A fragment for the 16 x 16 row-major tile at `tile` (row stride H + PAD).
 template <int H>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int lane) {

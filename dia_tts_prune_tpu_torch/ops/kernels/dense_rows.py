@@ -10,11 +10,16 @@ with fp32 sums and one rounding to ``x.dtype``.  cuBLAS picks its algorithm,
 and with it each output's sum order, by the problem size, so a continuous-
 batching lane or a speculative verify row would leave its solo run.
 
-bf16 (the decode path) takes the int8 matmul's tensor-core design: a cluster
-of blocks owns a strip of ``STRIP`` columns, each block a K slice
-(``int8_matmul.cluster_plan``, from the weight's shape alone), the blocks add
-their fp32 partials in rank order on chip; the rows go in groups of
-``GROUP_ROWS``, each group with the same plan.  fp32 takes the CUDA cores:
+bf16 (the decode path): TMA boxes of the weight and of x into a ring of
+128-byte-swizzled stages, ``wgmma.m64n16k16`` with the weight as the A
+operand straight from shared memory, one instruction shape over every
+16-row tile; a cluster of blocks owns a strip of ``STRIP`` columns, each
+block a K slice (``row_plan``, from the weight's shape alone), the blocks add
+their fp32 partials in rank order on chip; the weight is read once for up to
+``GROUP_ROWS`` rows, more rows go in groups, each with the same plan.  A
+weight that no tensor map describes (the logits head: rows of 18504 bytes)
+is copied by threads, 8 bytes a ``cp.async``, into the same layout, x still
+by TMA.  fp32 takes the CUDA cores:
 column strips × K slices (``split_plan``), each slice's fp32 partial summed
 in slice order by a second small kernel.  No atomics, no TF32.
 """
@@ -25,11 +30,21 @@ import ctypes
 
 import torch
 
-from .int8_matmul import cluster_plan, split_plan
+from .int8_matmul import split_plan
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-GROUP_ROWS = 64  # rows a block multiplies (csrc: GROUP_ROWS); more rows are more groups
+# bf16 route (csrc: namespace tc)
+GROUP_ROWS = 128  # rows a block multiplies (csrc: GROUP_ROWS); more rows are more groups
+STRIP = 128  # columns of a block's strip (csrc: STRIP)
+STAGE_ROWS = 64  # weight rows a stage holds; slices are multiples of it (csrc: KC)
+MAX_CLUSTER = 16  # blocks of a cluster (above the portable 8: the kernel opts in)
+# from tools/torch_dense_rows_sweep.py on an H100: at 2 and at 80 rows the five
+# decode shapes are fastest with at most ~64 blocks and slices of 256 rows or more
+# (fewer ranks to merge; an SM streams more than its 1/132 of the memory rate)
+PLAN_BLOCKS = 64  # blocks a call aims for at most
+MIN_SLICE = 256  # K rows a block's slice keeps at least: four stages
+TMA = 16  # the entry's vec for TMA boxes (else bytes of a copying thread's unit)
 
 
 def dense_rows_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -37,15 +52,39 @@ def dense_rows_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
-def copy_width(n_cols: int, data_ptr: int) -> int:
-    """bf16 route: bytes of one ``cp.async`` of weight.  16 where the weight's
-    address is 16-byte aligned and a row's length a multiple of 4 (rows whose
-    start is not 16-byte aligned are copied from the boundary before it, 0 or
-    8 bytes back); else 4 where the address is 4-byte aligned and a row's
-    length even; else 2 (single values, copied synchronously)."""
-    if data_ptr % 16 == 0 and n_cols % 4 == 0:
-        return 16
+def weight_route(n_cols: int, data_ptr: int) -> int:
+    """bf16 route: how the weight reaches shared memory (the entry's ``vec``).
+    ``TMA`` (16): boxes of the [K, N] weight, where a tensor map can describe
+    it (address 16-byte aligned, a row a multiple of 16 bytes); else bytes of
+    one ``cp.async`` by the copying threads: 8 where the address is 8-byte
+    aligned and a row's length a multiple of 4 (the logits head, rows of
+    18504 bytes: x still by TMA where ``x_by_tma``), 4 where 4-byte aligned
+    and even, else 2 (single values, copied synchronously)."""
+    if data_ptr % 16 == 0 and n_cols % 8 == 0:
+        return TMA
+    if data_ptr % 8 == 0 and n_cols % 4 == 0:
+        return 8
     return 4 if n_cols % 2 == 0 and data_ptr % 4 == 0 else 2
+
+
+def x_by_tma(k_cols: int, data_ptr: int) -> bool:
+    """bf16 route: whether a tensor map can describe x (address 16-byte
+    aligned, a row a multiple of 16 bytes); the TMA route needs both."""
+    return data_ptr % 16 == 0 and k_cols % 8 == 0
+
+
+def row_plan(k_rows: int, n_cols: int) -> tuple[int, int]:
+    """bf16 route: (blocks of a cluster, K rows of each block's slice) for a
+    [k_rows, n_cols] weight.  The cluster doubles, up to ``MAX_CLUSTER``, while
+    strips × blocks stay within ``PLAN_BLOCKS`` and the slices keep at least
+    ``MIN_SLICE`` rows; a slice is a whole number of stages.  It never sees
+    the row count, so neither does a row's sum order."""
+    strips = -(-n_cols // STRIP)
+    cluster = 1
+    while (cluster < MAX_CLUSTER and 2 * cluster * strips <= PLAN_BLOCKS
+           and k_rows >= 2 * cluster * MIN_SLICE):
+        cluster *= 2
+    return cluster, -(-k_rows // (cluster * STAGE_ROWS)) * STAGE_ROWS
 
 
 def vector_width(n_cols: int, data_ptr: int) -> int:
@@ -102,7 +141,10 @@ def dense_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     K, N = w.shape
     if x.dtype == torch.bfloat16:
-        return launch(x, w, copy_width(N, w.data_ptr()), *cluster_plan(K, N))
+        vec = weight_route(N, w.data_ptr())
+        if vec == TMA and not x_by_tma(K, x.data_ptr()):
+            vec = 8  # an x no tensor map takes: the copying threads take both
+        return launch(x, w, vec, *row_plan(K, N))
     vec = vector_width(N, w.data_ptr())
     n_split = split_plan(K, N, vec)
     return launch(x, w, vec, n_split, -(-K // n_split))

@@ -7,9 +7,13 @@ It replaces no Pallas kernel: the JAX package computes RMSNorm with XLA
 bits depend on its own values, the scale and the width only: a CUDA reduction
 of ATen picks its launch shape, and with it the order a row's mean of
 squares sums in, by the number of rows, so a batched row would leave its
-single-stream run.  One block a row, ``threads(D)`` threads: each sums a
-fixed strided set of the row in fp32, a fixed shuffle tree adds a warp's
-sums, the warps add in warp order.
+single-stream run.  bf16 rows of a width that is a multiple of 8, up to
+8192 (the model's): ``row_warps(D)`` warps a row, several rows a block, each
+lane holding its 16-byte units in registers and summing their squares in
+order, a fixed XOR shuffle tree, the warps in warp order.  fp32 rows and
+other widths: one block a row, ``threads(D)`` threads, each summing a fixed
+strided set of the row, a fixed shuffle tree adds a warp's sums, the warps
+add in warp order.
 
 Under autograd (training) the card's route is ``RmsNormFunction``: the
 kernel forward, and the RMSNorm gradient written in torch ops.
@@ -27,6 +31,8 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] + [cty
     + [ctypes.c_void_p]
 PER_THREAD = 8  # csrc: PER_THREAD
 MAX_THREADS = 1024  # csrc: MAX_THREADS
+LANE_UNITS = 8  # csrc: LANE_UNITS (16-byte units a lane holds on the bf16 route)
+NORM_THREADS = 128  # csrc: NORM_THREADS
 
 
 def threads(D: int) -> int:
@@ -34,6 +40,15 @@ def threads(D: int) -> int:
     launch shape, from the width alone."""
     per_row = -(-D // PER_THREAD)
     return min(MAX_THREADS, max(32, -(-per_row // 32) * 32))
+
+
+def row_warps(D: int, dtype: torch.dtype) -> int:
+    """Warps of a row on the bf16 route (csrc: ``row_warps``), or 0 where a
+    row takes the block-a-row route (fp32, or a width that is not a multiple
+    of 8 or exceeds 8192)."""
+    if dtype != torch.bfloat16 or D % 8 or D > 8192:
+        return 0
+    return 1 if D <= 2048 else 2 if D <= 4096 else 4
 
 
 def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -65,6 +80,9 @@ def launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     D = x.shape[-1]
     x2 = x.reshape(-1, D).contiguous()
     s = scale.contiguous()
+    if row_warps(D, x.dtype):  # the bf16 route loads 16 bytes at once: aligned copies
+        x2 = x2 if x2.data_ptr() % 16 == 0 else x2.clone()
+        s = s if s.data_ptr() % 16 == 0 else s.clone()
     out = torch.empty_like(x2)
     if x2.shape[0]:
         with torch.cuda.device(x.device):

@@ -563,9 +563,9 @@ def test_int4_bf16_call_is_one_kernel(cuda_device, group, layout, B):
 @pytest.mark.parametrize("D", [2048, 1024])
 def test_rms_norm_rows_do_not_depend_on_the_batch(cuda_device, D):
     """A row's RMSNorm is the same bits whether the call holds 1, 2, 8, 20,
-    64, 80 or 130 rows of one token, or 2048 rows (the decode step's, 40
-    lanes', and the encoder's shapes), one launch a call, within fp32
-    summation noise of the plain version."""
+    64, 80, 128 or 130 rows of one token, or 2048 rows (the decode step's, 40
+    lanes', the dense-rows kernel's row group, and the encoder's shapes), one
+    launch a call, within fp32 summation noise of the plain version."""
     from dia_tts_prune_tpu_torch.ops.kernels import rms_norm_plain
     from dia_tts_prune_tpu_torch.ops.modules import rms_norm
 
@@ -575,7 +575,7 @@ def test_rms_norm_rows_do_not_depend_on_the_batch(cuda_device, D):
     before = rms_norm.launches
     full = rms_norm(x, scale, 1e-5)
     assert rms_norm.launches == before + 1
-    for B in (1, 2, 8, 20, 64, 80, 130):
+    for B in (1, 2, 8, 20, 64, 80, 128, 130):
         for i in (0, 5, 130 - B):
             assert torch.equal(rms_norm(x[i:i + B], scale, 1e-5), full[i:i + B])
     ref = rms_norm_plain(x.float(), scale, 1e-5)
@@ -640,21 +640,29 @@ def test_dense_rows_kernel_matches_plain_on_card(cuda_device, dtype, rtol, atol,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [2, 64, 80])
-def test_dense_rows_bf16_call_is_one_kernel(cuda_device, M):
-    """A bf16 call runs one kernel whatever M (grid.z walks the groups of 64
-    rows) and allocates nothing but its output."""
+@pytest.mark.parametrize("N", [2048, 9252])
+@pytest.mark.parametrize("M", [2, 64, 80, 130])
+def test_dense_rows_bf16_call_is_one_kernel(cuda_device, M, N):
+    """A bf16 call runs one kernel whatever M (grid.z walks the groups of 128
+    rows), on the TMA route and on the logits head's 8-byte-copy route, and
+    allocates nothing but its output: one allocation, of the output's bytes
+    in the caching allocator's 512-byte blocks where it is below 1 MB (above,
+    the allocator may hand out a larger cached block whole)."""
     import chip_smoke
     from dia_tts_prune_tpu_torch.ops.kernels import dense_rows
 
     rng = np.random.default_rng(35)
-    w = _t(_normal(rng, (2048, 2048))).to(cuda_device, torch.bfloat16)
+    w = _t(_normal(rng, (2048, N))).to(cuda_device, torch.bfloat16)
     x = _t(_normal(rng, (M, 2048))).to(cuda_device, torch.bfloat16)
     dense_rows(x, w)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
+    count = torch.cuda.memory_stats()["allocation.all.allocated"]
     out = dense_rows(x, w)
-    assert torch.cuda.memory_allocated() - before == out.untyped_storage().nbytes()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - count == 1
+    nbytes = out.untyped_storage().nbytes()
+    if nbytes < 1 << 20:
+        assert torch.cuda.memory_allocated() - before == -(-nbytes // 512) * 512
     assert chip_smoke.kernels_per_call(torch, lambda: dense_rows(x, w)) == 1
 
 
@@ -665,9 +673,10 @@ def test_dense_rows_bf16_call_is_one_kernel(cuda_device, M):
 def test_float_dense_rows_do_not_depend_on_the_batch(cuda_device, dtype, shape):
     """A float decode-step contraction (``dense_general(decode=True)``: the
     dense-rows kernel) gives a row the same bits whether the call holds 1, 2,
-    4, 8, 16, 64, 80 or 130 rows: the Dia-1.6B decode shapes, the logits head
-    (2048 x 9 x 1028) first, whose cuBLAS sums at 4 rows once differed from
-    those at 2; and it stays within the GEMV gate of the plain version."""
+    4, 8, 16, 64, 80, 128 (the bf16 row group) or 130 rows: the Dia-1.6B
+    decode shapes, the logits head (2048 x 9 x 1028) first, whose cuBLAS sums
+    at 4 rows once differed from those at 2; and it stays within the GEMV
+    gate of the plain version."""
     from dia_tts_prune_tpu_torch.ops.kernels import dense_rows, dense_rows_plain
     from dia_tts_prune_tpu_torch.ops.modules import dense_general
 
@@ -680,7 +689,7 @@ def test_float_dense_rows_do_not_depend_on_the_batch(cuda_device, dtype, shape):
     full = dense_general(x, kernel, axis, decode=True)
     assert dense_rows.launches == before + 1
     assert full.shape == (130, 1, *k_out)
-    for B in (1, 2, 4, 8, 16, 64, 80, 130):
+    for B in (1, 2, 4, 8, 16, 64, 80, 128, 130):
         for i in (0, 6, 130 - B):
             assert torch.equal(dense_general(x[i:i + B], kernel, axis, decode=True),
                                full[i:i + B]), (B, i)
@@ -688,6 +697,28 @@ def test_float_dense_rows_do_not_depend_on_the_batch(cuda_device, dtype, shape):
     x2, w2 = x.reshape(130, K).float(), kernel.reshape(K, -1).float()
     rtol = 0.0 if dtype == torch.float32 else 2.0 ** -8
     _assert_gemv_close(full.reshape(130, -1), dense_rows_plain(x2, w2), x2, w2, rtol)
+
+
+@pytest.mark.gpu
+def test_fp32_rows_equal_the_earlier_kernels(cuda_device):
+    """The fp32 routes of both kernels (the parity fixtures' and the training
+    gate's) keep their bits: on the seed inputs of
+    ``tools/torch_float_rows_ab.py``'s ``FP32_CASES``, each output's digest
+    equals the one the earlier source's build wrote into
+    ``tests/fixtures/torch_fp32_rows_digests.json`` (``--fp32-digests``)."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    from dia_tts_prune_tpu_torch.ops.kernels import dense_rows, rms_norm
+
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("torch_float_rows_ab",
+                                                  repo / "tools" / "torch_float_rows_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    want = json.loads((repo / "tests" / "fixtures" / "torch_fp32_rows_digests.json").read_text())
+    assert ab.fp32_digests(torch, dense_rows, rms_norm) == want
 
 
 @pytest.mark.gpu
